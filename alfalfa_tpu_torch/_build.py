@@ -1,5 +1,6 @@
-"""Build and load the CUDA kernels under csrc/, and the argument check
-their wrappers share.
+"""Build and load the CUDA kernels under csrc/, and what their wrappers
+share: the C entry's handle, the call that raises on a CUDA error, the
+argument checks.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into its own shared library ``build/lib<name>.so`` (no PyTorch headers, so
@@ -7,13 +8,17 @@ a build takes seconds) and loaded with ctypes: a library per source, not
 one for all, so that ``build_all`` can start one ``nvcc`` per source at
 once and the build time stays that of the slowest source as kernels are
 added.  The build happens at first use, from the sources in this package
-only.  A library is rebuilt when its source is newer.
+only.  A library is rebuilt when its source, or a header beside it
+(``csrc/*.cuh``), is newer.
 """
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
 import threading
+
+import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -49,7 +54,10 @@ def _paths(name):
 
 def _stale(name):
     src, so = _paths(name)
-    return not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src)
+    if not os.path.exists(so):
+        return True
+    deps = [src] + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    return os.path.getmtime(so) < max(os.path.getmtime(p) for p in deps)
 
 
 def _start(name):
@@ -86,6 +94,37 @@ def load_kernel(name):
                 _finish(name, *_start(name))
             lib = _LIBS[name] = ctypes.CDLL(_paths(name)[1])
         return lib
+
+
+def c_entry(lib, fn, argtypes):
+    """ctypes handle of the C entry ``fn`` of ``build/lib<lib>.so``.  Every
+    entry takes ``argtypes`` followed by the CUDA stream and an ``int*``
+    into which it writes the kernel launches it issued, and returns the
+    CUDA error code."""
+    f = getattr(load_kernel(lib), fn)
+    f.restype = ctypes.c_int
+    f.argtypes = list(argtypes) + [ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_int)]
+    return f
+
+
+def launch(entry, name, device, *args):
+    """Call the C entry on ``device``'s current stream; raise on a CUDA
+    error.  Returns the number of kernel launches the entry issued."""
+    issued = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = entry(*args, torch.cuda.current_stream().cuda_stream,
+                   ctypes.byref(issued))
+    if rc != 0:
+        raise RuntimeError("%s launch failed: CUDA error %d" % (name, rc))
+    return issued.value
+
+
+def check_map(name, t, shape, device):
+    """Raise unless the per-macroblock map ``t`` is on ``device`` with
+    ``shape`` (any dtype: the wrapper packs it)."""
+    if t.device != device or tuple(t.shape) != tuple(shape):
+        raise ValueError("%s must be %s on %s" % (name, tuple(shape), device))
 
 
 def check_tensor(name, t, dtype, shape, device):

@@ -2,11 +2,13 @@
 
 The system has no weights; what persists from frame to frame is the codec
 state: per-GOP header state (probability tables, segmentation, filter
-adjustments) and the three reference rasters.  These functions move both
-through plain numpy, so a stream can be decoded part-way by one package
-and continued by the other.  Neither package is imported by the other:
-``decoder_state_to_dict`` reads attributes only and accepts either
-package's ``DecoderState``.
+adjustments) and the three reference rasters, or a whole single-frame
+``Decoder``.  These functions move them through plain numpy, so a stream
+can be decoded part-way by one package and continued by the other.
+Neither package is imported by the other: the ``*_to_dict`` functions read
+attributes only and accept either package's objects; the ``*_from_dict``
+functions build this package's objects unless they are handed the other
+package's classes.
 """
 import numpy as np
 import torch
@@ -68,3 +70,78 @@ def decoder_state_from_dict(d, classes=_DS):
         fa = classes.FilterAdjustments(np.array(fa["ref_adjustments"]),
                                        np.array(fa["mode_adjustments"]))
     return classes.DecoderState(d["width"], d["height"], pt, seg, fa)
+
+
+def _host(plane):
+    """A plane of either package's Raster as numpy."""
+    if isinstance(plane, torch.Tensor):
+        return plane.cpu().numpy()
+    return np.asarray(plane)
+
+
+def raster_to_dict(raster):
+    """Either package's Raster as {display_width, display_height, y, u, v}
+    with numpy planes."""
+    return {"display_width": int(raster.display_width),
+            "display_height": int(raster.display_height),
+            **{p: _host(getattr(raster, p)) for p in PLANES}}
+
+
+def raster_from_dict(d, classes=None, device=None):
+    """A Raster from raster_to_dict's output: this package's, with planes
+    on ``device`` (default CUDA), or, given the other package's
+    decoder_state module as ``classes``, that package's with numpy
+    planes."""
+    planes = [np.array(d[p], np.uint8) for p in PLANES]
+    if classes is not None:
+        return classes.Raster(d["display_width"], d["display_height"], *planes)
+    dev = torch.device("cuda" if device is None else device)
+    return _DS.Raster(d["display_width"], d["display_height"],
+                      *(torch.from_numpy(p).to(dev) for p in planes))
+
+
+_REFS = ("last", "golden", "alternative")
+
+
+def references_to_dict(refs):
+    """Either package's References as {"rasters": [...], "last": i,
+    "golden": j, "alternative": k}: each distinct raster once, and which
+    one each slot holds, so rasters shared between slots stay shared."""
+    rasters, index = [], {}
+    for name in _REFS:
+        r = getattr(refs, name)
+        if id(r) not in index:
+            index[id(r)] = len(rasters)
+            rasters.append(raster_to_dict(r))
+    return {"rasters": rasters,
+            **{name: index[id(getattr(refs, name))] for name in _REFS}}
+
+
+def references_from_dict(d, classes=None, device=None):
+    """References from references_to_dict's output (see raster_from_dict
+    for ``classes`` and ``device``)."""
+    rasters = [raster_from_dict(r, classes, device) for r in d["rasters"]]
+    cls = _DS.References if classes is None else classes.References
+    return cls(*(rasters[d[name]] for name in _REFS))
+
+
+def decoder_to_dict(decoder):
+    """Either package's single-frame Decoder as plain values."""
+    return {"state": decoder_state_to_dict(decoder.state),
+            "references": references_to_dict(decoder.references),
+            "error_concealment": bool(decoder.error_concealment)}
+
+
+def decoder_from_dict(d, decoder_cls=None, classes=None, device=None):
+    """A Decoder from decoder_to_dict's output: this package's on
+    ``device`` (default CUDA), or, given the other package's Decoder class
+    and decoder_state module, that package's (with its default backend)."""
+    state = decoder_state_from_dict(d["state"],
+                                    _DS if classes is None else classes)
+    refs = references_from_dict(d["references"], classes, device)
+    kw = dict(state=state, references=refs,
+              error_concealment=d["error_concealment"])
+    if decoder_cls is not None:
+        return decoder_cls(state.width, state.height, **kw)
+    from alfalfa_tpu_torch.decoder import Decoder
+    return Decoder(state.width, state.height, device=device, **kw)

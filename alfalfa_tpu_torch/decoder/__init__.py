@@ -1,0 +1,1 @@
+from .decoder import Decoder, FramePlayer, FilePlayer

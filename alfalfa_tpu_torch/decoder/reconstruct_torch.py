@@ -1,21 +1,31 @@
-"""Device (PyTorch) frame reconstruction for G frames in lockstep.
+"""Device (PyTorch) frame reconstruction: G frames in lockstep (the GOP
+decoder) or one frame (the single-frame ``Decoder``).
 
-Everything data-parallel runs as dense batched tensor ops over the whole
-batch (residual transforms, the add-and-clip of inter prediction); the two
-stages with per-macroblock control flow are the CUDA kernels
-``ops.sixtap_cuda.mc_tiles`` (motion compensation) and
-``ops.wavefront_cuda.wavefront_decode`` (intra prediction + loop filter).
+Everything data-parallel runs as dense batched tensor ops (residual
+transforms, the add-and-clip of inter prediction); the stages with
+per-macroblock control flow are CUDA kernels:
+
+- GOP batch: ``ops.sixtap_cuda.mc_tiles`` (motion compensation) and
+  ``ops.wavefront_cuda.wavefront_decode`` (intra prediction + loop filter);
+- one frame: ``ops.sixtap_cuda.predict_mb_tiles``, then
+  ``ops.intra_cuda.intra_frame``, then ``ops.lf_cuda.loop_filter``.
 
 The kernels take dense (G, R, C, ...) tensors and hand back (G, H, W)
 uint8 planes: there is no diagonal skew, no pixel-major transpose and no
-chunking of the batch here.
+chunking of the batch here.  (The JAX package's skew schedule and its
+``intra_active`` bucketing exist for XLA and are not ported.)
 """
 import numpy as np
 import torch
 
+from alfalfa_tpu_torch.decoder.lf_params import frame_lf_params
 from alfalfa_tpu_torch.ops import transforms
-from alfalfa_tpu_torch.ops.sixtap_cuda import mc_tiles
+from alfalfa_tpu_torch.ops.intra_cuda import intra_frame
+from alfalfa_tpu_torch.ops.lf_cuda import loop_filter
+from alfalfa_tpu_torch.ops.sixtap_cuda import mc_tiles, predict_mb_tiles
+from alfalfa_tpu_torch.ops.wavefront import untile
 from alfalfa_tpu_torch.ops.wavefront_cuda import wavefront_decode
+from alfalfa_tpu_torch.state.decoder_state import Raster
 
 
 def _assemble(blocks, n):
@@ -26,14 +36,15 @@ def _assemble(blocks, n):
 
 
 def _stage_ab(key_frame, coeffs, qf, y2_coded, has_nonzero,
-              ref_sel, sub_mv, uv_mv, refs):
+              ref_sel, sub_mv, uv_mv, refs, mc=mc_tiles):
     """Stages A (residuals) + B (inter prediction): the fully parallel
     dense front of the pipeline.
 
     coeffs: (G, R, C, 25, 16) int; qf: dict of (G, R, C) int tensors;
     y2_coded, has_nonzero: (G, R, C) bool; ref_sel: (G, R, C) int32;
     sub_mv: (G, R, C, 4, 4, 2), uv_mv: (G, R, C, 2, 2, 2) int32; refs:
-    {"y", "u", "v"} -> (G, 3, H, W) uint8 (unused on key frames).
+    {"y", "u", "v"} -> (G, 3, H, W) uint8 (unused on key frames); mc:
+    the motion compensation, with mc_tiles' contract.
 
     Returns (y, u, v stage-B tiles uint8; res_y, res_u, res_v int16;
     intra mask).  Intra macroblocks' tiles are zero."""
@@ -57,7 +68,7 @@ def _stage_ab(key_frame, coeffs, qf, y2_coded, has_nonzero,
     tiles = []
     for plane, mv, S, r in (("y", sub_mv, 16, res_y), ("u", uv_mv, 8, res_u),
                             ("v", uv_mv, 8, res_v)):
-        pred = mc_tiles(refs[plane], ref_sel, mv, S)
+        pred = mc(refs[plane], ref_sel, mv, S)
         t = torch.clamp(pred.to(torch.int16) + r, 0, 255).to(torch.uint8)
         tiles.append(torch.where(m, t, torch.zeros_like(t)))
     return (*tiles, res_y, res_u, res_v, ~is_inter)
@@ -91,3 +102,79 @@ def _frame_quant_factors(header, state, segment):
     q = header.quant_indices.quantizer()
     r, c = segment.shape
     return {k: np.full((r, c), int(v), np.int32) for k, v in q.items()}
+
+
+# ---------------------------------------------------------------------------
+# one frame: the single-frame Decoder's path and the encoders' loop filter
+# ---------------------------------------------------------------------------
+
+def _predict_one(refs, ref_sel, mv, S):
+    """mc_tiles' contract at G=1, through the single-frame entry."""
+    return predict_mb_tiles(refs, ref_sel[0], mv[0], S)[None]
+
+
+def reconstruct_core(key_frame, coeffs, qf, y2_coded, has_nonzero, ymode,
+                     uvmode, bmode, ref_sel, sub_mv, uv_mv, refs, lf_params):
+    """Reconstruct one frame: reconstruct_core_batch's arguments without
+    the G axis; refs: {"y", "u", "v"} -> (3, H, W) uint8 stacks (last,
+    golden, alternate), None on key frames.  Stages A/B, then intra
+    prediction (K4), then the loop filter of the three planes (K5).
+    Returns (H, W), (H/2, W/2), (H/2, W/2) uint8 planes."""
+    one = lambda x: x[None]
+    y, u, v, res_y, res_u, res_v, intra_mask = _stage_ab(
+        key_frame, one(coeffs), {k: one(q) for k, q in qf.items()},
+        one(y2_coded), one(has_nonzero), one(ref_sel), one(sub_mv),
+        one(uv_mv), refs, mc=_predict_one)
+    planes = intra_frame(y, u, v, res_y, res_u, res_v, one(ymode),
+                         one(uvmode), one(bmode), one(has_nonzero),
+                         intra_mask)
+    Y, U, V = loop_filter(*planes, tuple(one(x) for x in lf_params))
+    return Y[0], U[0], V[0]
+
+
+def loopfilter_tiles(y_tiles, u_tiles, v_tiles, lf_params):
+    """Whole-frame loop filter of one frame held as tiles (the encoders'
+    entry): y_tiles (R, C, 16, 16) or (R, C, 256), u_tiles / v_tiles
+    (R, C, 8, 8) or (R, C, 64), any integer type with values in 0..255;
+    lf_params: six (R, C) tensors as reconstruct_core takes them.
+    Returns the filtered (H, W), (H/2, W/2), (H/2, W/2) uint8 planes."""
+    R, C = lf_params[0].shape
+    planes = [untile(t.reshape(1, R, C, S, S)).contiguous()
+              for t, S in ((y_tiles, 16), (u_tiles, 8), (v_tiles, 8))]
+    Y, U, V = loop_filter(*planes, tuple(x[None] for x in lf_params))
+    return Y[0], U[0], V[0]
+
+
+def reconstruct(header, arrays, state, references, key_frame, device=None):
+    """Reconstruct one parsed frame on ``device`` (default CUDA), with the
+    contract of the JAX package's reconstruct_jax.reconstruct: returns a
+    new Raster, here with tensor planes on ``device``.  The reference
+    rasters' planes are used where they lie if they are on ``device``, and
+    copied there if not."""
+    dev = torch.device("cuda" if device is None else device)
+    R, C = arrays.mb_rows, arrays.mb_cols
+
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    qf = {k: put(q, torch.int32) for k, q in
+          _frame_quant_factors(header, state, arrays.segment).items()}
+    lf = frame_lf_params(header, arrays, state, key_frame)
+    lf_params = tuple(put(x, torch.int32) for x in lf[:5]) \
+        + (put(lf[5], torch.bool),)
+    refs = None
+    if not key_frame:
+        # one (3, H, W) stack per plane for the MC kernel: a device copy of
+        # the three references every interframe (about 4 MB at 720p)
+        rasters = [r.on_device(dev) for r in (
+            references.last, references.golden, references.alternative)]
+        refs = {p: torch.stack([getattr(r, p) for r in rasters])
+                for p in "yuv"}
+    y, u, v = reconstruct_core(
+        key_frame, put(arrays.densify_coeffs(), torch.int16), qf,
+        put(arrays.y2_coded, torch.bool), put(arrays.has_nonzero, torch.bool),
+        put(arrays.ymode, torch.int32), put(arrays.uvmode, torch.int32),
+        put(arrays.bmode.reshape(R, C, 16), torch.uint8),
+        put(arrays.ref, torch.int32), put(arrays.sub_mv, torch.int32),
+        put(arrays.uv_mv, torch.int32), refs, lf_params)
+    return Raster(state.width, state.height, y, u, v)

@@ -54,77 +54,49 @@ def whole_block_predict(e, lcol, has_row, has_col, mode, size):
 
 
 
+# Cells of the eight directional b-modes (VE, HE, LD, RD, VR, VL, HD, HU),
+# row-major, as columns of subblock_predict_all's table V: 0-11 avg2 of
+# edge pixels (k, k+1), 12-22 avg3 of (k, k+1, k+2), 23 avg3(L2, L3, L3),
+# 24 avg3(A6, A7, A7), 25 L3; edge pixel k of
+# [L3, L2, L1, L0, above-left, A0 .. A7].
+_DIRECTIONAL = (
+    [16, 17, 18, 19] * 4,                                           # VE
+    [14] * 4 + [13] * 4 + [12] * 4 + [23] * 4,                      # HE
+    [17 + x + y if x + y < 6 else 24
+     for y in range(4) for x in range(4)],                          # LD
+    [15 + x - y for y in range(4) for x in range(4)],               # RD
+    [4, 5, 6, 7, 15, 16, 17, 18, 14, 4, 5, 6, 13, 15, 16, 17],      # VR
+    [5, 6, 7, 8, 17, 18, 19, 20, 6, 7, 8, 21, 18, 19, 20, 22],      # VL
+    [3, 15, 16, 17, 2, 14, 3, 15, 1, 13, 2, 14, 0, 12, 1, 13],      # HD
+    [2, 13, 1, 12, 1, 12, 0, 23, 0, 23, 25, 25, 25, 25, 25, 25],    # HU
+)
+
+
 def subblock_predict_all(above4, left4, al, ar4):
     """All ten 4x4 b-mode predictions: returns (N, 10, 4, 4) int32.
 
     above4/left4/ar4: (N, 4) int32; al: (N,).  Order matches the bmode enum
-    (DC, TM, VE, HE, LD, RD, VR, VL, HD, HU)."""
+    (DC, TM, VE, HE, LD, RD, VR, VL, HD, HU).  Every cell of the eight
+    directional modes is one smoothed pair or triple of edge pixels (or
+    one pixel): all of them are computed once, and each mode gathers its
+    sixteen (see _DIRECTIONAL)."""
     N = above4.shape[0]
-    a = torch.cat([above4, ar4], dim=1)                      # a[0..7]
+    a = torch.cat([above4, ar4], dim=1)                      # A0..A7
     l = left4
-    # east(i): left bottom-up, above-left, then the above row
+    # edge pixels: left bottom-up, above-left, then the above row
     e = torch.cat([left4.flip(1), al[:, None], a], dim=1)    # (N, 13)
-    A = lambda k: a[:, k]
-    E = lambda k: e[:, k]
-    L = lambda k: l[:, k]
-
-    def cells(vals):
-        """16 row-major (N,) cell tensors -> (N, 4, 4)."""
-        return torch.stack(vals, dim=1).reshape(N, 4, 4)
-
-    dc = ((a[:, :4].sum(1) + l.sum(1) + 4) >> 3)[:, None, None] \
-        .expand(N, 4, 4)
+    V = torch.cat([_avg2(e[:, :-1], e[:, 1:]),
+                   _avg3(e[:, :-2], e[:, 1:-1], e[:, 2:]),
+                   _avg3(l[:, 2:3], l[:, 3:4], l[:, 3:4]),
+                   _avg3(a[:, 6:7], a[:, 7:8], a[:, 7:8]),
+                   l[:, 3:4]], dim=1)                        # (N, 26)
+    idx = torch.tensor(_DIRECTIONAL, device=e.device).reshape(-1)
+    directional = V[:, idx].reshape(N, 8, 4, 4)
+    dc = ((a[:, :4].sum(1) + l.sum(1) + 4) >> 3)[:, None, None, None] \
+        .expand(N, 1, 4, 4)
     tm = torch.clamp(l[:, :, None] + a[:, None, :4] - al[:, None, None],
-                     0, 255)
-    ve_v = torch.stack([_avg3(al, A(0), A(1)), _avg3(A(0), A(1), A(2)),
-                        _avg3(A(1), A(2), A(3)), _avg3(A(2), A(3), A(4))],
-                       dim=1)
-    ve = ve_v[:, None, :].expand(N, 4, 4)
-    he_v = torch.stack([_avg3(al, L(0), L(1)), _avg3(L(0), L(1), L(2)),
-                        _avg3(L(1), L(2), L(3)), _avg3(L(2), L(3), L(3))],
-                       dim=1)
-    he = he_v[:, :, None].expand(N, 4, 4)
-
-    # B_LD: anti-diagonals of smoothed above
-    ld_v = [_avg3(A(k), A(k + 1), A(k + 2)) for k in range(6)] \
-        + [_avg3(A(6), A(7), A(7))]
-    ld = cells([ld_v[x + y] for y in range(4) for x in range(4)])
-
-    # B_RD: diagonals of east
-    rd_v = [_avg3(E(k), E(k + 1), E(k + 2)) for k in range(7)]
-    rd = cells([rd_v[x - y + 3] for y in range(4) for x in range(4)])
-
-    vr3 = [_avg3(E(k + 1), E(k + 2), E(k + 3)) for k in range(6)]
-    vr2 = [_avg2(E(k + 4), E(k + 5)) for k in range(5)]
-    vr = cells([vr2[0], vr2[1], vr2[2], vr2[3],
-                vr3[2], vr3[3], vr3[4], vr3[5],
-                vr3[1], vr2[0], vr2[1], vr2[2],
-                vr3[0], vr3[2], vr3[3], vr3[4]])
-
-    vl2 = [_avg2(A(k), A(k + 1)) for k in range(4)]
-    vl3 = [_avg3(A(k), A(k + 1), A(k + 2)) for k in range(6)]
-    vl = cells([vl2[0], vl2[1], vl2[2], vl2[3],
-                vl3[0], vl3[1], vl3[2], vl3[3],
-                vl2[1], vl2[2], vl2[3], vl3[4],
-                vl3[1], vl3[2], vl3[3], vl3[5]])
-
-    hd2 = [_avg2(E(k), E(k + 1)) for k in range(5)]
-    hd3 = [_avg3(E(k), E(k + 1), E(k + 2)) for k in range(6)]
-    hd = cells([hd2[3], hd3[3], hd3[4], hd3[5],
-                hd2[2], hd3[2], hd2[3], hd3[3],
-                hd2[1], hd3[1], hd2[2], hd3[2],
-                hd2[0], hd3[0], hd2[1], hd3[1]])
-
-    hu = cells([_avg2(L(0), L(1)), _avg3(L(0), L(1), L(2)),
-                _avg2(L(1), L(2)), _avg3(L(1), L(2), L(3)),
-                _avg2(L(1), L(2)), _avg3(L(1), L(2), L(3)),
-                _avg2(L(2), L(3)), _avg3(L(2), L(3), L(3)),
-                _avg2(L(2), L(3)), _avg3(L(2), L(3), L(3)),
-                L(3), L(3),
-                L(3), L(3), L(3), L(3)])
-
-    return torch.stack([dc, tm, ve, he, ld, rd, vr, vl, hd, hu], dim=1) \
-        .to(torch.int32)
+                     0, 255)[:, None]
+    return torch.cat([dc, tm, directional], dim=1).to(torch.int32)
 
 
 def bpred_tile(e21, lcol16, bmodes, residuals, apply_residue):

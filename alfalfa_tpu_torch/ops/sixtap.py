@@ -1,6 +1,7 @@
 """Batched inter prediction (PyTorch): VP8 six-tap subpel filter, gather
 formulation.  This is the plain version of the ``sixtap_mc`` CUDA kernel
-(ops/sixtap_cuda.py).
+(ops/sixtap_cuda.py): ``mc_tiles_plain`` for G frames,
+``predict_frame_plain`` for one, both through ``predict_mb_tiles``.
 
 The reference treats full-pel MVs as a copy fast path and subpel as a
 two-pass 6-tap filter; filter index 0 is the identity tap, so a uniform
@@ -104,3 +105,9 @@ def mc_tiles_plain(refs, ref_sel, sub_mv, S):
     other; callers mask them.  Returns (G, R, C, S, S) uint8."""
     slot = torch.clamp(ref_sel.to(torch.int64) - 1, min=0)
     return predict_mb_tiles(refs, slot, sub_mv, S).to(torch.uint8)
+
+
+def predict_frame_plain(refs, ref_sel, sub_mv, S):
+    """Plain version of ops.sixtap_cuda.predict_mb_tiles (one frame, the
+    same contract): mc_tiles_plain at G=1."""
+    return mc_tiles_plain(refs[None], ref_sel[None], sub_mv[None], S)[0]

@@ -1,5 +1,6 @@
-"""Plain PyTorch version of the decode wavefront (ops/wavefront_cuda.py):
-intra prediction, then the loop filter, over macroblock anti-diagonals
+"""Plain PyTorch versions of the decode wavefront kernels: intra
+prediction (ops/intra_cuda.py), the loop filter (ops/lf_cuda.py) and the
+two in turn (ops/wavefront_cuda.py), over macroblock anti-diagonals
 d = 2*row + col, vectorised over the G frames and the macroblocks of a
 diagonal, as a Python loop over diagonals.
 
@@ -137,16 +138,47 @@ def untile(T):
     return T.permute(0, 1, 3, 2, 4).reshape(G, R * S, C * S).to(torch.uint8)
 
 
+def tile(P, S):
+    """(G, R*S, C*S) planes -> (G, R, C, S, S) int32 tiles (fresh)."""
+    G, H, W = P.shape
+    return P.reshape(G, H // S, S, W // S, S).permute(0, 1, 3, 2, 4) \
+        .to(torch.int32, copy=True)
+
+
+def intra_frame_plain(y, u, v, res_y, res_u, res_v, ymode, uvmode, bmode,
+                      has_nonzero, intra_mask):
+    """Plain version of ops.intra_cuda.intra_frame: the intra phase alone.
+    Arguments as wavefront_decode_plain's without lf_params; returns the
+    reconstructed, unfiltered (G, 16R, 16C), (G, 8R, 8C), (G, 8R, 8C)
+    uint8 planes."""
+    G, R, C = ymode.shape
+    Ty, Tu, Tv = (t.to(torch.int32) for t in (y, u, v))     # fresh copies
+    for rs, cs in diagonals(R, C):
+        _intra_diag(Ty, Tu, Tv, rs, cs, res_y, res_u, res_v, ymode, uvmode,
+                    bmode, has_nonzero, intra_mask, R, C)
+    return untile(Ty), untile(Tu), untile(Tv)
+
+
+def loop_filter_plain(y, u, v, lf_params):
+    """Plain version of ops.lf_cuda.loop_filter: the loop filter of whole
+    (G, 16R, 16C), (G, 8R, 8C), (G, 8R, 8C) uint8 planes with the six
+    (G, R, C) limit tensors (level 0 = macroblock not filtered).  Returns
+    new planes; the inputs are not written."""
+    G, R, C = lf_params[0].shape
+    # U and V filter alike: one batch of 2G chroma planes
+    Ty, Tuv = tile(y, 16), tile(torch.cat([u, v]), 8)
+    lf_uv = tuple(torch.cat([x, x]) for x in lf_params)
+    for rs, cs in diagonals(R, C):
+        _lf_diag(((Ty, 16),), rs, cs, lf_params)
+        _lf_diag(((Tuv, 8),), rs, cs, lf_uv)
+    U, V = untile(Tuv).chunk(2)
+    return untile(Ty), U, V
+
+
 def wavefront_decode_plain(y, u, v, res_y, res_u, res_v, ymode, uvmode,
                            bmode, has_nonzero, intra_mask, lf_params):
     """Plain version of ops.wavefront_cuda.wavefront_decode (same
-    contract, any device)."""
-    G, R, C = ymode.shape
-    Ty, Tu, Tv = (t.to(torch.int32) for t in (y, u, v))     # fresh copies
-    diags = diagonals(R, C)
-    for rs, cs in diags:
-        _intra_diag(Ty, Tu, Tv, rs, cs, res_y, res_u, res_v, ymode, uvmode,
-                    bmode, has_nonzero, intra_mask, R, C)
-    for rs, cs in diags:
-        _lf_diag(((Ty, 16), (Tu, 8), (Tv, 8)), rs, cs, lf_params)
-    return untile(Ty), untile(Tu), untile(Tv)
+    contract, any device): intra_frame_plain, then loop_filter_plain."""
+    return loop_filter_plain(
+        *intra_frame_plain(y, u, v, res_y, res_u, res_v, ymode, uvmode,
+                           bmode, has_nonzero, intra_mask), lf_params)

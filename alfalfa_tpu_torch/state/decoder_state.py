@@ -14,6 +14,7 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
+import torch
 
 from alfalfa_tpu_torch.bitstream import tables
 from . import hashing
@@ -214,9 +215,15 @@ class DecoderState:
 
 class Raster:
     """A padded YUV420 raster. Planes are sized to whole macroblocks
-    (width/height rounded up to multiples of 16); display dims may be less."""
+    (width/height rounded up to multiples of 16); display dims may be less.
 
-    __slots__ = ("y", "u", "v", "display_width", "display_height", "_hash")
+    Planes are numpy arrays or torch tensors; a decoder keeps its frames'
+    planes on its device.  A frame's planes never change after it is made,
+    so what is read on the host (hash, display, dump_bytes, ==) comes from
+    one host copy, made at the first such read and kept."""
+
+    __slots__ = ("y", "u", "v", "display_width", "display_height", "_hash",
+                 "_host")
 
     def __init__(self, display_width, display_height, y=None, u=None, v=None):
         self.display_width = display_width
@@ -226,42 +233,55 @@ class Raster:
         self.u = np.zeros((h16 // 2, w16 // 2), np.uint8) if u is None else u
         self.v = np.zeros((h16 // 2, w16 // 2), np.uint8) if v is None else v
         self._hash = None
+        self._host = None
+
+    def on_device(self, device):
+        """This raster with its planes as tensors on ``device``: itself if
+        they are there already, else a new Raster over copies."""
+        device = torch.device(device)
+        planes = (self.y, self.u, self.v)
+        if all(isinstance(p, torch.Tensor) and p.device.type == device.type
+               and device.index in (None, p.device.index) for p in planes):
+            return self
+        return Raster(self.display_width, self.display_height,
+                      *(torch.as_tensor(p).to(device) for p in planes))
 
     def copy(self):
+        """A value copy: tensor planes are cloned on their device."""
         return Raster(self.display_width, self.display_height,
-                      self.y.copy(), self.u.copy(), self.v.copy())
+                      *(p.clone() if isinstance(p, torch.Tensor) else p.copy()
+                        for p in (self.y, self.u, self.v)))
 
     def to_host(self):
-        """Planes as numpy.  A Raster is always handed numpy planes: a
-        tensor is brought over by its owner (``tensor.cpu().numpy()``)
-        before it gets here, because np.asarray cannot read a CUDA
-        tensor."""
-        if not isinstance(self.y, np.ndarray):
-            self.y = np.asarray(self.y)
-            self.u = np.asarray(self.u)
-            self.v = np.asarray(self.v)
-        return self
+        """The planes as numpy (y, u, v).  Tensor planes are read through
+        one host copy, made at the first call and kept beside them; the
+        tensors stay where they are."""
+        planes = (self.y, self.u, self.v)
+        if not isinstance(self.y, torch.Tensor):
+            return tuple(np.asarray(p) for p in planes)
+        if self._host is None:
+            self._host = tuple(p.cpu().numpy() for p in planes)
+        return self._host
 
     def hash(self):
         if self._hash is None:
-            self.to_host()
-            self._hash = hashing.raster_hash(self.y, self.u, self.v)
+            self._hash = hashing.raster_hash(*self.to_host())
         return self._hash
 
     def display(self):
-        """(y, u, v) cropped to display dimensions."""
-        self.to_host()
+        """(y, u, v) cropped to display dimensions, as numpy."""
+        y, u, v = self.to_host()
         dw, dh = self.display_width, self.display_height
-        return (self.y[:dh, :dw], self.u[:(dh + 1) // 2, :(dw + 1) // 2],
-                self.v[:(dh + 1) // 2, :(dw + 1) // 2])
+        return (y[:dh, :dw], u[:(dh + 1) // 2, :(dw + 1) // 2],
+                v[:(dh + 1) // 2, :(dw + 1) // 2])
 
     def dump_bytes(self):
         y, u, v = self.display()
         return y.tobytes() + u.tobytes() + v.tobytes()
 
     def __eq__(self, other):
-        return (np.array_equal(self.y, other.y) and np.array_equal(self.u, other.u)
-                and np.array_equal(self.v, other.v))
+        return all(np.array_equal(a, b)
+                   for a, b in zip(self.to_host(), other.to_host()))
 
 
 @dataclass
@@ -286,6 +306,16 @@ class References:
 
     def copy(self):
         return References(self.last, self.golden, self.alternative)
+
+    def on_device(self, device):
+        """These references with every raster on ``device``; rasters that
+        are one object here are one object there."""
+        moved = {}
+        for r in (self.last, self.golden, self.alternative):
+            if id(r) not in moved:
+                moved[id(r)] = r.on_device(device)
+        return References(moved[id(self.last)], moved[id(self.golden)],
+                          moved[id(self.alternative)])
 
     def __eq__(self, other):
         return (self.last == other.last and self.golden == other.golden

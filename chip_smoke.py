@@ -5,14 +5,21 @@
     python3 chip_smoke.py --quick    # env, build, kernels only (first look
                                      # at a changed kernel)
 
-Builds the two CUDA kernels and the native host parsers from the sources in
-this checkout, holds each kernel against its plain PyTorch version on the
-card at the shapes the main path gives it (720p, G=16), then decodes
-tests/fixtures/inter_1280x720_q48.ivf as 16 lockstep GOPs through
-BatchedGopDecoder.decode_stream and checks every GOP's SHA-1 against
-tests/fixtures/manifest.json.  Each phase prints one JSON line; any
-failure is a non-zero exit.  There is no CPU path: without a CUDA device
-the script raises before it prints anything.
+Builds the CUDA kernels and the native host parsers from the sources in
+this checkout, and holds each kernel against its plain PyTorch version on
+the card at the shapes its path gives it: K1 (wavefront_decode) and K2
+(sixtap_mc) at 720p G=16 for the GOP decoder, K3 (predict_mb_tiles), K4
+(intra_frame) and K5 (loop_filter) at 720p G=1 for the single-frame
+decoder.  Then it drives both paths over tests/fixtures/inter_1280x720_q48.ivf
+and checks each output's SHA-1 against tests/fixtures/manifest.json:
+
+- main_path: 16 lockstep GOPs through BatchedGopDecoder.decode_stream;
+- single_frame: the port's FilePlayer (Decoder.decode_frame), and a
+  state file written after frame 3, loaded onto the card, decoding the rest.
+
+Each phase prints JSON lines; any failure is a non-zero exit.  There is no
+CPU path: without a CUDA device the script raises before it prints
+anything.
 """
 import hashlib
 import json
@@ -30,10 +37,13 @@ if not torch.cuda.is_available():
 import numpy as np
 
 from alfalfa_tpu_torch import _build
+from alfalfa_tpu_torch.decoder import Decoder, FilePlayer
 from alfalfa_tpu_torch.decoder import reconstruct_torch as RT
 from alfalfa_tpu_torch.native import bitwork
-from alfalfa_tpu_torch.ops import sixtap, sixtap_cuda, wavefront, wavefront_cuda
+from alfalfa_tpu_torch.ops import intra_cuda, lf_cuda, sixtap, sixtap_cuda, \
+    wavefront, wavefront_cuda
 from alfalfa_tpu_torch.parallel import gop
+from alfalfa_tpu_torch.state import serdes
 from alfalfa_tpu_torch.state.decoder_state import Raster
 from alfalfa_tpu_torch.util import tracing
 from alfalfa_tpu_torch.util.ivf import IVFReader
@@ -88,12 +98,41 @@ def bound(bytes_, ops):
     return max(tb, to), "bytes" if tb >= to else "operations"
 
 
-# ------------------------------------------------------------------ K2
+def kernel_case(kernel, label, wrapper, plain, args, counts, bound_fn,
+                reps=10, **extra):
+    """Launch ``wrapper(*args)`` once and hold it against ``plain(*args)``,
+    run once and timed; then time the wrapper.  ``counts`` reads the
+    wrapper's kernel-launch count (as its C entry reported it)."""
+    issued = counts()
+    out = wrapper(*args)
+    issued = counts() - issued
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    ref = plain(*args)
+    b.record()
+    torch.cuda.synchronize()
+    plain_ms = a.elapsed_time(b)
+    outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+    equal = all(torch.equal(x, y) for x, y in zip(outs, refs))
+    err = max(max_abs_err(x, y) for x, y in zip(outs, refs))
+    ms = time_ms(lambda: wrapper(*args), reps)
+    b_ms, by = bound_fn(*args)
+    case = dict(kernel=kernel, case=label, equal=equal, max_abs_err=err,
+                kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                launches_per_call=issued, shape=list(outs[0].shape), **extra)
+    say("kernels", **case)
+    if not equal:
+        raise SystemExit("%s disagrees with its plain version: %s"
+                         % (kernel, label))
+    return case
 
-def k2_bound(ref_sel, sub_mv, S):
-    """Least time for one mc_tiles call: motion vectors and selectors in,
-    one plane's worth of reference pixels in, predictions out; two 6-tap
-    passes (the first over S+5 rows) at 2 operations per tap."""
+
+# ------------------------------------------------------------- K2, K3
+
+def k2_bound(refs, ref_sel, sub_mv, S):
+    """Least time for one MC call: motion vectors and selectors in, one
+    plane's worth of reference pixels in, predictions out; two 6-tap passes
+    (the first over S+5 rows) at 2 operations per tap."""
     n_mb = ref_sel.numel()
     px = n_mb * S * S
     bytes_ = sub_mv.numel() * 4 + ref_sel.numel() * 4 + 2 * px
@@ -101,33 +140,26 @@ def k2_bound(ref_sel, sub_mv, S):
     return bound(bytes_, ops)
 
 
-def k2_case(label, refs, ref_sel, sub_mv, S, plain_reps=3):
-    issued = sixtap_cuda.kernel_launches
-    out = sixtap_cuda.mc_tiles(refs, ref_sel, sub_mv, S)
-    issued = sixtap_cuda.kernel_launches - issued   # as the C entry counted
-    ref = sixtap.mc_tiles_plain(refs, ref_sel, sub_mv, S)
-    torch.cuda.synchronize()
-    equal = torch.equal(out, ref)
-    err = max_abs_err(out, ref)
-    ms = time_ms(lambda: sixtap_cuda.mc_tiles(refs, ref_sel, sub_mv, S), 20)
-    plain_ms = time_ms(lambda: sixtap.mc_tiles_plain(refs, ref_sel, sub_mv, S),
-                       plain_reps)
-    b_ms, by = k2_bound(ref_sel, sub_mv, S)
-    case = dict(kernel="sixtap_mc", case=label, S=S, equal=equal,
-                max_abs_err=err, kernel_ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=by, launches_per_call=issued,
-                shape=list(out.shape))
-    say("kernels", **case)
-    if not equal:
-        raise SystemExit("sixtap_mc disagrees with its plain version: " + label)
-    return case
+def k2_case(label, *args):
+    return kernel_case("sixtap_mc", label, sixtap_cuda.mc_tiles,
+                       sixtap.mc_tiles_plain, args,
+                       lambda: sixtap_cuda.kernel_launches, k2_bound, reps=20,
+                       S=args[3])
 
 
-def k2_synthetic(S, seed):
-    """Seeded extreme motion vectors at 720p, G=2: SPLITMV blocks, windows
+def k3_case(label, *args):
+    return kernel_case("predict_mb_tiles", label,
+                       sixtap_cuda.predict_mb_tiles,
+                       sixtap.predict_frame_plain, args,
+                       lambda: sixtap_cuda.predict_kernel_launches, k2_bound,
+                       reps=20, S=args[3])
+
+
+def k2_synthetic(S, seed, g=2):
+    """Seeded extreme motion vectors at 720p, G=g: SPLITMV blocks, windows
     fully outside the frame, full-pel, mixed full/sub-pel."""
     rng = np.random.default_rng(seed)
-    g, R, C, n = 2, 45, 80, S // 4
+    R, C, n = 45, 80, S // 4
     H, W = R * S, C * S
     refs = rng.integers(0, 256, (g, 3, H, W), dtype=np.uint8)
     sel = rng.integers(0, 4, (g, R, C)).astype(np.int32)
@@ -143,57 +175,71 @@ def k2_synthetic(S, seed):
     return t(refs), t(sel), t(mv), S
 
 
-# ------------------------------------------------------------------ K1
+# --------------------------------------------------------- K1, K4, K5
 
-def k1_bound(args):
-    """Least time for one wavefront_decode call.  Bytes: tiles and
-    residuals in, per-MB words in, planes out.  Operations, from this
-    call's data: about 8 per predicted pixel of an intra macroblock and
-    about 50 per filtered edge position of a macroblock with a non-zero
-    filter level."""
-    y, u, v, res_y, res_u, res_v, ymode, uvmode, bmode, nz, intra, lfp = args
-    level, skip_sb = lfp[0], lfp[5]
-    Gn, R, C = ymode.shape
-    n_mb = Gn * R * C
+def wave_bytes(n_mb):
+    """Tiles (1 byte a pixel) and residuals (2) in, per-MB words (NP int16
+    and 16 bmode bytes) in, planes out (1): K1's and K4's bytes."""
     px = n_mb * 384
-    bytes_ = px + 2 * px + n_mb * (wavefront_cuda.NP * 2 + 16) + px
+    return px + 2 * px + n_mb * (wavefront_cuda.NP * 2 + 16) + px
+
+
+def intra_ops(intra):
+    """About 8 operations per predicted pixel of an intra macroblock."""
+    return 8 * 384 * int(intra.sum().item())
+
+
+def lf_ops(lfp):
+    """About 50 operations per filtered edge position of a macroblock with
+    a non-zero filter level, counted from this call's data."""
+    level, skip_sb = lfp[0], lfp[5]
+    _, R, C = level.shape
     on = level > 0
     has_col = (torch.arange(C, device=level.device) > 0)[None, None, :]
     has_row = (torch.arange(R, device=level.device) > 0)[None, :, None]
     edges = (on & has_col).sum() + (on & has_row).sum()
     inner = (on & ~skip_sb).sum()
-    positions = int((edges * (16 + 2 * 8) + inner * (6 * 16 + 2 * 2 * 8)).item())
-    ops = 50 * positions + 8 * 384 * int(intra.sum().item())
-    return bound(bytes_, ops)
+    return 50 * int((edges * (16 + 2 * 8) + inner * (6 * 16 + 2 * 2 * 8)).item())
+
+
+def k1_bound(*args):
+    """Least time for one wavefront_decode call: K4's bytes, K4's and K5's
+    operations."""
+    intra, lfp = args[10], args[11]
+    return bound(wave_bytes(intra.numel()), lf_ops(lfp) + intra_ops(intra))
+
+
+def k4_bound(*args):
+    return bound(wave_bytes(args[10].numel()), intra_ops(args[10]))
+
+
+def k5_bound(y, u, v, lfp):
+    """Planes in and out, per-MB words in; the filter's operations."""
+    n_mb = lfp[0].numel()
+    return bound(2 * n_mb * 384 + n_mb * wavefront_cuda.NP * 2, lf_ops(lfp))
 
 
 def k1_case(label, args):
-    issued = wavefront_cuda.kernel_launches
-    out = wavefront_cuda.wavefront_decode(*args)
-    issued = wavefront_cuda.kernel_launches - issued   # as the C entry counted
-    t0 = time.perf_counter()
-    ref = wavefront.wavefront_decode_plain(*args)
-    torch.cuda.synchronize()
-    plain_first_ms = (time.perf_counter() - t0) * 1e3
-    equal = all(torch.equal(a, b) for a, b in zip(out, ref))
-    err = max(max_abs_err(a, b) for a, b in zip(out, ref))
-    ms = time_ms(lambda: wavefront_cuda.wavefront_decode(*args), 10)
-    plain_ms = time_ms(lambda: wavefront.wavefront_decode_plain(*args), 1,
-                       warmup=0)
-    b_ms, by = k1_bound(args)
-    Gn, R, C = args[6].shape
-    case = dict(kernel="wavefront_decode", case=label, equal=equal,
-                max_abs_err=err, kernel_ms=ms, plain_ms=plain_ms,
-                plain_first_ms=plain_first_ms, bound_ms=b_ms, bound_by=by,
-                launches_per_call=issued,
-                intra_mbs=int(args[10].sum().item()),
-                filtered_mbs=int((args[11][0] > 0).sum().item()),
-                shape=[Gn, R * 16, C * 16])
-    say("kernels", **case)
-    if not equal:
-        raise SystemExit("wavefront_decode disagrees with its plain version: "
-                         + label)
-    return case
+    return kernel_case("wavefront_decode", label,
+                       wavefront_cuda.wavefront_decode,
+                       wavefront.wavefront_decode_plain, args,
+                       lambda: wavefront_cuda.kernel_launches, k1_bound,
+                       intra_mbs=int(args[10].sum().item()),
+                       filtered_mbs=int((args[11][0] > 0).sum().item()))
+
+
+def k4_case(label, args):
+    return kernel_case("intra_frame", label, intra_cuda.intra_frame,
+                       wavefront.intra_frame_plain, args,
+                       lambda: intra_cuda.kernel_launches, k4_bound,
+                       intra_mbs=int(args[10].sum().item()))
+
+
+def k5_case(label, args):
+    return kernel_case("loop_filter", label, lf_cuda.loop_filter,
+                       wavefront.loop_filter_plain, args,
+                       lambda: lf_cuda.kernel_launches, k5_bound,
+                       filtered_mbs=int((args[3][0] > 0).sum().item()))
 
 
 def real_kernel_inputs(payloads, width, height, n_gops):
@@ -221,6 +267,35 @@ def real_kernel_inputs(payloads, width, height, n_gops):
         planes = wavefront_cuda.wavefront_decode(*args)
         dec.refs = {p: gop.update_references(dec.refs[p], r, fls, key_frame)
                     for p, r in zip("yuv", planes)}
+    torch.cuda.synchronize()
+    return kept
+
+
+def single_frame_kernel_inputs(payloads, width, height):
+    """Decode frames 0 (key frame) and 1 (interframe) with the port's
+    Decoder and keep the arguments each single-frame kernel wrapper was
+    called with (recorded around the wrappers, which run as usual)."""
+    kept = {}
+    frame = [None]
+
+    def record(name, fn):
+        def wrapped(*args):
+            kept.setdefault((name, frame[0]), []).append(args)
+            return fn(*args)
+        return wrapped
+
+    originals = {n: getattr(RT, n) for n in
+                 ("predict_mb_tiles", "intra_frame", "loop_filter")}
+    for n, fn in originals.items():
+        setattr(RT, n, record(n, fn))
+    try:
+        dec = Decoder(width, height, device=DEV)
+        for f in (0, 1):
+            frame[0] = f
+            dec.decode_frame(payloads[f])
+    finally:
+        for n, fn in originals.items():
+            setattr(RT, n, fn)
     torch.cuda.synchronize()
     return kept
 
@@ -268,6 +343,56 @@ def device_profile(fn, wall_ms):
                     for k, ms, n in rows[:12]]}
 
 
+# wrapper calls and the kernel launches inside them, by kernel
+COUNTS = {"sixtap_mc": (sixtap_cuda, "launches", "kernel_launches"),
+          "wavefront_decode": (wavefront_cuda, "launches", "kernel_launches"),
+          "predict_mb_tiles": (sixtap_cuda, "predict_launches",
+                               "predict_kernel_launches"),
+          "intra_frame": (intra_cuda, "launches", "kernel_launches"),
+          "loop_filter": (lf_cuda, "launches", "kernel_launches")}
+
+
+def zero_counts():
+    for mod, calls, kernels in COUNTS.values():
+        setattr(mod, calls, 0)
+        setattr(mod, kernels, 0)
+
+
+def read_counts():
+    """({kernel: wrapper calls}, {kernel: kernel launches inside them})."""
+    return ({k: getattr(m, c) for k, (m, c, _) in COUNTS.items()},
+            {k: getattr(m, n) for k, (m, _, n) in COUNTS.items()})
+
+
+def single_frame_decode(digest):
+    """The 720p clip through the port's FilePlayer on the card; the SHA-1
+    of the shown frames (if ``digest``)."""
+    player = FilePlayer(CLIP, device=DEV)
+    d = hashlib.sha1()
+    for raster in player:
+        if digest:
+            d.update(raster.dump_bytes())
+    torch.cuda.synchronize()
+    return d.hexdigest()
+
+
+def state_round_trip(payloads, width, height, k=3):
+    """Decode frames 0..k, write a state file, load it onto the card and
+    decode the rest with a new Decoder; the SHA-1 of all shown frames."""
+    d = hashlib.sha1()
+    dec = Decoder(width, height, device=DEV)
+    for f, p in enumerate(payloads):
+        if f == k + 1:
+            state, refs = serdes.load_decoder(
+                serdes.save_decoder(dec.state, dec.references), device=DEV)
+            dec = Decoder(width, height, state=state, references=refs,
+                          device=DEV)
+        shown, raster = dec.decode_frame(p)
+        if shown:
+            d.update(raster.dump_bytes())
+    return d.hexdigest()
+
+
 def main():
     quick = "--quick" in sys.argv[1:]
     card = smi()
@@ -313,21 +438,34 @@ def main():
         k1_case("frame0 key frame", kept["wave_key"]),
     ]
     del kept
+
+    # the single-frame kernels on what the Decoder hands them at 720p
+    sf = single_frame_kernel_inputs(payloads, ivf.width, ivf.height)
+    mc = sf[("predict_mb_tiles", 1)]
+    one = lambda refs, sel, mv, S: (refs[0], sel[0], mv[0], S)
+    k3 = [k3_case("frame1 luma", *mc[0]),
+          k3_case("frame1 chroma", *mc[1]),
+          k3_case("synthetic extreme MVs luma", *one(*k2_synthetic(16, 16, 1))),
+          k3_case("synthetic extreme MVs chroma", *one(*k2_synthetic(8, 24, 1)))]
+    k4 = [k4_case("frame1 interframe", sf[("intra_frame", 1)][0]),
+          k4_case("frame0 key frame", sf[("intra_frame", 0)][0])]
+    k5 = [k5_case("frame1 interframe", sf[("loop_filter", 1)][0]),
+          k5_case("frame0 key frame", sf[("loop_filter", 0)][0])]
+    del sf, mc
     if quick:
         return
 
     # main path: counters to 0 just before, read just after
-    sixtap_cuda.launches = 0
-    wavefront_cuda.launches = 0
+    zero_counts()
     got, _ = decode_all(payloads, ivf.width, ivf.height, digest=True)
-    n_k2, n_k1 = sixtap_cuda.launches, wavefront_cuda.launches
+    gop_calls, gop_kernels = read_counts()
     ok = [d == want for d in got]
     say("main_path", gops=G, frames=len(payloads), width=ivf.width,
-        height=ivf.height, sha1_ok=ok, launches={"sixtap_mc": n_k2,
-                                                 "wavefront_decode": n_k1})
+        height=ivf.height, sha1_ok=ok, launches=gop_calls,
+        kernel_launches=gop_kernels)
     if not all(ok):
         raise SystemExit("decoded frames differ from the manifest SHA-1")
-    if n_k2 <= 0 or n_k1 <= 0:
+    if gop_calls["sixtap_mc"] <= 0 or gop_calls["wavefront_decode"] <= 0:
         raise SystemExit("the main path did not launch both kernels")
 
     # throughput: a few whole passes, device drained before each clock read
@@ -358,6 +496,42 @@ def main():
         lambda: decode_all(payloads, ivf.width, ivf.height, digest=False),
         best * 1e3))
 
+    # single-frame path: counters to 0 just before, read just after
+    zero_counts()
+    sf_ok = single_frame_decode(digest=True) == want
+    sf_calls, sf_kernels = read_counts()
+    rt_ok = state_round_trip(payloads, ivf.width, ivf.height) == want
+    sf_passes = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single_frame_decode(digest=False)
+        sf_passes.append(time.perf_counter() - t0)
+    sf_best = min(sf_passes[1:])
+    tracing.enable(True)
+    tracing.snapshot()
+    single_frame_decode(digest=False)
+    tracing.enable(False)
+    sf_split = {k: v["seconds"] * 1e3 / len(payloads)
+                for k, v in tracing.snapshot().items()}
+    single = dict(
+        card=card, frames=len(payloads), sha1_ok=sf_ok,
+        state_round_trip_sha1_ok=rt_ok, launches=sf_calls,
+        kernel_launches=sf_kernels, frames_per_s=len(payloads) / sf_best,
+        pass_s=sf_passes, ms_per_frame={
+            "parse": sf_split.get("decode.parse"),
+            "reconstruct": sf_split.get("decode.reconstruct")})
+    say("single_frame", **single)
+    say("single_frame_device_profile", **device_profile(
+        lambda: single_frame_decode(digest=False), sf_best * 1e3))
+    if not (sf_ok and rt_ok):
+        raise SystemExit("single-frame decode differs from the manifest SHA-1")
+    if min(sf_calls[k] for k in ("predict_mb_tiles", "intra_frame",
+                                 "loop_filter")) <= 0:
+        raise SystemExit("the single-frame path did not launch K3, K4 and K5")
+    if sf_calls["sixtap_mc"] or sf_calls["wavefront_decode"]:
+        raise SystemExit("the single-frame path launched a GOP kernel")
+
     def entry(name, source, replaces, launches, primary, all_cases):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -369,13 +543,25 @@ def main():
 
     print(json.dumps({"kernels": [
         entry("sixtap_mc", "alfalfa_tpu_torch/csrc/sixtap_mc.cu",
-              "alfalfa_tpu/ops/sixtap_pallas.py:269", n_k2, cases[0],
-              cases[:4] + small_cases[:2]),
+              "alfalfa_tpu/ops/sixtap_pallas.py:269",
+              gop_calls["sixtap_mc"], cases[0], cases[:4] + small_cases[:2]),
         entry("wavefront_decode", "alfalfa_tpu_torch/csrc/wavefront.cu",
-              "alfalfa_tpu/ops/wavefront_pm.py:432", n_k1, cases[4],
+              "alfalfa_tpu/ops/wavefront_pm.py:432",
+              gop_calls["wavefront_decode"], cases[4],
               cases[4:] + small_cases[2:]),
+        entry("predict_mb_tiles", "alfalfa_tpu_torch/csrc/sixtap_mc.cu",
+              "alfalfa_tpu/ops/sixtap_pallas.py:347",
+              sf_calls["predict_mb_tiles"], k3[0], k3),
+        entry("intra_frame", "alfalfa_tpu_torch/csrc/wavefront.cu",
+              "alfalfa_tpu/ops/intra_pallas.py:346",
+              sf_calls["intra_frame"], k4[0], k4),
+        entry("loop_filter", "alfalfa_tpu_torch/csrc/wavefront.cu",
+              "alfalfa_tpu/ops/lf_pallas.py:148",
+              sf_calls["loop_filter"], k5[0], k5),
     ]}), flush=True)
-    say("throughput", **throughput)     # again, so the end of the log has it
+    # again, so the end of the log has them
+    say("throughput", **throughput)
+    say("single_frame", **single)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

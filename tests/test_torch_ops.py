@@ -2,10 +2,11 @@
 
 Same inputs, made with numpy from a fixed seed, go through the JAX function
 (``alfalfa_tpu.ops``) and its counterpart in ``alfalfa_tpu_torch.ops``.
-All arithmetic is integer, so the tolerance is 0 everywhere.  The device
-step's small formulas (chroma motion vectors, loop-filter limits,
-reference update order, coefficient scatter) are held against numpy or
-the JAX package's own helpers.
+All arithmetic is integer, so the tolerance is 0 everywhere.  The JAX side
+runs under ``jax.jit``: one compile costs less than its ops one by one.
+The device step's small formulas (chroma motion vectors, loop-filter
+limits, reference update order, coefficient scatter) are held against
+numpy or the JAX package's own helpers.
 """
 import pathlib
 import re
@@ -91,7 +92,7 @@ def test_residuals_from_coeffs_matches_jax():
     for k in qf:
         qf[k][0, :2] = 157
     y2c = rng.random((R, C)) < 0.5
-    want = JT.residuals_from_coeffs(
+    want = jax.jit(JT.residuals_from_coeffs)(
         jnp.asarray(coeffs), {k: jnp.asarray(v) for k, v in qf.items()},
         jnp.asarray(y2c))
     # the port's version carries a leading batch axis
@@ -120,9 +121,8 @@ def test_filter_mb_window_matches_jax(size):
     hev = rng.integers(0, 4, N).astype(np.int32)
     do_left, do_top, do_sb = (rng.random((3, N)) < 0.7)
 
-    want = jax.vmap(JL.filter_mb_window,
-                    in_axes=(0, None, 0, 0, 0, 0, 0, 0, 0))(
-        jnp.asarray(win), size, jnp.asarray(interior)[:, None],
+    want = jax.jit(jax.vmap(lambda w, *p: JL.filter_mb_window(w, size, *p)))(
+        jnp.asarray(win), jnp.asarray(interior)[:, None],
         jnp.asarray(mb_lim)[:, None], jnp.asarray(sb_lim)[:, None],
         jnp.asarray(hev)[:, None], jnp.asarray(do_left)[:, None, None],
         jnp.asarray(do_top)[:, None, None], jnp.asarray(do_sb)[:, None, None])
@@ -144,8 +144,8 @@ def test_whole_block_predict_matches_jax(size):
     lcol = rng.integers(0, 256, (N, size)).astype(np.int32)
     hrow, hcol = rng.random((2, N)) < 0.7
     mode = rng.integers(0, 4, N).astype(np.int32)
-    want = jax.vmap(lambda a, b, c, d, m: JI.whole_block_predict(
-        a, b, c, d, m, size))(jnp.asarray(e), jnp.asarray(lcol),
+    want = jax.jit(jax.vmap(lambda a, b, c, d, m: JI.whole_block_predict(
+        a, b, c, d, m, size)))(jnp.asarray(e), jnp.asarray(lcol),
                               jnp.asarray(hrow), jnp.asarray(hcol),
                               jnp.asarray(mode))
     eq(TI.whole_block_predict(t(e), t(lcol), t(hrow), t(hcol), t(mode), size),
@@ -157,7 +157,7 @@ def test_subblock_predict_all_matches_jax():
     N = 128
     above, left, ar = (rng.integers(0, 256, (3, N, 4)).astype(np.int32))
     al = rng.integers(0, 256, N).astype(np.int32)
-    want = jax.vmap(JI.subblock_predict_all)(
+    want = jax.jit(jax.vmap(JI.subblock_predict_all))(
         jnp.asarray(above), jnp.asarray(left), jnp.asarray(al),
         jnp.asarray(ar))
     eq(TI.subblock_predict_all(t(above), t(left), t(al), t(ar)), want)
@@ -171,7 +171,7 @@ def test_bpred_tile_matches_jax():
     bm = rng.integers(0, 10, (N, 4, 4)).astype(np.int32)
     res = rng.integers(-255, 256, (N, 16, 4, 4)).astype(np.int32)
     nz = rng.random(N) < 0.7
-    want = jax.vmap(JI.bpred_tile)(jnp.asarray(e21), jnp.asarray(lcol),
+    want = jax.jit(jax.vmap(JI.bpred_tile))(jnp.asarray(e21), jnp.asarray(lcol),
                                    jnp.asarray(bm), jnp.asarray(res),
                                    jnp.asarray(nz))
     eq(TI.bpred_tile(t(e21), t(lcol), t(bm), t(res), t(nz)), want)
@@ -192,8 +192,8 @@ def test_predict_mb_tiles_matches_jax(S):
     mv[2, 2] = [-2000, 2000]
     mv[3, 3] = [40, -16]                            # full-pel
     mv[3, 4] = [8, 3]                               # x full-pel, y sub-pel
-    want = JS.predict_mb_tiles(jnp.asarray(refs), jnp.asarray(sel),
-                               jnp.asarray(mv), S)
+    want = jax.jit(JS.predict_mb_tiles, static_argnums=3)(
+        jnp.asarray(refs), jnp.asarray(sel), jnp.asarray(mv), S)
     eq(TS.predict_mb_tiles(t(refs), t(sel), t(mv), S), want)
 
 
@@ -333,6 +333,11 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "alfalfa_tpu_torch").rglob("*.py")) \
         + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    names = {str(f.relative_to(REPO)) for f in files}
+    assert {"alfalfa_tpu_torch/cli/xc.py", "alfalfa_tpu_torch/decoder/decoder.py",
+            "alfalfa_tpu_torch/state/serdes.py", "alfalfa_tpu_torch/util/y4m.py",
+            "alfalfa_tpu_torch/ops/intra_cuda.py",
+            "alfalfa_tpu_torch/ops/lf_cuda.py"} <= names
     bad = [str(f.relative_to(REPO)) for f in files
            if pat.search(f.read_text())]
     assert bad == []
