@@ -278,34 +278,21 @@ def parse_token_prob_update(bd):
 
 
 def write_token_prob_update(be, updates):
+    from alfalfa_tpu_torch.native import bitwork
+    import numpy as _np
     up = tables.COEFF_UPDATE_PROBS
-    try:
-        from alfalfa_tpu_torch.native import bitwork
-        import numpy as _np
-        flat = getattr(updates, "flat", None)
-        if flat is not None:
-            flags = _np.ascontiguousarray(flat[0]).reshape(up.shape)
-            vals = _np.ascontiguousarray(flat[1]).reshape(up.shape)
-        else:
-            flags = _np.zeros(up.shape, _np.uint8)
-            vals = _np.zeros(up.shape, _np.uint8)
-            for key, v in updates.items():
-                flags[key] = 1
-                vals[key] = v
-        if bitwork.write_flagged_literals(be, up.reshape(-1),
-                                          flags.reshape(-1),
-                                          vals.reshape(-1), 8):
-            return
-    except (ImportError, AttributeError, OSError):
-        pass
-    for i in range(tables.BLOCK_TYPES):
-        for j in range(tables.COEF_BANDS):
-            for k in range(tables.PREV_COEF_CONTEXTS):
-                for l in range(tables.ENTROPY_NODES):
-                    v = updates.get((i, j, k, l))
-                    be.put(v is not None, up[i, j, k, l])
-                    if v is not None:
-                        be.put_uint(v, 8)
+    flat = getattr(updates, "flat", None)
+    if flat is not None:
+        flags = _np.ascontiguousarray(flat[0]).reshape(up.shape)
+        vals = _np.ascontiguousarray(flat[1]).reshape(up.shape)
+    else:
+        flags = _np.zeros(up.shape, _np.uint8)
+        vals = _np.zeros(up.shape, _np.uint8)
+        for key, v in updates.items():
+            flags[key] = 1
+            vals[key] = v
+    bitwork.write_flagged_literals(be, up.reshape(-1), flags.reshape(-1),
+                                   vals.reshape(-1), 8)
 
 
 def parse_mv_prob_update(bd):
@@ -332,27 +319,16 @@ def parse_mv_prob_update(bd):
 
 
 def write_mv_prob_update(be, updates):
+    from alfalfa_tpu_torch.native import bitwork
+    import numpy as _np
     up = tables.MV_UPDATE_PROBS
-    try:
-        from alfalfa_tpu_torch.native import bitwork
-        import numpy as _np
-        flags = _np.zeros(up.shape, _np.uint8)
-        vals = _np.zeros(up.shape, _np.uint8)
-        for key, v in updates.items():
-            flags[key] = 1
-            vals[key] = v >> 1
-        if bitwork.write_flagged_literals(be, up.reshape(-1),
-                                          flags.reshape(-1),
-                                          vals.reshape(-1), 7):
-            return
-    except (ImportError, AttributeError, OSError):
-        pass
-    for i in range(2):
-        for j in range(tables.MV_PROB_CNT):
-            v = updates.get((i, j))
-            be.put(v is not None, up[i, j])
-            if v is not None:
-                be.put_uint(v >> 1, 7)
+    flags = _np.zeros(up.shape, _np.uint8)
+    vals = _np.zeros(up.shape, _np.uint8)
+    for key, v in updates.items():
+        flags[key] = 1
+        vals[key] = v >> 1
+    bitwork.write_flagged_literals(be, up.reshape(-1), flags.reshape(-1),
+                                   vals.reshape(-1), 7)
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,9 @@
 The system has no weights; what persists from frame to frame is the codec
 state: per-GOP header state (probability tables, segmentation, filter
 adjustments) and the three reference rasters, or a whole single-frame
-``Decoder``.  These functions move them through plain numpy, so a stream
-can be decoded part-way by one package and continued by the other.
+``Decoder`` or ``Encoder``.  These functions move them through plain
+numpy, so a stream can be decoded (or encoded) part-way by one package and
+continued by the other.
 Neither package is imported by the other: the ``*_to_dict`` functions read
 attributes only and accept either package's objects; the ``*_from_dict``
 functions build this package's objects unless they are handed the other
@@ -145,3 +146,39 @@ def decoder_from_dict(d, decoder_cls=None, classes=None, device=None):
         return decoder_cls(state.width, state.height, **kw)
     from alfalfa_tpu_torch.decoder import Decoder
     return Decoder(state.width, state.height, device=device, **kw)
+
+
+_ENCODER_FIELDS = ("frame_no", "quality", "two_pass", "last_loop_filter_level",
+                   "last_y_ac_qi", "last_ssim")
+
+
+def encoder_to_dict(encoder):
+    """Either package's Encoder as plain values: its size, codec state,
+    references and the fields that steer its next frames (frame count,
+    quality, two-pass, last loop-filter level, quantizer and SSIM)."""
+    return {"width": int(encoder.width), "height": int(encoder.height),
+            "state": decoder_state_to_dict(encoder.state),
+            "references": references_to_dict(encoder.references),
+            **{k: getattr(encoder, k) for k in _ENCODER_FIELDS}}
+
+
+def encoder_from_dict(d, encoder_cls=None, classes=None, device=None):
+    """An Encoder from encoder_to_dict's output: this package's on
+    ``device`` (default CUDA), or, given the other package's Encoder class
+    and decoder_state module, that package's (on its host path).  Both go
+    on encoding exactly as the encoder they were taken from."""
+    if encoder_cls is None:
+        from alfalfa_tpu_torch.encoder import Encoder
+        enc = Encoder(d["width"], d["height"], quality=d["quality"],
+                      two_pass=d["two_pass"], device=device)
+    else:
+        enc = encoder_cls(d["width"], d["height"], quality=d["quality"],
+                          two_pass=d["two_pass"])
+    enc.state = decoder_state_from_dict(d["state"],
+                                        _DS if classes is None else classes)
+    enc.references = references_from_dict(
+        d["references"], classes,
+        enc.device if encoder_cls is None else None)
+    for k in _ENCODER_FIELDS:
+        setattr(enc, k, d[k])
+    return enc

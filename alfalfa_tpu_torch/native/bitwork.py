@@ -1,8 +1,9 @@
 """ctypes loader for the native bitwork library (auto-built on first use).
 
-This copy carries the parse half only: frame-header, MB-header and token
-parsers plus the state hashes.  The AVX-512 token engine and the
-serializer entry points of bitwork.cc are not bound here."""
+This copy binds the parse half (frame-header, MB-header and token
+parsers, the state hashes) and the serializer half (token partitions,
+key-frame and interframe MB headers, flagged-literal runs, token-branch
+counts).  The AVX-512 token engine of the JAX package is not bound here."""
 import ctypes
 import os
 
@@ -51,6 +52,35 @@ def _load():
     lib.vp8_parse_frame_header.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int] + \
         [ctypes.c_void_p] * 8
+    lib.vp8_serialize_tokens.restype = ctypes.c_int
+    lib.vp8_serialize_tokens.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_void_p]
+    lib.vp8_write_kf_modes.restype = ctypes.c_int
+    lib.vp8_write_kf_modes.argtypes = (
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+         ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * 12)
+    lib.vp8_write_flagged_literals.restype = ctypes.c_int
+    lib.vp8_write_flagged_literals.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int]
+    lib.vp8_write_inter_modes.restype = ctypes.c_int
+    lib.vp8_write_inter_modes.argtypes = (
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+         ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * 4
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_int] * 3
+        + [ctypes.c_void_p] * 10)
+    lib.vp8_count_token_branches.restype = ctypes.c_int
+    lib.vp8_count_token_branches.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
     lib.vp8_hash_range.restype = ctypes.c_uint64
     lib.vp8_hash_range.argtypes = [ctypes.c_uint64, ctypes.c_void_p,
                                    ctypes.c_int64]
@@ -400,6 +430,225 @@ def parse_flagged_literals(bd, update_probs, n, width):
     bd.bit_count = int(state[3])
     return flags, vals
 
+
+def _check(rc, entry):
+    if rc != 0:
+        raise RuntimeError("%s failed (rc=%d)" % (entry, rc))
+
+
+def _restore(be, buf, state, length):
+    """Hands a native writer's output and coder state back to ``be``."""
+    be.output[:] = buf[:int(length[0])].tobytes()
+    be.range = int(state[0])
+    be.bottom = int(state[1])
+    be.bit_count = int(state[2])
+
+
+def serialize_tokens(arrays, coeff_probs, n_parts):
+    """Native DCT-token serialization (serializer.cc:596-737 semantics).
+    Returns a list of n_parts partition byte strings."""
+    lib = _load()
+    co = arrays.coeffs
+    if co is None:
+        co = arrays.densify_coeffs()
+    co = np.ascontiguousarray(co, np.int16)
+    skip = np.ascontiguousarray(arrays.skip_coeff, np.uint8)
+    y2c = np.ascontiguousarray(arrays.y2_coded, np.uint8)
+    probs = np.ascontiguousarray(coeff_probs, np.uint8)
+    R, C = arrays.mb_rows, arrays.mb_cols
+    # worst-case bound: ~2 bytes/coeff + flush slack
+    cap = max(4096, co.nbytes // max(1, n_parts) * 2 + 4096)
+    out = np.zeros(n_parts * cap, np.uint8)
+    lens = np.zeros(n_parts, np.int64)
+    rc = lib.vp8_serialize_tokens(
+        co.ctypes.data, skip.ctypes.data, y2c.ctypes.data, R, C,
+        probs.ctypes.data, n_parts, out.ctypes.data, cap, lens.ctypes.data)
+    _check(rc, "vp8_serialize_tokens")
+    return [out[i * cap:i * cap + int(lens[i])].tobytes()
+            for i in range(n_parts)]
+
+
+_TREE_TABLES = {}
+
+
+def _tree_tables(tree_id, tree_arr):
+    """(bits, prob_idx, len) path tables (stride 8) for a VP8 coding tree."""
+    if tree_id not in _TREE_TABLES:
+        from alfalfa_tpu_torch.encoder.serializer import _paths
+        table = _paths(tree_id, tree_arr)
+        n = max(table) + 1
+        bits = np.zeros((n, 8), np.uint8)
+        idx = np.zeros((n, 8), np.uint8)
+        lens = np.zeros(n, np.uint8)
+        for leaf, path in table.items():
+            lens[leaf] = len(path)
+            for k, (b, pi) in enumerate(path):
+                bits[leaf, k] = b
+                idx[leaf, k] = pi
+        _TREE_TABLES[tree_id] = (bits, idx, lens)
+    return _TREE_TABLES[tree_id]
+
+
+def write_kf_modes(be, arrays, prob_skip):
+    """Append all keyframe MB headers (skip flag + mode trees) to Python
+    BoolEncoder ``be`` natively."""
+    from alfalfa_tpu_torch.bitstream import tables as T
+    lib = _load()
+    R, C = arrays.mb_rows, arrays.mb_cols
+    cap = len(be.output) + R * C * 64 + 4096
+    buf = np.zeros(cap, np.uint8)
+    buf[:len(be.output)] = np.frombuffer(bytes(be.output), np.uint8)
+    state = np.array([be.range, be.bottom, be.bit_count], np.int64)
+    length = np.array([len(be.output)], np.int64)
+
+    yb, yi, yl = _tree_tables("kf_y", T.KF_Y_MODE_TREE)
+    bb, bi, bl = _tree_tables("bmode", T.B_MODE_TREE)
+    ub, ui, ul = _tree_tables("uv", T.UV_MODE_TREE)
+    yprobs = np.ascontiguousarray(T.KF_Y_MODE_PROBS, np.uint8)
+    kfb = np.ascontiguousarray(T.KF_B_MODE_PROBS, np.uint8)
+    uvprobs = np.ascontiguousarray(T.KF_UV_MODE_PROBS, np.uint8)
+    ym = np.ascontiguousarray(arrays.ymode, np.int8)
+    bm = np.ascontiguousarray(arrays.bmode, np.int8)
+    uvm = np.ascontiguousarray(arrays.uvmode, np.int8)
+    skip = np.ascontiguousarray(arrays.skip_coeff, np.uint8)
+
+    rc = lib.vp8_write_kf_modes(
+        state.ctypes.data, buf.ctypes.data, cap, length.ctypes.data, R, C,
+        ym.ctypes.data, bm.ctypes.data, uvm.ctypes.data, skip.ctypes.data,
+        int(prob_skip is not None), int(prob_skip or 0),
+        yb.ctypes.data, yi.ctypes.data, yl.ctypes.data, yprobs.ctypes.data,
+        bb.ctypes.data, bi.ctypes.data, bl.ctypes.data, kfb.ctypes.data,
+        ub.ctypes.data, ui.ctypes.data, ul.ctypes.data, uvprobs.ctypes.data)
+    _check(rc, "vp8_write_kf_modes")
+    _restore(be, buf, state, length)
+
+
+def write_flagged_literals(be, probs_flat, flags_flat, vals_flat, bits):
+    """Append a flagged-literal run (flag vs probs_flat[i], then a
+    ``bits``-wide literal where flags_flat[i]) to Python BoolEncoder
+    ``be`` natively."""
+    lib = _load()
+    n = int(probs_flat.size)
+    cap = len(be.output) + 2 * n + 4096
+    buf = np.zeros(cap, np.uint8)
+    buf[:len(be.output)] = np.frombuffer(bytes(be.output), np.uint8)
+    state = np.array([be.range, be.bottom, be.bit_count], np.int64)
+    length = np.array([len(be.output)], np.int64)
+    probs = np.ascontiguousarray(probs_flat, np.uint8)
+    flags = np.ascontiguousarray(flags_flat, np.uint8)
+    vals = np.ascontiguousarray(vals_flat, np.uint8)
+    rc = lib.vp8_write_flagged_literals(
+        state.ctypes.data, buf.ctypes.data, cap, length.ctypes.data,
+        probs.ctypes.data, flags.ctypes.data, vals.ctypes.data, n, bits)
+    _check(rc, "vp8_write_flagged_literals")
+    _restore(be, buf, state, length)
+
+
+_INTER_TABLES = None
+
+
+def _inter_tables():
+    """Packed tree-path arena + MV-partition tables for the native
+    interframe MB-header writer (order must match bitwork.cc)."""
+    global _INTER_TABLES
+    if _INTER_TABLES is None:
+        from alfalfa_tpu_torch.bitstream import tables as T
+        specs = [("mv_ref", T.MV_REF_TREE), ("submv_ref", T.SUBMV_REF_TREE),
+                 ("split_mv", T.SPLIT_MV_TREE), ("small_mv", T.SMALL_MV_TREE),
+                 ("y", T.Y_MODE_TREE), ("bmode", T.B_MODE_TREE),
+                 ("uv", T.UV_MODE_TREE), ("segment_id", T.SEGMENT_ID_TREE)]
+        arena = np.zeros(len(specs) * 272, np.uint8)
+        for t, (tid, tree) in enumerate(specs):
+            bits, idx, lens = _tree_tables(tid, tree)
+            n = bits.shape[0]
+            base = t * 272
+            arena[base:base + n * 8] = bits.reshape(-1)
+            arena[base + 128:base + 128 + n * 8] = idx.reshape(-1)
+            arena[base + 256:base + 256 + n] = lens
+        mvpart_n = np.zeros(4, np.uint8)
+        mvpart_first = np.zeros((4, 16, 2), np.uint8)
+        for pid, parts in enumerate(T.MV_PARTITIONS):
+            mvpart_n[pid] = len(parts)
+            for p, part in enumerate(parts):
+                first_c, first_r = part[0]
+                mvpart_first[pid, p] = (first_r, first_c)
+        c2p = np.ascontiguousarray(T.MV_COUNTS_TO_PROBS, np.uint8)
+        submv2 = np.ascontiguousarray(T.SUBMV_REF_PROBS2, np.uint8)
+        split = np.ascontiguousarray(T.SPLIT_MV_PROBS, np.uint8)
+        binv = np.ascontiguousarray(T.INVARIANT_B_MODE_PROBS, np.uint8)
+        _INTER_TABLES = (arena, mvpart_n, mvpart_first, c2p, submv2, split,
+                         binv)
+    return _INTER_TABLES
+
+
+def write_inter_modes(be, arrays, header, frame_probs, flipped_map):
+    """Append all interframe MB headers (segment id, skip flag, reference,
+    inter/intra modes, MVs) to Python BoolEncoder ``be`` natively.  Exact
+    mirror of FrameSerializer._serialize_mb_header
+    (reference encoder/serializer.cc:165-316)."""
+    lib = _load()
+    arena, mvpart_n, mvpart_first, c2p, submv2, split, binv = _inter_tables()
+    R, C = arrays.mb_rows, arrays.mb_cols
+    cap = len(be.output) + R * C * 96 + 4096
+    buf = np.zeros(cap, np.uint8)
+    buf[:len(be.output)] = np.frombuffer(bytes(be.output), np.uint8)
+    state = np.array([be.range, be.bottom, be.bit_count], np.int64)
+    length = np.array([len(be.output)], np.int64)
+
+    seg = header.update_segmentation
+    has_seg = int(seg is not None and seg.update_mb_segmentation_map)
+    if has_seg:
+        seg_probs = np.ascontiguousarray(seg.segment_tree_probs(), np.uint8)
+        seg_map = np.ascontiguousarray(arrays.segment_update, np.int8)
+    else:
+        seg_probs = np.zeros(3, np.uint8)
+        seg_map = np.zeros(1, np.int8)
+
+    ym = np.ascontiguousarray(arrays.ymode, np.int8)
+    bm = np.ascontiguousarray(arrays.bmode, np.int8)
+    uvm = np.ascontiguousarray(arrays.uvmode, np.int8)
+    skip = np.ascontiguousarray(arrays.skip_coeff, np.uint8)
+    ref = np.ascontiguousarray(arrays.ref, np.int8)
+    smv = np.ascontiguousarray(arrays.sub_mv, np.int16)
+    flip = np.ascontiguousarray(flipped_map, np.uint8)
+    pid = np.ascontiguousarray(arrays.splitmv_pid, np.int8)
+    yp = np.ascontiguousarray(frame_probs.y_mode_probs, np.uint8)
+    uvp = np.ascontiguousarray(frame_probs.uv_mode_probs, np.uint8)
+    mvp = np.ascontiguousarray(frame_probs.mv_probs, np.uint8)
+    prob_skip = header.prob_skip_false
+
+    rc = lib.vp8_write_inter_modes(
+        state.ctypes.data, buf.ctypes.data, cap, length.ctypes.data, R, C,
+        ym.ctypes.data, bm.ctypes.data, uvm.ctypes.data, skip.ctypes.data,
+        int(prob_skip is not None), int(prob_skip or 0),
+        ref.ctypes.data, smv.ctypes.data, flip.ctypes.data, pid.ctypes.data,
+        seg_map.ctypes.data, has_seg, seg_probs.ctypes.data,
+        int(header.prob_inter), int(header.prob_references_last),
+        int(header.prob_references_golden),
+        yp.ctypes.data, uvp.ctypes.data, binv.ctypes.data, mvp.ctypes.data,
+        c2p.ctypes.data, submv2.ctypes.data, split.ctypes.data,
+        arena.ctypes.data, mvpart_n.ctypes.data, mvpart_first.ctypes.data)
+    _check(rc, "vp8_write_inter_modes")
+    _restore(be, buf, state, length)
+
+
+def count_token_branches(arrays, counts=None):
+    """Native accumulate_token_branches (serializer.cc:456-594)."""
+    lib = _load()
+    if counts is None:
+        counts = np.zeros((4, 8, 3, 11, 2), np.int64)
+    assert counts.flags.c_contiguous and counts.dtype == np.int64
+    co = arrays.coeffs
+    if co is None:
+        co = arrays.densify_coeffs()
+    co = np.ascontiguousarray(co, np.int16)
+    skip = np.ascontiguousarray(arrays.skip_coeff, np.uint8)
+    y2c = np.ascontiguousarray(arrays.y2_coded, np.uint8)
+    rc = lib.vp8_count_token_branches(
+        co.ctypes.data, skip.ctypes.data, y2c.ctypes.data,
+        arrays.mb_rows, arrays.mb_cols, counts.ctypes.data)
+    _check(rc, "vp8_count_token_branches")
+    return counts
 
 
 def hash_range(seed, values_u64):

@@ -20,12 +20,12 @@ def _avg3(x, y, z):
     return (x + 2 * y + z + 2) >> 2
 
 
-def whole_block_predict(e, lcol, has_row, has_col, mode, size):
-    """16x16 or 8x8 prediction, all four modes computed and selected.
+def whole_predict_all(e, lcol, has_row, has_col, size):
+    """The four whole-block predictions (DC, V, H, TM) of 16x16 or 8x8
+    blocks: returns (N, 4, size, size) int32.
 
     e: (N, size+1) or longer: e[:, 0] = above-left, e[:, 1:size+1] = above.
-    lcol: (N, size).  has_row/has_col: (N,) bool.  mode: (N,) int.
-    Returns (N, size, size) int32."""
+    lcol: (N, size).  has_row/has_col: (N,) bool."""
     above = e[:, 1:size + 1]
     left = lcol
     al = e[:, 0]
@@ -46,12 +46,17 @@ def whole_block_predict(e, lcol, has_row, has_col, mode, size):
     h_pred = left[:, :, None].expand(shape)
     tm_pred = torch.clamp(left[:, :, None] + above[:, None, :]
                           - al[:, None, None], 0, 255)
+    return torch.stack([dc_pred, v_pred, h_pred, tm_pred], dim=1) \
+        .to(torch.int32)
 
-    preds = torch.stack([dc_pred, v_pred, h_pred, tm_pred], dim=1)
+
+def whole_block_predict(e, lcol, has_row, has_col, mode, size):
+    """16x16 or 8x8 prediction in ``mode`` (N,) of each block: the
+    ``whole_predict_all`` candidate it names.  Returns (N, size, size)
+    int32."""
+    preds = whole_predict_all(e, lcol, has_row, has_col, size)
     idx = torch.clamp(mode, 0, 3).to(torch.int64)
-    return preds[torch.arange(N, device=e.device), idx].to(torch.int32)
-
-
+    return preds[torch.arange(e.shape[0], device=e.device), idx]
 
 
 # Cells of the eight directional b-modes (VE, HE, LD, RD, VR, VL, HD, HU),

@@ -10,16 +10,23 @@ this checkout, and holds each kernel against its plain PyTorch version on
 the card at the shapes its path gives it: K1 (wavefront_decode) and K2
 (sixtap_mc) at 720p G=16 for the GOP decoder, K3 (predict_mb_tiles), K4
 (intra_frame) and K5 (loop_filter) at 720p G=1 for the single-frame
-decoder.  Then it drives both paths over tests/fixtures/inter_1280x720_q48.ivf
-and checks each output's SHA-1 against tests/fixtures/manifest.json:
+decoder, and K7 (encode_kf_frame, with H1 and H2 inside) at 720p and
+176x144, one-pass and two-pass, on decoded frames of the fixtures.  Then it
+drives the paths over tests/fixtures/inter_1280x720_q48.ivf and checks each
+output's SHA-1:
 
-- main_path: 16 lockstep GOPs through BatchedGopDecoder.decode_stream;
+- main_path: 16 lockstep GOPs through BatchedGopDecoder.decode_stream
+  (against tests/fixtures/manifest.json);
 - single_frame: the port's FilePlayer (Decoder.decode_frame), and a
-  state file written after frame 3, loaded onto the card, decoding the rest.
+  state file written after frame 3, loaded onto the card, decoding the rest
+  (against the manifest);
+- keyframe_encode: the port's Encoder encodes decoded frames 0 and 3 as key
+  frames (KF_ENCODE_SHA1: the JAX package's encoder's frames), and the
+  port's Decoder re-decodes every frame to the encoder's minihash.
 
 Each phase prints JSON lines; any failure is a non-zero exit.  There is no
-CPU path: without a CUDA device the script raises before it prints
-anything.
+CPU path: without a CUDA device main() raises before it prints anything
+(the module itself imports on a CPU host, for its constants).
 """
 import hashlib
 import json
@@ -29,19 +36,22 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
-if not torch.cuda.is_available():
-    raise SystemExit("chip_smoke.py needs a CUDA device")
-
-import numpy as np
-
 from alfalfa_tpu_torch import _build
+from alfalfa_tpu_torch.bitstream import tables as T
+from alfalfa_tpu_torch.bitstream.header import QuantIndices
 from alfalfa_tpu_torch.decoder import Decoder, FilePlayer
 from alfalfa_tpu_torch.decoder import reconstruct_torch as RT
+from alfalfa_tpu_torch.encoder import Encoder
+from alfalfa_tpu_torch.encoder.costs import rd_multipliers
+from alfalfa_tpu_torch.encoder.encode_intra import QUANT_KEYS
+from alfalfa_tpu_torch.encoder.trellis import token_costs_pm
 from alfalfa_tpu_torch.native import bitwork
-from alfalfa_tpu_torch.ops import intra_cuda, lf_cuda, sixtap, sixtap_cuda, \
-    wavefront, wavefront_cuda
+from alfalfa_tpu_torch.ops import enc_intra, enc_intra_cuda, \
+    enc_transforms, intra_cuda, lf_cuda, sixtap, sixtap_cuda, transforms, \
+    trellis, wavefront, wavefront_cuda
 from alfalfa_tpu_torch.parallel import gop
 from alfalfa_tpu_torch.state import serdes
 from alfalfa_tpu_torch.state.decoder_state import Raster
@@ -60,6 +70,27 @@ DEV = torch.device("cuda")
 # the int32 ALU work these kernels do.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+
+# keyframe_encode: SHA-1 of each frame the JAX package's host encoder
+# (alfalfa_tpu.encoder.Encoder(device_encode=False)) makes of frames 0 and 3
+# of inter_1280x720_q48.ivf, decoded by the JAX package's FilePlayer (whose
+# output meets the manifest), each encoded as a key frame: one encoder per
+# mode, the two frames in sequence; "min_ssim_0.90_frame0" is
+# encode_with_minimum_ssim(frame 0, 0.90) in a fresh one-pass encoder.
+# Computed once on a CPU host; tests/test_torch_encoder.py recomputes them
+# (-m slow).
+KF_ENCODE_MODES = (("qi24", 24, False), ("qi64", 64, False),
+                   ("qi32_two_pass", 32, True))
+KF_MIN_SSIM = 0.90
+KF_ENCODE_SHA1 = {
+    "qi24_frame0": "94ad858b1bc14d666fa7a444707c2cb8ad80f639",
+    "qi24_frame3": "052dd66de3962dd34541526cabe4850c07438f88",
+    "qi64_frame0": "c98bd17b2adbc056b35145eff624079f29793d8a",
+    "qi64_frame3": "d08095520d5e5c4a00977d9bf8bd0ba6e9de1c20",
+    "qi32_two_pass_frame0": "e91eff4f07f3480b9ddf8c8b807aa5df02482e47",
+    "qi32_two_pass_frame3": "a7e2013b606dd6aa8df0e91d058ba757105b927c",
+    "min_ssim_0.90_frame0": "18a53d28c9c05a7e22a8df6822fb00b88cb1a1aa",
+}
 
 
 def say(phase, **kw):
@@ -300,6 +331,210 @@ def single_frame_kernel_inputs(payloads, width, height):
     return kept
 
 
+# ------------------------------------------------------------------ K7
+
+# integer operations per macroblock of K7, counted from csrc/enc_intra.cu:
+# the B_PRED search (10 modes x 16 pixels x 16 sub-blocks: edge gather,
+# predict, difference, square, reduce), one transform chain of a 4x4 block
+# (fDCT, quantize, dequantize, iDCT, add and clamp), the whole-mode and
+# chroma searches, and one trellis block (16 positions x 2 levels x 2 next
+# levels)
+K7_OPS_BSEARCH = 16 * 10 * 16 * 12
+K7_OPS_CHAIN = 400
+K7_OPS_WHOLE_SEARCH = 4 * 256 * 8
+K7_OPS_CHROMA_SEARCH = 4 * 128 * 6
+K7_OPS_TRELLIS = 16 * 2 * 2 * 20
+
+
+def k7_bound(modes, trellis):
+    """Least time for one encode_kf_frame call on this frame: the original
+    planes in, coefficients, modes and reconstruction out; the operations
+    of every macroblock's searches and transform chains (the whole-mode
+    chain only where whole mode won, the trellis only with token costs)."""
+    R, C = modes.shape[:2]
+    n = R * C
+    whole = int((modes[..., 2] != 0).sum().item())
+    bytes_ = n * (384 + 25 * 16 * 2 + enc_intra.MODE_WORDS + 384)
+    blocks = n * (16 + 8) + whole * 17          # quantized 4x4 blocks
+    ops = (n * (K7_OPS_BSEARCH + K7_OPS_WHOLE_SEARCH + K7_OPS_CHROMA_SEARCH)
+           + blocks * K7_OPS_CHAIN + (blocks * K7_OPS_TRELLIS if trellis
+                                       else 0))
+    return bound(bytes_, ops)
+
+
+def kf_args(raster, qi, token_costs=None):
+    """encode_kf_frame's arguments for a decoded frame at y_ac_qi ``qi``."""
+    q = QuantIndices(y_ac_qi=qi).quantizer()
+    rm, dm = rd_multipliers(int(q["y_ac"]))
+    return (raster.y, raster.u, raster.v, [int(q[k]) for k in QUANT_KEYS],
+            rm, dm, token_costs)
+
+
+def k7_case(label, args):
+    seen = {}
+
+    def wrapper(*a):
+        out = enc_intra_cuda.encode_kf_frame(*a)
+        seen["modes"] = out[1]
+        return out
+
+    R, C = args[0].shape[0] // 16, args[0].shape[1] // 16
+    return kernel_case("encode_kf_frame", label, wrapper,
+                       enc_intra.encode_kf_frame_plain, args,
+                       lambda: enc_intra_cuda.kernel_launches,
+                       lambda *a: k7_bound(seen["modes"], a[6] is not None),
+                       two_pass=args[6] is not None, mbs=R * C)
+
+
+def helper_plain_ms(blocks=3600 * 25, seed=7):
+    """The plain versions of H1 and H2 alone, on the card, over the 4x4
+    blocks one 720p key frame quantizes (seeded residuals, one batched
+    call each; inside K7 the CUDA helpers run per block and have no time
+    of their own): H1 = fdct, quantize, dequantize, iDCT; H2 =
+    trellis_quantize under the default token costs."""
+    rng = np.random.default_rng(seed)
+    orig = torch.from_numpy(rng.integers(0, 256, (blocks, 16))).to(DEV)
+    pred = torch.from_numpy(rng.integers(0, 256, (blocks, 16))).to(DEV)
+    f = lambda x: torch.full((blocks,), x, dtype=torch.int32, device=DEV)
+    tc = torch.from_numpy(token_costs_pm(T.DEFAULT_COEFF_PROBS)[0]).to(DEV)
+    ctx = torch.zeros(blocks, dtype=torch.int64, device=DEV)
+    co = enc_transforms.fdct(orig, pred)
+
+    def h1():
+        q = enc_transforms.quantize(enc_transforms.fdct(orig, pred), 20, 31)
+        return transforms.idct(transforms.dequantize(q, f(20), f(31)))
+
+    def h2():   # y_dc 20, y_ac 31 and their RD multipliers (26, 1)
+        return trellis.trellis_quantize(co, 20, 31, tc, ctx, 0, 26, 1)
+
+    return {"blocks": blocks, "h1_plain_ms": time_ms(h1, 5),
+            "h2_plain_ms": time_ms(h2, 5)}
+
+
+def decoded_frames(path, frames):
+    """The port's FilePlayer on the card: {index: Raster} of the shown
+    frames ``frames``."""
+    out = {}
+    for i, raster in enumerate(FilePlayer(path, device=DEV)):
+        if i in frames:
+            out[i] = raster
+        if i >= max(frames):
+            break
+    torch.cuda.synchronize()
+    return out
+
+
+def kf_encode_runs(frames, width, height, modes=None, hashes=True):
+    """The keyframe_encode phase's encodes: for each mode of
+    KF_ENCODE_MODES (all by default, or those named in ``modes``; "min_ssim"
+    for the search) a new Encoder on the card encodes frames 0 and 3 as key
+    frames in sequence, or runs encode_with_minimum_ssim on frame 0.
+    Returns [(label, [payload], [minihash after each], [loop-filter level
+    of each])] (minihashes only if ``hashes``: reading one copies the
+    references to the host)."""
+    runs = []
+    for name, qi, two_pass in KF_ENCODE_MODES + (("min_ssim", None, False),):
+        if modes is not None and name not in modes:
+            continue
+        e = Encoder(width, height, two_pass=two_pass, device=DEV)
+        if qi is None:
+            name = "min_ssim_%.2f" % KF_MIN_SSIM
+            pls = [e.encode_with_minimum_ssim(frames[0], KF_MIN_SSIM,
+                                              key_frame=True)]
+            mhs = [e.minihash() if hashes else None]
+            lfs = [e.last_loop_filter_level]
+        else:
+            pls, mhs, lfs = [], [], []
+            for k in (0, 3):
+                pls.append(e.encode_with_quantizer(frames[k], qi,
+                                                   key_frame=True))
+                mhs.append(e.minihash() if hashes else None)
+                lfs.append(e.last_loop_filter_level)
+        runs.append((name, pls, mhs, lfs))
+    torch.cuda.synchronize()
+    return runs
+
+
+def keyframe_encode_phase(card, width, height):
+    """The keyframe_encode phase (see the module docstring); returns its
+    result line."""
+    rasters = decoded_frames(CLIP, (0, 3))
+    frames = {k: r.display() for k, r in rasters.items()}
+    R, C = (height + 15) // 16, (width + 15) // 16
+    per_call = 2 * (R - 1) + C
+
+    # the encode path: counters to 0 just before, read just after
+    zero_counts()
+    runs = kf_encode_runs(frames, width, height)
+    calls, kernels = read_counts()
+    sha_ok = {}
+    for name, pls, _, _ in runs:
+        for k, p in zip((0, 3), pls):
+            key = "%s_frame%d" % (name, k)
+            sha_ok[key] = hashlib.sha1(p).hexdigest() == KF_ENCODE_SHA1[key]
+    # every frame re-decoded by the port's Decoder on the card
+    decode_ok = []
+    for name, pls, mhs, _ in runs:
+        dec = Decoder(width, height, device=DEV)
+        for p, mh in zip(pls, mhs):
+            dec.decode_frame(p)
+            decode_ok.append(dec.minihash() == mh)
+
+    # speed per mode: the device drained before each clock read.  The
+    # end-to-end rate counts frames delivered (payloads); the minimum-SSIM
+    # search runs several trial encodes (K7 calls) per frame, so its ms per
+    # K7 encode is a per-layer figure of its own
+    modes = [m[0] for m in KF_ENCODE_MODES] + ["min_ssim"]
+    speed = {}
+    for mode in modes:
+        passes = []
+        for _ in range(2):
+            before = enc_intra_cuda.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (run,) = kf_encode_runs(frames, width, height, [mode],
+                                    hashes=False)
+            passes.append(time.perf_counter() - t0)
+            n_enc = enc_intra_cuda.launches - before
+        n_kf = len(run[1])
+        best = min(passes)
+        tracing.enable(True)
+        tracing.snapshot()
+        kf_encode_runs(frames, width, height, [mode], hashes=False)
+        tracing.enable(False)
+        split = {k: v["seconds"] * 1e3 / n_kf
+                 for k, v in tracing.snapshot().items() if k.startswith("enc.")}
+        speed[mode] = {"keyframes_per_call": n_kf,
+                       "k7_encodes_per_call": n_enc, "pass_s": passes,
+                       "keyframes_per_s": n_kf / best,
+                       "ms_per_keyframe": best * 1e3 / n_kf,
+                       "ms_per_k7_encode": best * 1e3 / n_enc,
+                       "traced_ms_per_keyframe": split}
+    wall = sum(v["ms_per_keyframe"] * v["keyframes_per_call"]
+               for v in speed.values())
+    profile = device_profile(
+        lambda: kf_encode_runs(frames, width, height, hashes=False), wall)
+    line = dict(card=card, frames=[0, 3], width=width, height=height,
+                sha1_ok=sha_ok, decode_minihash_ok=decode_ok,
+                launches=calls, kernel_launches=kernels,
+                k7_kernel_launches_per_call=per_call,
+                loop_filter_levels={r[0]: r[3] for r in runs}, speed=speed,
+                device_profile=profile)
+    say("keyframe_encode", **line)
+    if set(sha_ok) != set(KF_ENCODE_SHA1) or not all(sha_ok.values()):
+        raise SystemExit("keyframe payloads differ from KF_ENCODE_SHA1")
+    if not all(decode_ok):
+        raise SystemExit("the Decoder's minihash differs from the encoder's")
+    if calls["encode_kf_frame"] <= 0 or calls["loop_filter"] <= 0:
+        raise SystemExit("the encode path did not launch K7 and K5")
+    if kernels["encode_kf_frame"] != calls["encode_kf_frame"] * per_call:
+        raise SystemExit("K7 did not launch 2(R-1)+C kernels per call")
+    if any(calls[k] for k in ("sixtap_mc", "wavefront_decode",
+                              "predict_mb_tiles", "intra_frame")):
+        raise SystemExit("the encode path launched a decode kernel")
+    return line
+
+
 # ----------------------------------------------------------- main path
 
 def decode_all(payloads, width, height, digest):
@@ -349,7 +584,8 @@ COUNTS = {"sixtap_mc": (sixtap_cuda, "launches", "kernel_launches"),
           "predict_mb_tiles": (sixtap_cuda, "predict_launches",
                                "predict_kernel_launches"),
           "intra_frame": (intra_cuda, "launches", "kernel_launches"),
-          "loop_filter": (lf_cuda, "launches", "kernel_launches")}
+          "loop_filter": (lf_cuda, "launches", "kernel_launches"),
+          "encode_kf_frame": (enc_intra_cuda, "launches", "kernel_launches")}
 
 
 def zero_counts():
@@ -394,6 +630,8 @@ def state_round_trip(payloads, width, height, k=3):
 
 
 def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA device")
     quick = "--quick" in sys.argv[1:]
     card = smi()
     say("env", torch=torch.__version__, cuda=torch.version.cuda,
@@ -452,6 +690,30 @@ def main():
     k5 = [k5_case("frame1 interframe", sf[("loop_filter", 1)][0]),
           k5_case("frame0 key frame", sf[("loop_filter", 0)][0])]
     del sf, mc
+
+    # K7 on decoded frames: one-pass at two quantizers, two-pass under the
+    # default token costs and under those after one key frame, and a small
+    # geometry with odd macroblock counts (9 x 11)
+    big = decoded_frames(CLIP, (0, 3))
+    tc_default = torch.from_numpy(token_costs_pm(T.DEFAULT_COEFF_PROBS)).to(DEV)
+    first = Encoder(ivf.width, ivf.height, two_pass=True, device=DEV)
+    first.encode_with_quantizer(big[0].display(), 32, key_frame=True)
+    tc_after = torch.from_numpy(token_costs_pm(
+        first.state.probability_tables.coeff_probs)).to(DEV)
+    small0 = decoded_frames(SMALL_CLIP, (0,))[0]
+    k7 = [k7_case("720p frame0 qi24", kf_args(big[0], 24)),
+          k7_case("720p frame3 qi24", kf_args(big[3], 24)),
+          k7_case("720p frame0 qi64", kf_args(big[0], 64)),
+          k7_case("720p frame3 qi64", kf_args(big[3], 64)),
+          k7_case("720p frame0 two-pass qi32 default tables",
+                  kf_args(big[0], 32, tc_default)),
+          k7_case("720p frame3 two-pass qi32 tables after one key frame",
+                  kf_args(big[3], 32, tc_after)),
+          k7_case("176x144 frame0 qi48", kf_args(small0, 48)),
+          k7_case("176x144 frame0 two-pass qi48 default tables",
+                  kf_args(small0, 48, tc_default))]
+    del big, first, small0
+    say("kernels", helpers=helper_plain_ms())
     if quick:
         return
 
@@ -532,6 +794,8 @@ def main():
     if sf_calls["sixtap_mc"] or sf_calls["wavefront_decode"]:
         raise SystemExit("the single-frame path launched a GOP kernel")
 
+    kf = keyframe_encode_phase(card, ivf.width, ivf.height)
+
     def entry(name, source, replaces, launches, primary, all_cases):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -558,10 +822,16 @@ def main():
         entry("loop_filter", "alfalfa_tpu_torch/csrc/wavefront.cu",
               "alfalfa_tpu/ops/lf_pallas.py:148",
               sf_calls["loop_filter"], k5[0], k5),
+        entry("encode_kf_frame", "alfalfa_tpu_torch/csrc/enc_intra.cu",
+              "alfalfa_tpu/ops/enc_intra_pallas.py:555 (with H1 "
+              "enc_transforms_pallas.py and H2 trellis_pallas.py:322 inside)",
+              kf["launches"]["encode_kf_frame"], k7[0], k7),
     ]}), flush=True)
     # again, so the end of the log has them
     say("throughput", **throughput)
     say("single_frame", **single)
+    say("keyframe_encode", **{k: v for k, v in kf.items()
+                              if k != "device_profile"})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -337,7 +337,10 @@ def test_port_imports_no_jax():
     assert {"alfalfa_tpu_torch/cli/xc.py", "alfalfa_tpu_torch/decoder/decoder.py",
             "alfalfa_tpu_torch/state/serdes.py", "alfalfa_tpu_torch/util/y4m.py",
             "alfalfa_tpu_torch/ops/intra_cuda.py",
-            "alfalfa_tpu_torch/ops/lf_cuda.py"} <= names
+            "alfalfa_tpu_torch/ops/lf_cuda.py",
+            "alfalfa_tpu_torch/ops/enc_intra_cuda.py",
+            "alfalfa_tpu_torch/encoder/encoder.py",
+            "alfalfa_tpu_torch/util/ssim.py"} <= names
     bad = [str(f.relative_to(REPO)) for f in files
            if pat.search(f.read_text())]
     assert bad == []
