@@ -155,7 +155,12 @@ _ENCODER_FIELDS = ("frame_no", "quality", "two_pass", "last_loop_filter_level",
 def encoder_to_dict(encoder):
     """Either package's Encoder as plain values: its size, codec state,
     references and the fields that steer its next frames (frame count,
-    quality, two-pass, last loop-filter level, quantizer and SSIM)."""
+    quality, two-pass, last loop-filter level, quantizer and SSIM), at any
+    point of a stream, after key frames or interframes.  The JAX package's
+    device encoder also keeps its references packed on the TPU
+    (``_dev_refs``, with ``_dev_refs_for`` naming the raster they hold):
+    a cache of ``references.last``, rebuilt from it when it is missing, so
+    it is left out."""
     return {"width": int(encoder.width), "height": int(encoder.height),
             "state": decoder_state_to_dict(encoder.state),
             "references": references_to_dict(encoder.references),

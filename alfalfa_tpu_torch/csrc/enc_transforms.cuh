@@ -1,8 +1,8 @@
 // H1: the encoder's 4x4 transforms as device helpers, one block per call
 // in one thread's registers: forward DCT and WHT, truncating quantization,
 // and the decoder's dequantization, inverse WHT and inverse DCT that the
-// encoder reconstructs with.  Shared by the encode kernels (enc_intra.cu
-// now).  Blocks are 16 ints in raster order.
+// encoder reconstructs with.  Shared by the encode kernels (enc_intra.cu,
+// enc_inter.cu).  Blocks are 16 ints in raster order.
 //
 // Replaces alfalfa_tpu/ops/enc_transforms_pallas.py (fdct:37, idct:72,
 // fwht:117, iwht:159, quantize:195, dequantize:211), which runs every

@@ -1,5 +1,6 @@
 // Intra-prediction helpers shared by the decode kernels
-// (wavefront_device.cuh) and the keyframe-encode kernel (enc_intra.cu):
+// (wavefront_device.cuh) and the encode kernels (enc_mb_device.cuh, for
+// enc_intra.cu and enc_inter.cu), with the clamp sixtap_device.cuh uses:
 // one pixel of a 4x4 b-mode prediction from its 13 edge pixels, one pixel
 // of a whole-block prediction, and the whole-block DC value with the VP8
 // edge rules (reference prediction.cc:99-643).

@@ -11,7 +11,8 @@
 // second copy of the references.
 //
 // Design: one thread block per macroblock (grid C x R x G), one thread per
-// output pixel (S*S threads).  A macroblock whose sub-MVs are all equal
+// output pixel (S*S threads); the filter's passes are sixtap_device.cuh's,
+// shared with the interframe encoder (enc_inter.cu).  A macroblock whose sub-MVs are all equal
 // stages one (S+5)x(S+5) window in shared memory; a SPLITMV macroblock
 // stages one 9x9 window per 4x4 block.  Both cases run the same two passes.
 //
@@ -28,19 +29,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-__constant__ int c_taps[8][6] = {
-    {0, 0, 128, 0, 0, 0},      {0, -6, 123, 12, -1, 0},
-    {2, -11, 108, 36, -8, 1},  {0, -9, 93, 50, -6, 0},
-    {3, -16, 77, 77, -16, 3},  {0, -6, 50, 93, -9, 0},
-    {1, -8, 36, 108, -11, 2},  {0, -1, 12, 123, -6, 0}};
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-__device__ __forceinline__ int round_clip(int acc) {
-  return clampi((acc + 64) >> 7, 0, 255);
-}
+#include "sixtap_device.cuh"  // the filter: c_taps, sixtap, clampi
 
 template <int S>
 __global__ void sixtap_mc_kernel(const uint8_t* __restrict__ refs,
@@ -69,7 +58,7 @@ __global__ void sixtap_mc_kernel(const uint8_t* __restrict__ refs,
 
   const int slot = clampi(ref_sel[mb] - 1, 0, 2);
   const uint8_t* ref = refs + (size_t)(g * 3 + slot) * H * W;
-  int acc = 0;
+  int out_px;
 
   if (!split) {
     const int y0 = r * S + (mv0y >> 3) - 2;
@@ -83,14 +72,10 @@ __global__ void sixtap_mc_kernel(const uint8_t* __restrict__ refs,
     const int fx = mv0x & 7, fy = mv0y & 7;
     for (int i = tid; i < WIN * S; i += T) {
       const int wy = i / S, wx = i % S;
-      int a = 0;
-#pragma unroll
-      for (int k = 0; k < 6; ++k) a += (int)s_win[wy * WIN + wx + k] * c_taps[fx][k];
-      s_mid[i] = (uint8_t)round_clip(a);
+      s_mid[i] = (uint8_t)sixtap(s_win + wy * WIN + wx, 1, fx);
     }
     __syncthreads();
-#pragma unroll
-    for (int k = 0; k < 6; ++k) acc += (int)s_mid[(py + k) * S + px] * c_taps[fy][k];
+    out_px = sixtap(s_mid + py * S + px, S, fy);
   } else {
     for (int i = tid; i < NB * 81; i += T) {
       const int b = i / 81, k = i % 81;
@@ -105,19 +90,13 @@ __global__ void sixtap_mc_kernel(const uint8_t* __restrict__ refs,
       const int b = i / 36, k = i % 36;
       const int wy = k / 4, wx = k % 4;
       const int fx = mvp[b * 2] & 7;
-      int a = 0;
-#pragma unroll
-      for (int kk = 0; kk < 6; ++kk)
-        a += (int)s_win[b * 81 + wy * 9 + wx + kk] * c_taps[fx][kk];
-      s_mid[i] = (uint8_t)round_clip(a);
+      s_mid[i] = (uint8_t)sixtap(s_win + b * 81 + wy * 9 + wx, 1, fx);
     }
     __syncthreads();
     const int ly = py & 3, lx = px & 3, fy = mvy & 7;
-#pragma unroll
-    for (int k = 0; k < 6; ++k)
-      acc += (int)s_mid[bi * 36 + (ly + k) * 4 + lx] * c_taps[fy][k];
+    out_px = sixtap(s_mid + bi * 36 + ly * 4 + lx, 4, fy);
   }
-  out[(size_t)mb * T + tid] = (uint8_t)round_clip(acc);
+  out[(size_t)mb * T + tid] = (uint8_t)out_px;
 }
 
 // refs (G,3,H,W) u8; ref_sel (G,R,C) i32; sub_mv (G,R,C,S/4,S/4,2) i32;

@@ -1,4 +1,4 @@
-"""Encoder: explicit-state VP8 encoder, key frames on the device.
+"""Encoder: explicit-state VP8 encoder, every frame on the device.
 
 Like the reference Encoder (encoder/encoder.hh:95-383), this carries
 (DecoderState, References) and encodes each frame against them, inlining a
@@ -6,15 +6,19 @@ full decode so the references match what any decoder reconstructs.  Its
 frames and minihashes are byte-identical to the JAX package's
 ``Encoder(device_encode=False)``.
 
-Per key frame: the padded planes go to ``device`` (default CUDA) in one
-copy; the macroblock loop runs there (K7, encoder/encode_intra.py); the
-coefficients and modes come back in one copy for the host's token counts
-and serializer; the loop-filter search filters each chunk of candidate
-levels as one batched K5 call and scores them with the SSIM on the device,
-and the winning planes become the references without leaving it.
+Per frame: the padded planes go to ``device`` (default CUDA) in one
+copy; the macroblock loop runs there (key frames: K7,
+encoder/encode_intra.py; interframes: K8, encoder/encode_inter.py, against
+the LAST reference where it lies on the device); the coefficients and
+modes come back in one copy for the host's token counts and serializer;
+the loop-filter search filters each chunk of candidate levels as one
+batched K5 call and scores them with the SSIM on the device, and the
+winning planes become the references without leaving it.
 
-Modes: constant quantizer, minimum-SSIM search, target-size search.
-Interframes are not ported yet: encoding one raises.
+Modes: constant quantizer, minimum-SSIM search, target-size search;
+quality "best" or "rt" (realtime: NEWMV searched on one macroblock in 16,
+the loop-filter search a window around the last level), one-pass or
+two-pass (the trellis).
 """
 import copy as _copy
 
@@ -33,6 +37,7 @@ from alfalfa_tpu_torch.state.decoder_state import (DecoderState,
 from alfalfa_tpu_torch.util import tracing
 from alfalfa_tpu_torch.util.ssim import ssim
 from .costs import rd_multipliers
+from .encode_inter import encode_interframe
 from .encode_intra import encode_keyframe
 from .serializer import (count_token_branches, optimize_token_probs,
                          serialize_frame)
@@ -137,21 +142,19 @@ class Encoder:
     def _mosaic(self, y, u, v, sub_rows, sub_cols):
         """Pack every SAMPLE_FACTOR-th macroblock tile into a small raster —
         our equivalent of the reference's macroblock_mapper subsampled frame
-        (size_estimation.cc:37-42)."""
+        (size_estimation.cc:37-42).  Numpy planes give numpy planes; tensor
+        planes are cut by indexing where they lie."""
         f = self.SAMPLE_FACTOR
-        my = np.zeros((sub_rows * 16, sub_cols * 16), np.uint8)
-        mu = np.zeros((sub_rows * 8, sub_cols * 8), np.uint8)
-        mv = np.zeros((sub_rows * 8, sub_cols * 8), np.uint8)
-        for r in range(sub_rows):
-            for c in range(sub_cols):
-                oy, ox = r * f * 16, c * f * 16
-                my[r * 16:(r + 1) * 16, c * 16:(c + 1) * 16] = \
-                    y[oy:oy + 16, ox:ox + 16]
-                mu[r * 8:(r + 1) * 8, c * 8:(c + 1) * 8] = \
-                    u[oy // 2:oy // 2 + 8, ox // 2:ox // 2 + 8]
-                mv[r * 8:(r + 1) * 8, c * 8:(c + 1) * 8] = \
-                    v[oy // 2:oy // 2 + 8, ox // 2:ox // 2 + 8]
-        return my, mu, mv
+
+        def cut(plane, S):
+            rows = (np.arange(sub_rows)[:, None] * f * S + np.arange(S)).ravel()
+            cols = (np.arange(sub_cols)[:, None] * f * S + np.arange(S)).ravel()
+            if isinstance(plane, torch.Tensor):
+                rows, cols = (torch.from_numpy(i).to(plane.device)
+                              for i in (rows, cols))
+            return plane[rows[:, None], cols[None, :]]
+
+        return cut(y, 16), cut(u, 8), cut(v, 8)
 
     def estimate_frame_size(self, yuv, y_ac_qi, key_frame=None):
         """Estimated compressed size at y_ac_qi from a subsampled trial
@@ -166,10 +169,19 @@ class Encoder:
         padded = _pad_raster(*yuv, self.width, self.height)
         my, mu, mv = self._mosaic(padded.y, padded.u, padded.v,
                                   sub_rows, sub_cols)
-        # the trial encoder runs on this encoder's device, one pass (an
-        # interframe trial raises until interframes are ported)
+        # the trial encoder runs on this encoder's device, one pass
         sub = Encoder(sub_cols * 16, sub_rows * 16, quality=self.quality,
                       device=self.device)
+        if not key_frame:
+            # the current state against mosaic references, cut where the
+            # reference lies (on the card: no copy to the host)
+            last = self.references.last
+            ry, ru, rv = self._mosaic(last.y, last.u, last.v, sub_rows,
+                                      sub_cols)
+            sub.references.last = Raster(sub.width, sub.height, ry, ru, rv)
+            sub.references.golden = sub.references.last
+            sub.references.alternative = sub.references.last
+            sub.frame_no = 1  # force interframe
         qi = QuantIndices(y_ac_qi=int(y_ac_qi))
         payload, _ = sub._encode_frame((my, mu, mv), qi, key_frame,
                                        update=False)
@@ -294,9 +306,10 @@ class Encoder:
         return payload, quality
 
     def _encode_interframe(self, yuv, quant_indices, update):
-        raise NotImplementedError(
-            "interframe encoding is not ported to alfalfa_tpu_torch yet "
-            "(ROADMAP.md queue 1 item 7): encode key frames only")
+        # the macroblock loop (census, motion search, mode decision,
+        # residues, reconstruction) on the device, K8 with realtime=True in
+        # "rt"; two-pass trellis-quantizes intra macroblocks
+        return encode_interframe(self, yuv, quant_indices, update)
 
     # -- loop filter search (encoder.cc:459-516) -------------------------------
 

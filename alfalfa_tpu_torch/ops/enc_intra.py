@@ -123,30 +123,77 @@ def _edges(Tp, r, c, ru, cl, hrow, hcol, S):
     return e0, above, left
 
 
-def _encode_diag(st, rs, cs, q, rm, dm, tcs):
-    """Encode the macroblocks (rs, cs) of one diagonal into the state
-    ``st`` (see encode_kf_frame_plain)."""
+def y2_residue(oy, pred, q):
+    """The whole-macroblock luma chain with plain quantization: 16 fDCTs of
+    ``oy`` - ``pred`` ((N, 16, 16) raster tiles), their DCs through the WHT
+    into Y2, quantize, then the decoder's reconstruction (iWHT, iDCT, add,
+    clamp).  Shared by whole-mode intra and inter macroblocks.  Returns
+    ((N, 16, 16) AC coefficients per 4x4 block, (N, 16) Y2, (N, 16, 16)
+    reconstructed tile)."""
+    ydc, yac, y2dc, y2ac = q[:4]
+    pb = _to_blocks(pred, 4)
+    co = ET.fdct(_to_blocks(oy, 4), pb)
+    y2q = ET.quantize(ET.fwht(co[:, :, 0]), y2dc, y2ac)
+    wco = ET.quantize(torch.cat([torch.zeros_like(co[:, :, :1]),
+                                 co[:, :, 1:]], dim=2), ydc, yac)
+    return wco, y2q, _y2_recon(pb, wco, y2q, q)
+
+
+def _y2_recon(pb, wco, y2q, q):
+    ydc, yac, y2dc, y2ac = q[:4]
+    N = pb.shape[0]
+    yd = _dq(wco, ydc, yac)
+    dc = transforms.iwht(_dq(y2q, y2dc, y2ac)).reshape(N, 16)
+    yd = torch.cat([dc[:, :, None], yd[:, :, 1:]], dim=2)
+    return _from_blocks(torch.clamp(pb + transforms.idct(yd).reshape(N, 16, 16),
+                                    0, 255), 4)
+
+
+def chroma_residue(o, p, q):
+    """One 8x8 chroma block with plain quantization: ((N, 4, 16)
+    coefficients, (N, 8, 8) reconstruction) of ``o`` - ``p``."""
+    uvdc, uvac = q[4:6]
+    N = o.shape[0]
+    pb = _to_blocks(p, 2)
+    qc = ET.quantize(ET.fdct(_to_blocks(o, 2), pb), uvdc, uvac)
+    res = transforms.idct(_dq(qc, uvdc, uvac)).reshape(N, 4, 16)
+    return qc, _from_blocks(torch.clamp(pb + res, 0, 255), 2)
+
+
+def intra_mbs(st, r, c, q, rm, dm, tcs, mbc, bcost):
+    """The intra encode of the macroblocks (r, c) ((N,) tensors), which
+    may all be encoded at once: every neighbour they read is in ``st``
+    already (see encode_kf_frame_plain for ``st``).  ``mbc``: the (5,)
+    macroblock mode costs; ``bcost``: the b-mode costs, (10, 10, 10)
+    [above][left][mode] under the key frame's context (read from
+    ``st["BM"]``), or (10,) for an interframe, which has no context.
+
+    Writes nothing; returns a dict of per-macroblock results: coeffs (N,
+    25, 16) int32, ymode, uvmode, use_b (N,), bmodes (N, 4, 4), the
+    reconstructed tiles y (N, 16, 16), u, v (N, 8, 8), nz (N,) and, with
+    token costs, the trellis state ynz (N, 4, 4), unz, vnz (N, 2, 2) and
+    y2c (N, 4)."""
     dev = st["Ty"].device
-    R, C = st["R"], st["C"]
-    r = torch.tensor(rs, device=dev)
-    c = torch.tensor(cs, device=dev)
-    N = len(rs)
+    C = st["C"]
+    N = r.shape[0]
     ar = torch.arange(N, device=dev)
     ru, cl, cr = (r - 1).clamp(min=0), (c - 1).clamp(min=0), \
         (c + 1).clamp(max=C - 1)
     hrow, hcol, lastc = r > 0, c > 0, c == C - 1
-    Ty, Tu, Tv, BM = st["Ty"], st["Tu"], st["Tv"], st["BM"]
-    mbc, bcost = st["mbc"], st["bcost"]
+    Ty, Tu, Tv = st["Ty"], st["Tu"], st["Tv"]
     oy, ou, ov = st["Oy"][r, c], st["Ou"][r, c], st["Ov"][r, c]
     ydc, yac, y2dc, y2ac, uvdc, uvac = q
+    contextual = bcost.dim() == 3
 
     e0, above16, lcol = _edges(Ty, r, c, ru, cl, hrow, hcol, 16)
     ar4 = torch.where((hrow & ~lastc)[:, None], Ty[ru, cr, 15, 0:4],
                       torch.where(hrow[:, None], above16[:, 15:16]
                                   .expand(N, 4), 127))
     e21 = torch.cat([e0[:, None], above16, ar4], dim=1)
-    abv_bm = torch.where(hrow[:, None], BM[ru, c, 3, :], T.B_DC_PRED)
-    left_bm = torch.where(hcol[:, None], BM[r, cl, :, 3], T.B_DC_PRED)
+    if contextual:
+        BM = st["BM"]
+        abv_bm = torch.where(hrow[:, None], BM[ru, c, 3, :], T.B_DC_PRED)
+        left_bm = torch.where(hcol[:, None], BM[r, cl, :, 3], T.B_DC_PRED)
     if tcs is not None:
         ynz_abv = st["ynz"][ru, c, 3, :] & hrow[:, None]
         ynz_left = st["ynz"][r, cl, :, 3] & hcol[:, None]
@@ -176,9 +223,12 @@ def _encode_diag(st, rs, cs, q, rm, dm, tcs):
             preds = intra.subblock_predict_all(above4, left4, al, ra)
             o = oy[:, y0:y0 + 4, x0:x0 + 4]
             sse = ((o[:, None] - preds) ** 2).sum(dim=(2, 3)).to(torch.int64)
-            am = bm[:, sr - 1, sc] if sr else abv_bm[:, sc]
-            lm = bm[:, sr, sc - 1] if sc else left_bm[:, sr]
-            rates = bcost[am, lm]                                 # (N, 10)
+            if contextual:
+                am = bm[:, sr - 1, sc] if sr else abv_bm[:, sc]
+                lm = bm[:, sr, sc - 1] if sc else left_bm[:, sr]
+                rates = bcost[am, lm]                             # (N, 10)
+            else:
+                rates = bcost.expand(N, 10)
             m = _rdcost(rates, sse, rm, dm).argmin(dim=1)
             bm[:, sr, sc] = m
             b_rate += rates[ar, m]
@@ -207,30 +257,23 @@ def _encode_diag(st, rs, cs, q, rm, dm, tcs):
     wcost = _rdcost(mbc[:4][None, :], var, rm, dm)
     wm = wcost.argmin(dim=1)
     use_b = b_cost < wcost[ar, wm]
-    wpred = _to_blocks(wpreds[ar, wm], 4)                     # (N, 16, 16)
-    co = ET.fdct(_to_blocks(oy, 4), wpred)
-    walsh = co[:, :, 0]
-    co = torch.cat([torch.zeros_like(co[:, :, :1]), co[:, :, 1:]], dim=2)
-    y2 = ET.fwht(walsh)
     if tcs is None:
-        wco = ET.quantize(co, ydc, yac)
-        y2q = ET.quantize(y2, y2dc, y2ac)
+        wco, y2q, wrec = y2_residue(oy, wpreds[ar, wm], q)
     else:
+        wpred = _to_blocks(wpreds[ar, wm], 4)                 # (N, 16, 16)
+        co = ET.fdct(_to_blocks(oy, 4), wpred)
+        y2 = ET.fwht(co[:, :, 0])
+        co = torch.cat([torch.zeros_like(co[:, :, :1]), co[:, :, 1:]], dim=2)
         tcy = tcs[T.BLOCK_Y_AFTER_Y2]
         nodes = TR.trellis_nodes(co.reshape(N * 16, 16), ydc, yac, tcy, 1,
                                  rm, dm)
         wco, wnz = _chain(nodes, tcy, 1, ynz_abv, ynz_left, 4, rm, dm)
-        y2c = st["y2c"]
-        col_in = torch.where(hrow[:, None], y2c[ru, c, 0:2], False)
-        row_in = torch.where(hcol[:, None], y2c[r, cl, 2:4], False)
+        col_in, row_in = y2_chains(st["y2c"], r, c, ru, cl, hrow, hcol)
         ctx = (col_in[:, 0] & col_in[:, 1]).to(torch.int64) \
             + (row_in[:, 0] & row_in[:, 1]).to(torch.int64)
         y2q, y2nz = TR.trellis_quantize(y2, y2dc, y2ac, tcs[T.BLOCK_Y2], ctx,
                                         0, rm, dm)
-    yd = _dq(wco, ydc, yac)
-    dc = transforms.iwht(_dq(y2q, y2dc, y2ac)).reshape(N, 16)
-    yd = torch.cat([dc[:, :, None], yd[:, :, 1:]], dim=2)
-    wrec = torch.clamp(wpred + transforms.idct(yd).reshape(N, 16, 16), 0, 255)
+        wrec = _y2_recon(wpred, wco, y2q, q)
 
     # ---- chroma, by raw SSE over U and V ----
     chroma = []
@@ -244,11 +287,11 @@ def _encode_diag(st, rs, cs, q, rm, dm, tcs):
     uvm = uv_sse.argmin(dim=1)
     uv_co, uv_rec, uv_nz = [], [], []
     for pl, (o, p) in enumerate(chroma):
-        pb = _to_blocks(p[ar, uvm], 2)
-        co_c = ET.fdct(_to_blocks(o, 2), pb)
         if tcs is None:
-            qc = ET.quantize(co_c, uvdc, uvac)
+            qc, rec = chroma_residue(o, p[ar, uvm], q)
         else:
+            pb = _to_blocks(p[ar, uvm], 2)
+            co_c = ET.fdct(_to_blocks(o, 2), pb)
             nzp = st["unz" if pl == 0 else "vnz"]
             tcu = tcs[T.BLOCK_UV]
             nodes = TR.trellis_nodes(co_c.reshape(N * 4, 16), uvdc, uvac,
@@ -256,36 +299,59 @@ def _encode_diag(st, rs, cs, q, rm, dm, tcs):
             qc, nz = _chain(nodes, tcu, 0, nzp[ru, c, 1, :] & hrow[:, None],
                             nzp[r, cl, :, 1] & hcol[:, None], 2, rm, dm)
             uv_nz.append(nz)
-        res = transforms.idct(_dq(qc, uvdc, uvac)).reshape(N, 4, 16)
+            res = transforms.idct(_dq(qc, uvdc, uvac)).reshape(N, 4, 16)
+            rec = _from_blocks(torch.clamp(pb + res, 0, 255), 2)
         uv_co.append(qc)
-        uv_rec.append(_from_blocks(torch.clamp(pb + res, 0, 255), 2))
+        uv_rec.append(rec)
 
-    # ---- outputs and the state later diagonals read ----
     ub = use_b[:, None, None]
     coeffs = torch.cat([torch.where(ub, bco, wco), uv_co[0], uv_co[1],
                         torch.where(ub[:, 0], 0, y2q)[:, None]], dim=1)
-    nzmb = (coeffs != 0).flatten(1).any(dim=1)
     implied = torch.tensor(IMPLIED_BMODE, device=dev)[wm]
-    bmodes = torch.where(ub, bm, implied[:, None, None])
-    st["coeffs"][r, c] = coeffs.to(torch.int16)
-    st["modes"][r, c] = torch.cat([
-        torch.stack([torch.where(use_b, B_PRED, wm), uvm,
-                     (~use_b).to(torch.int64), nzmb.to(torch.int64)], dim=1),
-        bmodes.reshape(N, 16)], dim=1).to(torch.uint8)
-    Ty[r, c] = torch.where(ub, btile, _from_blocks(wrec, 4))
-    Tu[r, c] = uv_rec[0]
-    Tv[r, c] = uv_rec[1]
-    BM[r, c] = bmodes
+    out = {"coeffs": coeffs, "ymode": torch.where(use_b, B_PRED, wm),
+           "uvmode": uvm, "use_b": use_b,
+           "bmodes": torch.where(ub, bm, implied[:, None, None]),
+           "y": torch.where(ub, btile, wrec), "u": uv_rec[0], "v": uv_rec[1],
+           "nz": (coeffs != 0).flatten(1).any(dim=1)}
     if tcs is not None:
-        st["ynz"][r, c] = torch.where(ub, bnz, wnz)
-        st["unz"][r, c] = uv_nz[0]
-        st["vnz"][r, c] = uv_nz[1]
         one = torch.ones_like(y2nz)
-        st["y2c"][r, c] = torch.stack([
-            torch.where(use_b, col_in[:, 0], y2nz),
-            torch.where(use_b, col_in[:, 1], one),
-            torch.where(use_b, row_in[:, 0], y2nz),
-            torch.where(use_b, row_in[:, 1], one)], dim=1)
+        out.update(ynz=torch.where(ub, bnz, wnz), unz=uv_nz[0], vnz=uv_nz[1],
+                   y2c=torch.stack([
+                       torch.where(use_b, col_in[:, 0], y2nz),
+                       torch.where(use_b, col_in[:, 1], one),
+                       torch.where(use_b, row_in[:, 0], y2nz),
+                       torch.where(use_b, row_in[:, 1], one)], dim=1))
+    return out
+
+
+def y2_chains(y2c, r, c, ru, cl, hrow, hcol):
+    """The Y2 context chains entering the macroblocks (r, c): (column nz,
+    valid) from the one above, (row nz, valid) from the one to the left;
+    False off the frame.  A macroblock without Y2 passes them on."""
+    col_in = torch.where(hrow[:, None], y2c[ru, c, 0:2], False)
+    row_in = torch.where(hcol[:, None], y2c[r, cl, 2:4], False)
+    return col_in, row_in
+
+
+def _encode_diag(st, rs, cs, q, rm, dm, tcs):
+    """Encode the macroblocks (rs, cs) of one diagonal into the state
+    ``st`` (see encode_kf_frame_plain)."""
+    dev = st["Ty"].device
+    r = torch.tensor(rs, device=dev)
+    c = torch.tensor(cs, device=dev)
+    o = intra_mbs(st, r, c, q, rm, dm, tcs, st["mbc"], st["bcost"])
+    st["coeffs"][r, c] = o["coeffs"].to(torch.int16)
+    st["modes"][r, c] = torch.cat([
+        torch.stack([o["ymode"], o["uvmode"], (~o["use_b"]).to(torch.int64),
+                     o["nz"].to(torch.int64)], dim=1),
+        o["bmodes"].reshape(-1, 16)], dim=1).to(torch.uint8)
+    st["Ty"][r, c] = o["y"]
+    st["Tu"][r, c] = o["u"]
+    st["Tv"][r, c] = o["v"]
+    st["BM"][r, c] = o["bmodes"]
+    if tcs is not None:
+        for k in ("ynz", "unz", "vnz", "y2c"):
+            st[k][r, c] = o[k]
 
 
 def encode_kf_frame_plain(oy, ou, ov, quant, rate_mult, dist_mult,

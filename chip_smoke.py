@@ -6,14 +6,16 @@
                                      # at a changed kernel)
 
 Builds the CUDA kernels and the native host parsers from the sources in
-this checkout, and holds each kernel against its plain PyTorch version on
-the card at the shapes its path gives it: K1 (wavefront_decode) and K2
-(sixtap_mc) at 720p G=16 for the GOP decoder, K3 (predict_mb_tiles), K4
-(intra_frame) and K5 (loop_filter) at 720p G=1 for the single-frame
-decoder, and K7 (encode_kf_frame, with H1 and H2 inside) at 720p and
-176x144, one-pass and two-pass, on decoded frames of the fixtures.  Then it
-drives the paths over tests/fixtures/inter_1280x720_q48.ivf and checks each
-output's SHA-1:
+this checkout (one nvcc per kernel source, all at once), and holds each
+kernel against its plain PyTorch version on the card at the shapes its
+path gives it: K1 (wavefront_decode) and K2 (sixtap_mc) at 720p G=16 for
+the GOP decoder, K3 (predict_mb_tiles), K4 (intra_frame) and K5
+(loop_filter) at 720p G=1 for the single-frame decoder, K7
+(encode_kf_frame, with H1 and H2 inside) at 720p and 176x144, one-pass and
+two-pass, and K8 (encode_inter_frame) at 720p and 176x144 in best, rt and
+two-pass, as the fused 2-QP pair and on seeded extreme motion, on decoded
+frames of the fixtures.  Then it drives the paths over
+tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
 
 - main_path: 16 lockstep GOPs through BatchedGopDecoder.decode_stream
   (against tests/fixtures/manifest.json);
@@ -22,8 +24,15 @@ output's SHA-1:
   (against the manifest);
 - keyframe_encode: the port's Encoder encodes decoded frames 0 and 3 as key
   frames (KF_ENCODE_SHA1: the JAX package's encoder's frames), and the
-  port's Decoder re-decodes every frame to the encoder's minihash.
+  port's Decoder re-decodes every frame to the encoder's minihash;
+- inter_encode: the port's Encoder encodes decoded frames 0-5, a key frame
+  and then interframes, in best, rt, two-pass, minimum SSIM and the fused
+  quantizer pair (INTER_ENCODE_SHA1: the JAX package's encoder's frames),
+  and the port's Decoder re-decodes every frame to the encoder's minihash.
 
+Each path runs with the launch counts set to 0 just before it and read
+just after; the last lines are the `kernels` JSON line (one entry per
+kernel), the card's name and power limit, and the result line.
 Each phase prints JSON lines; any failure is a non-zero exit.  There is no
 CPU path: without a CUDA device main() raises before it prints anything
 (the module itself imports on a CPU host, for its constants).
@@ -45,13 +54,14 @@ from alfalfa_tpu_torch.bitstream.header import QuantIndices
 from alfalfa_tpu_torch.decoder import Decoder, FilePlayer
 from alfalfa_tpu_torch.decoder import reconstruct_torch as RT
 from alfalfa_tpu_torch.encoder import Encoder
+from alfalfa_tpu_torch.encoder import encode_inter
 from alfalfa_tpu_torch.encoder.costs import rd_multipliers
 from alfalfa_tpu_torch.encoder.encode_intra import QUANT_KEYS
 from alfalfa_tpu_torch.encoder.trellis import token_costs_pm
 from alfalfa_tpu_torch.native import bitwork
-from alfalfa_tpu_torch.ops import enc_intra, enc_intra_cuda, \
-    enc_transforms, intra_cuda, lf_cuda, sixtap, sixtap_cuda, transforms, \
-    trellis, wavefront, wavefront_cuda
+from alfalfa_tpu_torch.ops import enc_inter, enc_inter_cuda, enc_intra, \
+    enc_intra_cuda, enc_transforms, intra_cuda, lf_cuda, sixtap, \
+    sixtap_cuda, transforms, trellis, wavefront, wavefront_cuda
 from alfalfa_tpu_torch.parallel import gop
 from alfalfa_tpu_torch.state import serdes
 from alfalfa_tpu_torch.state.decoder_state import Raster
@@ -386,6 +396,183 @@ def k7_case(label, args):
                        two_pass=args[6] is not None, mbs=R * C)
 
 
+# ------------------------------------------------------------------ K8
+
+# inter_encode: SHA-1 of each frame the JAX package's host encoder
+# (alfalfa_tpu.encoder.Encoder(device_encode=False)) makes of decoded frames
+# 0-5 of inter_1280x720_q48.ivf: per mode of INTER_ENCODE_MODES a new
+# encoder encodes frame 0 as a key frame and frames 1-5 as interframes;
+# "min_ssim_0.90" is encode_with_minimum_ssim on frames 0-2; "pair" is a
+# key frame at qi 56 in a realtime encoder, then frame 1 at qi 40 and at
+# qi 72 in two forks of it (the port encodes the pair in one
+# encode_interframe_multiqp call).  Computed once on a CPU host;
+# tests/test_torch_inter_encoder.py recomputes them (-m slow).
+INTER_FRAMES = 6
+INTER_ENCODE_MODES = (("best_qi48", 48, "best", False),
+                      ("rt_qi48", 48, "rt", False),
+                      ("best_qi32_two_pass", 32, "best", True))
+INTER_MIN_SSIM, INTER_MIN_SSIM_FRAMES = 0.90, 3
+INTER_PAIR_KEY_QI, INTER_PAIR_QIS = 56, (40, 72)
+INTER_ENCODE_SHA1 = {
+    "best_qi32_two_pass_frame0": "e91eff4f07f3480b9ddf8c8b807aa5df02482e47",
+    "best_qi32_two_pass_frame1": "bf4ebe2a1e9dea045afc81c52e40742af96be333",
+    "best_qi32_two_pass_frame2": "3f6e1ac73bf5f2774eab2a59d19486d554a87705",
+    "best_qi32_two_pass_frame3": "41233a1e302279aee80977b770b5d7b5b95316e4",
+    "best_qi32_two_pass_frame4": "ca91e95c5f8798aa812acabbac8996db6d9a1e3a",
+    "best_qi32_two_pass_frame5": "01518d899687f8d65472c947de42188c6190b7bd",
+    "best_qi48_frame0": "8fd62474aaaa54eb38fe34967290b0be424d977d",
+    "best_qi48_frame1": "6232b81cce006d449264108699189b28f439ef58",
+    "best_qi48_frame2": "b45b4a4c5a0bd17815974b737d26e8b0f519d05e",
+    "best_qi48_frame3": "177e919bb4da1cf75ad39fe25c4a0c34e18c59aa",
+    "best_qi48_frame4": "56cb50789f53aaa2cb5b20c1dd4b31052ce786fe",
+    "best_qi48_frame5": "f5dda6c6cc2e26e3aa1dbc5cf4d453dbc3e69278",
+    "min_ssim_0.90_frame0": "18a53d28c9c05a7e22a8df6822fb00b88cb1a1aa",
+    "min_ssim_0.90_frame1": "0d907f5f53cf5df64ec5e3695c7d865c99e3e480",
+    "min_ssim_0.90_frame2": "5af1ec87c7aae510df14154717ad36f393425c1e",
+    "pair_key_qi56_frame0": "2443209548e97f850ac24a542efecf7a7c98facb",
+    "pair_qi40_frame1": "eb1613220d36b599eae70599177564cf43ac1aca",
+    "pair_qi72_frame1": "eafe8528ad42bb70eadb4bf04a86aac807dd98b9",
+    "rt_qi48_frame0": "8fd62474aaaa54eb38fe34967290b0be424d977d",
+    "rt_qi48_frame1": "d3a46439d0dc93b77eb27b45560966b6762951c1",
+    "rt_qi48_frame2": "2b3575757a8c6825b6e884e6ddc0f34597475828",
+    "rt_qi48_frame3": "206af14cf1859c4afa612c3bce0507ca76ed834e",
+    "rt_qi48_frame4": "3fbd95385f586a6846b34f51d231413ee8f97084",
+    "rt_qi48_frame5": "1cec8d82fd9bf6d4eb04813e14dea75b9238c30b",
+}
+
+# integer operations K8's work needs, counted as k2_bound counts the same
+# filter: 2 a six-tap tap, only the passes a vector's sub-pel phases need
+# (the mode words count the taps of every diamond site and candidate
+# scored); a SAD term 3 a pixel (difference, absolute value, sum), a
+# variance term 4 (difference, two sums, square); each site's rate and
+# decision 40; the intra screening (4 whole modes of 256 pixels at 8) and
+# the census per macroblock
+K8_OPS_SAD_SITE = 256 * 3 + 40
+K8_OPS_VAR_CAND = 256 * 4
+K8_OPS_MB = 4 * 256 * 8 + 200
+
+
+def chroma_taps(cmx, cmy):
+    """Six-tap taps the two 8x8 chroma predictions of a macroblock at
+    eighth-pel vector (cmx, cmy) need (as enc_inter.luma_taps)."""
+    fx, fy = (cmx & 7) != 0, (cmy & 7) != 0
+    return 2 * 6 * 8 * (torch.where(fx, torch.where(fy, 13, 8), 0)
+                        + torch.where(fy, 8, 0))
+
+
+def inter_labels(name):
+    """The INTER_ENCODE_SHA1 keys of a run, in payload order."""
+    if name == "pair":
+        return ["pair_key_qi%d_frame0" % INTER_PAIR_KEY_QI] + [
+            "pair_qi%d_frame1" % q for q in INTER_PAIR_QIS]
+    if name == "min_ssim":
+        return ["min_ssim_%.2f_frame%d" % (INTER_MIN_SSIM, k)
+                for k in range(INTER_MIN_SSIM_FRAMES)]
+    return ["%s_frame%d" % (name, k) for k in range(INTER_FRAMES)]
+
+
+def k8_bound(modes, Q, trellis):
+    """Least time for one encode_inter_frame call on this frame: originals
+    and LAST in, coefficients, mode words and reconstruction out per
+    quantizer; the operations of the diamond sites and candidates this run
+    scored (the mode words count them, and the six-tap taps their vectors
+    need), the chroma predictions and the Y2 and chroma chains of inter
+    macroblocks, the screening and census per macroblock, and K7's
+    per-macroblock count for the intra ones."""
+    R, C = modes.shape[1:3]
+    n = R * C
+    md = modes.reshape(-1, enc_inter.MODE_WORDS).to(torch.int64)
+    is_inter = md[:, 2] != 0
+    inter = int(is_inter.sum().item())
+    sites = int(md[:, enc_inter.SITES].sum().item())
+    cands = int(md[:, enc_inter.CANDS].sum().item())
+    taps = int(md[:, enc_inter.TAPS].sum().item()) + int(
+        chroma_taps(md[:, 6], md[:, 7])[is_inter].sum().item())
+    intra = Q * n - inter
+    bytes_ = 2 * n * 384 + Q * n * (25 * 16 * 2 + enc_inter.MODE_WORDS * 4
+                                    + 384)
+    blocks_intra = intra * (16 + 8 + 17)
+    ops = (2 * taps + sites * K8_OPS_SAD_SITE + cands * K8_OPS_VAR_CAND
+           + Q * n * K8_OPS_MB + inter * 25 * K7_OPS_CHAIN
+           + intra * (K7_OPS_BSEARCH + K7_OPS_WHOLE_SEARCH
+                      + K7_OPS_CHROMA_SEARCH)
+           + blocks_intra * (K7_OPS_CHAIN + (K7_OPS_TRELLIS if trellis else 0)))
+    return bound(bytes_, ops)
+
+
+def k8_case(label, args):
+    seen = {}
+
+    def wrapper(*a):
+        out = enc_inter_cuda.encode_inter_frame(*a)
+        seen["modes"] = out[1]
+        return out
+
+    Q = args[6].shape[0]
+    R, C = args[0].shape[0] // 16, args[0].shape[1] // 16
+    case = kernel_case("encode_inter_frame", label, wrapper,
+                       enc_inter.encode_inter_frame_plain, args,
+                       lambda: enc_inter_cuda.kernel_launches,
+                       lambda *a: k8_bound(seen["modes"], Q, a[9] is not None),
+                       two_pass=args[9] is not None, realtime=bool(args[8]),
+                       quantizers=Q, mbs=R * C)
+    md = seen["modes"]
+    newmv = md[..., 0] == enc_inter.NEWMV
+    say("kernels", kernel="encode_inter_frame", case=label,
+        inter_mbs=int((md[..., 2] != 0).sum().item()),
+        newmv_mbs=int(newmv.sum().item()),
+        diamond_sites=int(md[..., enc_inter.SITES].sum().item()),
+        candidates=int(md[..., enc_inter.CANDS].sum().item()),
+        luma_taps=int(md[..., enc_inter.TAPS].sum().item()),
+        max_abs_newmv=int(md[..., 4:6].abs().amax(-1)[newmv].max().item())
+        if bool(newmv.any()) else 0)
+    return case
+
+
+def k8_args(raster0, raster1, key_qi, qis, quality="best", two_pass=False):
+    """encode_inter_frame's arguments for ``raster1`` (a decoded frame) at
+    the quantizers ``qis``, after an encoder on the card has encoded
+    ``raster0`` as a key frame at ``key_qi``."""
+    e = Encoder(raster0.display_width, raster0.display_height,
+                quality=quality, two_pass=two_pass, device=DEV)
+    e.encode_with_quantizer(raster0.display(), key_qi, key_frame=True)
+    return encode_inter.kernel_inputs(
+        e, raster1.display(), [QuantIndices(y_ac_qi=q) for q in qis])
+
+
+def extreme_motion_planes(seed, width, height, shift):
+    """Seeded extreme motion: (LAST, original) as (y, u, v) uint8 planes.
+    LAST is a gentle ramp under smooth ripples of seeded phases, the
+    original the same content moved ``shift`` pixels up and to the left,
+    plus noise.  The ramp leads the diamond search's SAD towards the shift
+    from afar, the ripples make every other vector's residual costly;
+    vectors near the frame's bottom and right edges point far outside
+    it."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:height + shift, 0:width + shift].astype(np.float64)
+    ph = rng.uniform(0, 2 * np.pi, 3)
+    k = max(1, (width + height + 2 * shift) // 180)
+    tex = ((xx + yy) / k + 40 * np.sin(xx / 5.3 + ph[0]) * np.cos(yy / 4.1 + ph[1])
+           + 25 * np.sin((xx - yy) / 9.7 + ph[2]) + 60)
+    tex = np.clip(np.rint(tex), 0, 255)
+    last = tex[:height, :width].astype(np.uint8)
+    orig = np.clip(tex[shift:, shift:] + rng.integers(-2, 3, (height, width)),
+                   0, 255).astype(np.uint8)
+    sub = lambda p: (p, np.ascontiguousarray(p[::2, ::2]),
+                     np.ascontiguousarray(p[1::2, 1::2]))
+    return sub(last), sub(orig)
+
+
+def k8_extreme(seed, width=1280, height=720, shift=127):
+    """encode_inter_frame's arguments for extreme_motion_planes at 720p: the
+    search walks out towards its +-1023 eighth-pel edge."""
+    last, orig = extreme_motion_planes(seed, width, height, shift)
+    e = Encoder(width, height, device=DEV)
+    e.references.last = Raster(width, height, *(
+        torch.from_numpy(p).to(DEV) for p in last))
+    return encode_inter.kernel_inputs(e, orig, [QuantIndices(y_ac_qi=48)])
+
+
 def helper_plain_ms(blocks=3600 * 25, seed=7):
     """The plain versions of H1 and H2 alone, on the card, over the 4x4
     blocks one 720p key frame quantizes (seeded residuals, one batched
@@ -510,10 +697,8 @@ def keyframe_encode_phase(card, width, height):
                        "ms_per_keyframe": best * 1e3 / n_kf,
                        "ms_per_k7_encode": best * 1e3 / n_enc,
                        "traced_ms_per_keyframe": split}
-    wall = sum(v["ms_per_keyframe"] * v["keyframes_per_call"]
-               for v in speed.values())
     profile = device_profile(
-        lambda: kf_encode_runs(frames, width, height, hashes=False), wall)
+        lambda: kf_encode_runs(frames, width, height, hashes=False))
     line = dict(card=card, frames=[0, 3], width=width, height=height,
                 sha1_ok=sha_ok, decode_minihash_ok=decode_ok,
                 launches=calls, kernel_launches=kernels,
@@ -529,6 +714,159 @@ def keyframe_encode_phase(card, width, height):
         raise SystemExit("the encode path did not launch K7 and K5")
     if kernels["encode_kf_frame"] != calls["encode_kf_frame"] * per_call:
         raise SystemExit("K7 did not launch 2(R-1)+C kernels per call")
+    if any(calls[k] for k in ("sixtap_mc", "wavefront_decode",
+                              "predict_mb_tiles", "intra_frame")):
+        raise SystemExit("the encode path launched a decode kernel")
+    return line
+
+
+def sync_clock():
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def inter_encode_runs(frames, width, height, modes=None, hashes=True):
+    """The inter_encode phase's encodes: per mode of INTER_ENCODE_MODES,
+    "min_ssim" and "pair" (all by default, or those named in ``modes``) a
+    new Encoder on the card, as INTER_ENCODE_SHA1 describes.  Returns
+    [(name, [payload], [minihash after each], [loop-filter level of each],
+    seconds of the interframes (device drained at both ends), interframes
+    delivered)] (minihashes only if ``hashes``: reading one copies the
+    references to the host)."""
+    runs = []
+    for name, qi, quality, two_pass in INTER_ENCODE_MODES + (
+            ("min_ssim", None, "best", False), ("pair", None, "rt", False)):
+        if modes is not None and name not in modes:
+            continue
+        e = Encoder(width, height, quality=quality, two_pass=two_pass,
+                    device=DEV)
+        pls, mhs, lfs = [], [], []
+
+        def kept(payload, enc):
+            pls.append(payload)
+            mhs.append(enc.minihash() if hashes else None)
+            lfs.append(enc.last_loop_filter_level)
+
+        if name == "pair":
+            kept(e.encode_with_quantizer(frames[0], INTER_PAIR_KEY_QI,
+                                         key_frame=True), e)
+            forks = [e.fork() for _ in INTER_PAIR_QIS]
+            t0 = sync_clock()
+            res = encode_inter.encode_interframe_multiqp(
+                forks, frames[1],
+                [QuantIndices(y_ac_qi=q) for q in INTER_PAIR_QIS])
+            t = sync_clock() - t0
+            for (payload, _), f in zip(res, forks):
+                kept(payload, f)
+        elif name == "min_ssim":
+            kept(e.encode_with_minimum_ssim(frames[0], INTER_MIN_SSIM,
+                                            key_frame=True), e)
+            t0 = sync_clock()
+            for k in range(1, INTER_MIN_SSIM_FRAMES):
+                kept(e.encode_with_minimum_ssim(frames[k], INTER_MIN_SSIM), e)
+            t = sync_clock() - t0
+        else:
+            kept(e.encode_with_quantizer(frames[0], qi, key_frame=True), e)
+            t0 = sync_clock()
+            for k in range(1, INTER_FRAMES):
+                kept(e.encode_with_quantizer(frames[k], qi), e)
+            t = sync_clock() - t0
+        runs.append((name, pls, mhs, lfs, t, len(pls) - 1))
+    torch.cuda.synchronize()
+    return runs
+
+
+INTER_SPANS = ("enc.inter_inputs", "enc.inter_kernel", "enc.inter_fetch",
+               "enc.inter_host", "enc.if_lf_search", "enc.if_counts_join",
+               "enc.if_serialize")
+
+
+def inter_encode_phase(card, width, height):
+    """The inter_encode phase (see the module docstring); returns its
+    result line."""
+    rasters = decoded_frames(CLIP, tuple(range(INTER_FRAMES)))
+    frames = {k: r.display() for k, r in rasters.items()}
+    R, C = (height + 15) // 16, (width + 15) // 16
+    per_call = 2 * (R - 1) + C
+
+    # the encode path: counters to 0 just before, read just after; K8's
+    # plain version must not run on the card
+    plain_calls = [0]
+    plain = enc_inter_cuda.encode_inter_frame_plain
+
+    def counted(*a):
+        plain_calls[0] += 1
+        return plain(*a)
+
+    enc_inter_cuda.encode_inter_frame_plain = counted
+    try:
+        zero_counts()
+        runs = inter_encode_runs(frames, width, height)
+        calls, kernels = read_counts()
+    finally:
+        enc_inter_cuda.encode_inter_frame_plain = plain
+    sha_ok = {}
+    for name, pls, _, _, _, _ in runs:
+        for key, p in zip(inter_labels(name), pls):
+            sha_ok[key] = hashlib.sha1(p).hexdigest() == \
+                INTER_ENCODE_SHA1.get(key)
+    # every frame re-decoded by the port's Decoder on the card (the pair:
+    # each of its frames by a copy of the decoder after the key frame)
+    decode_ok = []
+    for name, pls, mhs, _, _, _ in runs:
+        dec = Decoder(width, height, device=DEV)
+        for k, (p, mh) in enumerate(zip(pls, mhs)):
+            d = dec.copy() if name == "pair" and k > 0 else dec
+            d.decode_frame(p)
+            decode_ok.append(d.minihash() == mh)
+
+    # speed per mode: interframes delivered per second (the key frame not
+    # counted; a minimum-SSIM interframe counts once however many K8
+    # encodes its search runs), better of two passes; spans in ms per
+    # interframe from one traced pass
+    modes = [m[0] for m in INTER_ENCODE_MODES] + ["min_ssim", "pair"]
+    speed = {}
+    for mode in modes:
+        passes, n_k8 = [], 0
+        for _ in range(2):
+            before = enc_inter_cuda.launches
+            ((_, _, _, _, t, n_if),) = inter_encode_runs(
+                frames, width, height, [mode], hashes=False)
+            passes.append(t)
+            n_k8 = enc_inter_cuda.launches - before
+        best = min(passes)
+        tracing.enable(True)
+        tracing.snapshot()
+        inter_encode_runs(frames, width, height, [mode], hashes=False)
+        tracing.enable(False)
+        spans = tracing.snapshot()
+        speed[mode] = {"interframes_per_call": n_if,
+                       "k8_calls_per_call": n_k8, "pass_s": passes,
+                       "interframes_per_s": n_if / best,
+                       "ms_per_interframe": best * 1e3 / n_if,
+                       "traced_ms_per_interframe": {
+                           k: spans[k]["seconds"] * 1e3 / n_if
+                           for k in INTER_SPANS if k in spans}}
+    profile = device_profile(
+        lambda: inter_encode_runs(frames, width, height, hashes=False))
+    line = dict(card=card, frames=list(range(INTER_FRAMES)), width=width,
+                height=height, sha1_ok=sha_ok, decode_minihash_ok=decode_ok,
+                launches=calls, kernel_launches=kernels,
+                k8_kernel_launches_per_call=per_call,
+                k8_plain_calls=plain_calls[0],
+                loop_filter_levels={r[0]: r[3] for r in runs}, speed=speed,
+                device_profile=profile)
+    say("inter_encode", **line)
+    if set(sha_ok) != set(INTER_ENCODE_SHA1) or not all(sha_ok.values()):
+        raise SystemExit("interframe payloads differ from INTER_ENCODE_SHA1")
+    if not all(decode_ok):
+        raise SystemExit("the Decoder's minihash differs from the encoder's")
+    if calls["encode_inter_frame"] <= 0 or calls["loop_filter"] <= 0:
+        raise SystemExit("the encode path did not launch K8 and K5")
+    if kernels["encode_inter_frame"] != calls["encode_inter_frame"] * per_call:
+        raise SystemExit("K8 did not launch 2(R-1)+C kernels per call")
+    if plain_calls[0]:
+        raise SystemExit("the encode path ran K8's plain version on the card")
     if any(calls[k] for k in ("sixtap_mc", "wavefront_decode",
                               "predict_mb_tiles", "intra_frame")):
         raise SystemExit("the encode path launched a decode kernel")
@@ -553,14 +891,17 @@ def decode_all(payloads, width, height, digest):
     return [d.hexdigest() for d in digests], last
 
 
-def device_profile(fn, wall_ms):
-    """One pass under torch.profiler: device time by kernel (top 12) and
-    the device's busy share of ``wall_ms``, the wall time of the same pass
-    without the profiler (whose start-up would otherwise be counted).
-    Where the profiler reports no device time, says so instead."""
+def device_profile(fn):
+    """One untraced call of fn() timed with the device drained at both
+    ends, then one under torch.profiler: device time by kernel (top 12) and
+    the device's busy share of the untraced call's wall time (the
+    profiler's own start-up is not counted).  Where the profiler reports no
+    device time, says so instead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
+    t0 = sync_clock()
+    fn()
+    wall_ms = (sync_clock() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -585,7 +926,9 @@ COUNTS = {"sixtap_mc": (sixtap_cuda, "launches", "kernel_launches"),
                                "predict_kernel_launches"),
           "intra_frame": (intra_cuda, "launches", "kernel_launches"),
           "loop_filter": (lf_cuda, "launches", "kernel_launches"),
-          "encode_kf_frame": (enc_intra_cuda, "launches", "kernel_launches")}
+          "encode_kf_frame": (enc_intra_cuda, "launches", "kernel_launches"),
+          "encode_inter_frame": (enc_inter_cuda, "launches",
+                                 "kernel_launches")}
 
 
 def zero_counts():
@@ -647,7 +990,8 @@ def main():
     bitwork._load()         # raises if the native parsers do not build:
     bitwork._load_mb()      # the Python token parser would hide the host cost
     say("build", cuda_kernels_s=t_cuda, native_parsers_s=time.perf_counter() - t0,
-        ptxas={k: [l for l in v.splitlines() if "registers" in l or "error" in l]
+        ptxas={k: [l for l in v.splitlines()
+                   if "registers" in l or "spill" in l or "error" in l]
                for k, v in logs.items()})
 
     ivf = IVFReader(CLIP)
@@ -692,8 +1036,8 @@ def main():
     del sf, mc
 
     # K7 on decoded frames: one-pass at two quantizers, two-pass under the
-    # default token costs and under those after one key frame, and a small
-    # geometry with odd macroblock counts (9 x 11)
+    # default token costs and under the tables after one key frame, at 720p
+    # and at 176x144 (a small geometry with odd macroblock counts, 9 x 11)
     big = decoded_frames(CLIP, (0, 3))
     tc_default = torch.from_numpy(token_costs_pm(T.DEFAULT_COEFF_PROBS)).to(DEV)
     first = Encoder(ivf.width, ivf.height, two_pass=True, device=DEV)
@@ -713,6 +1057,24 @@ def main():
           k7_case("176x144 frame0 two-pass qi48 default tables",
                   kf_args(small0, 48, tc_default))]
     del big, first, small0
+
+    # K8: 176x144 (frame 1 of the small clip after frame 0 as a key frame)
+    # in best, rt and two-pass; 720p frame 1 one-pass best; the fused pair
+    # at 720p; seeded extreme motion at 720p
+    sm = decoded_frames(SMALL_CLIP, (0, 1))
+    big = decoded_frames(CLIP, (0, 1))
+    k8 = [k8_case("720p frame1 best qi48",
+                  k8_args(big[0], big[1], 48, [48])),
+          k8_case("176x144 frame1 best qi48", k8_args(sm[0], sm[1], 48, [48])),
+          k8_case("176x144 frame1 rt qi48",
+                  k8_args(sm[0], sm[1], 48, [48], "rt")),
+          k8_case("176x144 frame1 two-pass qi32",
+                  k8_args(sm[0], sm[1], 32, [32], two_pass=True)),
+          k8_case("720p frame1 rt pair qi56 -> (40, 72)",
+                  k8_args(big[0], big[1], INTER_PAIR_KEY_QI, INTER_PAIR_QIS,
+                          "rt")),
+          k8_case("720p seeded extreme motion", k8_extreme(44))]
+    del sm, big
     say("kernels", helpers=helper_plain_ms())
     if quick:
         return
@@ -755,8 +1117,7 @@ def main():
     say("throughput", **throughput)
 
     say("device_profile", **device_profile(
-        lambda: decode_all(payloads, ivf.width, ivf.height, digest=False),
-        best * 1e3))
+        lambda: decode_all(payloads, ivf.width, ivf.height, digest=False)))
 
     # single-frame path: counters to 0 just before, read just after
     zero_counts()
@@ -785,7 +1146,7 @@ def main():
             "reconstruct": sf_split.get("decode.reconstruct")})
     say("single_frame", **single)
     say("single_frame_device_profile", **device_profile(
-        lambda: single_frame_decode(digest=False), sf_best * 1e3))
+        lambda: single_frame_decode(digest=False)))
     if not (sf_ok and rt_ok):
         raise SystemExit("single-frame decode differs from the manifest SHA-1")
     if min(sf_calls[k] for k in ("predict_mb_tiles", "intra_frame",
@@ -795,6 +1156,7 @@ def main():
         raise SystemExit("the single-frame path launched a GOP kernel")
 
     kf = keyframe_encode_phase(card, ivf.width, ivf.height)
+    inter = inter_encode_phase(card, ivf.width, ivf.height)
 
     def entry(name, source, replaces, launches, primary, all_cases):
         return {"name": name, "route": "cuda", "source": source,
@@ -826,12 +1188,18 @@ def main():
               "alfalfa_tpu/ops/enc_intra_pallas.py:555 (with H1 "
               "enc_transforms_pallas.py and H2 trellis_pallas.py:322 inside)",
               kf["launches"]["encode_kf_frame"], k7[0], k7),
+        entry("encode_inter_frame", "alfalfa_tpu_torch/csrc/enc_inter.cu",
+              "alfalfa_tpu/ops/enc_inter_pallas.py:1003 (with H1 "
+              "enc_transforms_pallas.py and H2 trellis_pallas.py:322 inside)",
+              inter["launches"]["encode_inter_frame"], k8[0], k8),
     ]}), flush=True)
     # again, so the end of the log has them
     say("throughput", **throughput)
     say("single_frame", **single)
     say("keyframe_encode", **{k: v for k, v in kf.items()
                               if k != "device_profile"})
+    say("inter_encode", **{k: v for k, v in inter.items()
+                           if k != "device_profile"})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

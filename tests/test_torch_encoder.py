@@ -331,13 +331,20 @@ def test_decoder_and_carry_both_ways():
 
 
 def test_interframes_raise_and_cuda_is_the_default():
+    """Interframes raised NotImplementedError until the interframe encoder
+    was ported; now they encode, byte-identical to the JAX package's (the
+    slice's own tests are tests/test_torch_inter_encoder.py).  What still
+    raises is the default device, CUDA, on a host without one."""
     frame = gen_clip(32, 32, 1, seed=9)[0]
     enc = Encoder(32, 32, device="cpu")
-    enc.encode_with_quantizer(frame, 40)                 # frame 0: key
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        enc.encode_with_quantizer(frame, 40)              # an interframe
-    with pytest.raises(NotImplementedError):
-        enc.encode_with_quantizer(frame, 40, key_frame=False)
+    jenc = JEncoder(32, 32, device_encode=False)
+    for e in (enc, jenc):
+        e.encode_with_quantizer(frame, 40)               # frame 0: key
+    assert enc.encode_with_quantizer(frame, 40) == \
+        jenc.encode_with_quantizer(frame, 40)            # an interframe
+    assert enc.encode_with_quantizer(frame, 40, key_frame=False) == \
+        jenc.encode_with_quantizer(frame, 40, key_frame=False)
+    assert enc.minihash() == jenc.minihash()
     with pytest.raises((AssertionError, RuntimeError)):
         Encoder(32, 32)
 
