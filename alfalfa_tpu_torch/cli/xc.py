@@ -4,7 +4,8 @@ programs).  So far:
   decode        IVF -> y4m (vp8decode, incl. -s input state)
   decode-raw    IVF -> raw planar YUV on stdout (decode-to-stdout)
   enc           y4m / IVF -> VP8 IVF (xc-enc: constant quantizer, minimum
-                SSIM or target sizes; -I / -O encoder state files)
+                SSIM or target sizes; -I / -O encoder state files; --fast:
+                rt interframes through the fast path)
 
 Frames are reconstructed and encoded on ``--device`` (default ``cuda``;
 ``cpu`` runs the kernels' plain versions).  Run from the repository root:
@@ -90,8 +91,11 @@ def cmd_enc(args):
     if args.y_ac_qi is not None and not 0 <= args.y_ac_qi <= 127:
         print("xc enc: error: y-ac-qi must be in [0, 127]", file=sys.stderr)
         return 2
+    if args.fast and args.quality != "rt":
+        print("xc enc: error: --fast requires -q rt", file=sys.stderr)
+        return 2
     enc = Encoder(width, height, quality=args.quality,
-                  two_pass=args.two_pass, device=args.device)
+                  two_pass=args.two_pass, device=args.device, fast=args.fast)
     entry_minihash = 0
     if args.input_state:
         enc.state, enc.references = serdes.load_decoder(args.input_state,
@@ -153,6 +157,8 @@ def main(argv=None):
     p.add_argument("-q", "--quality", default="best", choices=["best", "rt"])
     p.add_argument("--two-pass", action="store_true",
                    help="second encoding pass with trellis quantization")
+    p.add_argument("--fast", action="store_true",
+                   help="fast interframe path (Salsify's); requires -q rt")
     p.add_argument("-O", "--output-state", default=None,
                    help="write final encoder state")
     p.add_argument("-I", "--input-state", default=None,

@@ -150,13 +150,18 @@ def decoder_from_dict(d, decoder_cls=None, classes=None, device=None):
 
 _ENCODER_FIELDS = ("frame_no", "quality", "two_pass", "last_loop_filter_level",
                    "last_y_ac_qi", "last_ssim")
+# the fast path's switch and frame counter: this package's ``fast`` is the
+# JAX package's ALFALFA_FAST_INTER, whose encoder gains the counter on its
+# first fast frame; both default where absent
+_FAST_FIELDS = (("fast", False), ("_fast_frame_no", 0))
 
 
 def encoder_to_dict(encoder):
     """Either package's Encoder as plain values: its size, codec state,
     references and the fields that steer its next frames (frame count,
-    quality, two-pass, last loop-filter level, quantizer and SSIM), at any
-    point of a stream, after key frames or interframes.  The JAX package's
+    quality, two-pass, last loop-filter level, quantizer and SSIM, the fast
+    path's switch and frame counter), at any point of a stream, after key
+    frames or interframes.  The JAX package's
     device encoder also keeps its references packed on the TPU
     (``_dev_refs``, with ``_dev_refs_for`` naming the raster they hold):
     a cache of ``references.last``, rebuilt from it when it is missing, so
@@ -164,7 +169,8 @@ def encoder_to_dict(encoder):
     return {"width": int(encoder.width), "height": int(encoder.height),
             "state": decoder_state_to_dict(encoder.state),
             "references": references_to_dict(encoder.references),
-            **{k: getattr(encoder, k) for k in _ENCODER_FIELDS}}
+            **{k: getattr(encoder, k) for k in _ENCODER_FIELDS},
+            **{k: getattr(encoder, k, v) for k, v in _FAST_FIELDS}}
 
 
 def encoder_from_dict(d, encoder_cls=None, classes=None, device=None):
@@ -186,4 +192,7 @@ def encoder_from_dict(d, encoder_cls=None, classes=None, device=None):
         enc.device if encoder_cls is None else None)
     for k in _ENCODER_FIELDS:
         setattr(enc, k, d[k])
+    for k, v in _FAST_FIELDS:
+        if encoder_cls is None or k != "fast":
+            setattr(enc, k, d.get(k, v))
     return enc

@@ -1,5 +1,6 @@
 // Macroblock encode steps shared by the key-frame encoder (enc_intra.cu:
-// K7) and the interframe encoder (enc_inter.cu: K8): the loads of a
+// K7), the interframe encoder (enc_inter.cu: K8) and the fast path's intra
+// fixup (enc_intra_fixup.cu: K10, whole modes only): the loads of a
 // macroblock's originals and reconstructed edges, the whole-mode luma
 // costs, the B_PRED candidate with reconstruction in the loop (contextual
 // key-frame b-mode costs or the interframe's non-contextual ones), the
@@ -192,10 +193,13 @@ __device__ __forceinline__ void mb_load(const MbPlanes& a, MbShared& s,
 // Whole-MB luma, DC, V, H, TM by variance (sse - s*s/256) rd-cost under
 // mbc[0..3]: the first of least cost in s.dec[1], its cost in s.wcost;
 // after the B_PRED candidate (``bpred``) also the decision in s.dec[0]:
-// B_PRED only if strictly cheaper.
+// B_PRED only if strictly cheaper.  With ``start`` >= 0 the scan starts
+// from that cost instead of DC's (the fast path's INF: a mode costing it or
+// more is never taken, and DC is kept if all do).
 __device__ __forceinline__ void whole_luma_costs(const MbPlanes& a,
                                                  MbShared& s, const int* mbc,
-                                                 bool bpred) {
+                                                 bool bpred,
+                                                 long long start = -1) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   {
     const int py = tid >> 4, px = tid & 15;
@@ -217,12 +221,12 @@ __device__ __forceinline__ void whole_luma_costs(const MbPlanes& a,
   __syncthreads();
   if (tid == 0) {
     int wm = 0;
-    long long wcost = 0;
+    long long wcost = start;
     for (int m = 0; m < 4; ++m) {
       long long sm = 0, sse = 0;
       for (int w = 0; w < 8; ++w) { sm += s.red[w][m]; sse += s.red[w][4 + m]; }
       const long long cost = rdcost(mbc[m], sse - sm * sm / 256, a.rm, a.dm);
-      if (m == 0 || cost < wcost) { wcost = cost; wm = m; }
+      if ((m == 0 && start < 0) || cost < wcost) { wcost = cost; wm = m; }
     }
     s.dec[0] = bpred && s.bcost < wcost;
     s.dec[1] = wm;

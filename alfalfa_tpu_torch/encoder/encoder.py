@@ -18,7 +18,11 @@ winning planes become the references without leaving it.
 Modes: constant quantizer, minimum-SSIM search, target-size search;
 quality "best" or "rt" (realtime: NEWMV searched on one macroblock in 16,
 the loop-filter search a window around the last level), one-pass or
-two-pass (the trellis).
+two-pass (the trellis).  ``fast=True`` with quality "rt" encodes
+interframes through the fast path instead (encoder/encode_inter_fast.py:
+K9 decisions, dense math, K10 intra fixup, the loop filter at the persisted
+level), the Salsify sender's; it is byte-identical to the JAX package's
+fast path (``ALFALFA_FAST_INTER=1``), not to the serial encoder.
 """
 import copy as _copy
 
@@ -38,6 +42,7 @@ from alfalfa_tpu_torch.util import tracing
 from alfalfa_tpu_torch.util.ssim import ssim
 from .costs import rd_multipliers
 from .encode_inter import encode_interframe
+from .encode_inter_fast import encode_interframe_fast
 from .encode_intra import encode_keyframe
 from .serializer import (count_token_branches, optimize_token_probs,
                          serialize_frame)
@@ -80,7 +85,7 @@ def worker_pool():
 
 class Encoder:
     def __init__(self, width, height, quality="best", two_pass=False,
-                 device=None):
+                 device=None, fast=False):
         self.device = torch.device("cuda" if device is None else device)
         self.width, self.height = width, height
         self.mb_cols = (width + 15) // 16
@@ -94,6 +99,8 @@ class Encoder:
         self.last_loop_filter_level = None
         self.last_y_ac_qi = None  # seeds the target-size search window
         self.last_ssim = None     # reference encode_stats_.ssim parity
+        self.fast = bool(fast)    # rt interframes through the fast path
+        self._fast_frame_no = 0   # fast encodes so far (re-climb period)
 
     # -- public API -----------------------------------------------------------
 
@@ -171,7 +178,7 @@ class Encoder:
                                   sub_rows, sub_cols)
         # the trial encoder runs on this encoder's device, one pass
         sub = Encoder(sub_cols * 16, sub_rows * 16, quality=self.quality,
-                      device=self.device)
+                      device=self.device, fast=self.fast)
         if not key_frame:
             # the current state against mosaic references, cut where the
             # reference lies (on the card: no copy to the host)
@@ -306,6 +313,10 @@ class Encoder:
         return payload, quality
 
     def _encode_interframe(self, yuv, quant_indices, update):
+        if self.fast and self.quality == "rt":
+            # decisions (K9), dense math, intra fixup (K10): the Salsify
+            # design point; a best-quality encoder keeps K8
+            return encode_interframe_fast(self, yuv, quant_indices, update)
         # the macroblock loop (census, motion search, mode decision,
         # residues, reconstruction) on the device, K8 with realtime=True in
         # "rt"; two-pass trellis-quantizes intra macroblocks

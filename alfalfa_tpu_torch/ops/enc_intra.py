@@ -70,17 +70,15 @@ def _dq(coeffs, dc, ac):
 
 
 def _to_blocks(t, n):
-    """(N, 4n, 4n) tiles -> (N, n*n, 16) 4x4 blocks, raster order."""
-    N = t.shape[0]
-    return t.reshape(N, n, 4, n, 4).permute(0, 1, 3, 2, 4).reshape(N, n * n,
-                                                                  16)
+    """(..., 4n, 4n) tiles -> (..., n*n, 16) 4x4 blocks, raster order."""
+    return t.unflatten(-1, (n, 4)).unflatten(-3, (n, 4)).transpose(-3, -2) \
+        .reshape(t.shape[:-2] + (n * n, 16))
 
 
 def _from_blocks(b, n):
     """Inverse of _to_blocks."""
-    N = b.shape[0]
-    return b.reshape(N, n, n, 4, 4).permute(0, 1, 3, 2, 4).reshape(
-        N, 4 * n, 4 * n)
+    return b.unflatten(-1, (4, 4)).unflatten(-3, (n, n)).transpose(-3, -2) \
+        .reshape(b.shape[:-2] + (4 * n, 4 * n))
 
 
 def _chain(nodes, tc, first, nz_abv, nz_left, n, rm, dm):

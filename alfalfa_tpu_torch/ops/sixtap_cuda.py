@@ -9,6 +9,9 @@ csrc/sixtap_mc.cu, through two entry points:
   same function on padded, unpacked references); plain version
   ops.sixtap.predict_frame_plain (ops.sixtap.predict_mb_tiles on the
   three references).  It launches the same kernel at G=1.
+  ``predict_last_tiles`` is its call with every macroblock predicted from
+  LAST (the fast interframe encoder), on that one plane, uncopied; it
+  keeps predict_mb_tiles' counts.
 
 The source note in the .cu file says what was kept and what bounds it.
 Each takes its plain version for CPU tensors only; a CUDA tensor launches
@@ -34,15 +37,17 @@ def _entry():
                    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6)
 
 
-def _launch(name, refs, ref_sel, sub_mv, S):
+def _launch(name, refs, ref_sel, sub_mv, S, slots=3):
     """Check the (G, ...) arguments and launch the kernel once; returns
-    (G, R, C, S, S) uint8 and the kernel launches issued."""
+    (G, R, C, S, S) uint8 and the kernel launches issued.  ``slots`` = 1
+    hands the kernel LAST alone: only for G = 1 and every ref_sel 0 or 1,
+    which read slot 0 of frame 0 and nothing else."""
     if S not in (8, 16):
         raise ValueError("S must be 8 or 16")
     G, R, C = ref_sel.shape
     n = S // 4
     dev = refs.device
-    check_tensor("refs", refs, torch.uint8, (G, 3, R * S, C * S), dev)
+    check_tensor("refs", refs, torch.uint8, (G, slots, R * S, C * S), dev)
     check_tensor("ref_sel", ref_sel, torch.int32, (G, R, C), dev)
     check_tensor("sub_mv", sub_mv, torch.int32, (G, R, C, n, n, 2), dev)
     out = torch.empty((G, R, C, S, S), dtype=torch.uint8, device=dev)
@@ -81,6 +86,23 @@ def predict_mb_tiles(refs, ref_sel, sub_mv, S):
     global predict_launches, predict_kernel_launches
     out, issued = _launch("predict_mb_tiles", refs[None], ref_sel[None],
                           sub_mv[None], S)
+    predict_launches += 1
+    predict_kernel_launches += issued
+    return out[0]
+
+
+def predict_last_tiles(last, sub_mv, S):
+    """predict_mb_tiles with every macroblock predicted from ``last``
+    ((H, W) uint8, the one reference plane; ref_sel 0 everywhere): (R, C,
+    S, S) uint8."""
+    R, C = sub_mv.shape[:2]
+    sel = torch.zeros((R, C), dtype=torch.int32, device=last.device)
+    if last.device.type != "cuda":
+        return predict_frame_plain(last.expand((3,) + last.shape), sel,
+                                   sub_mv, S)
+    global predict_launches, predict_kernel_launches
+    out, issued = _launch("predict_mb_tiles", last[None, None], sel[None],
+                          sub_mv[None], S, slots=1)
     predict_launches += 1
     predict_kernel_launches += issued
     return out[0]

@@ -17,13 +17,15 @@ from alfalfa_tpu_torch.ops import intra, loopfilter
 B_PRED = 4
 
 
-def diagonals(R, C):
-    """[(rows, cols)] of the macroblocks on each diagonal d = 2r + c."""
+def diagonals(R, C, k=2):
+    """[(rows, cols)] of the macroblocks on each diagonal d = k*r + c: k = 2
+    for a macroblock that reads its above-right neighbour, k = 1 for one
+    that reads left, above and above-left only."""
     out = []
-    for d in range(2 * (R - 1) + C):
-        r_lo = max(0, -((-(d - C + 1)) // 2))
-        rs = list(range(r_lo, min(R - 1, d // 2) + 1))
-        out.append((rs, [d - 2 * r for r in rs]))
+    for d in range(k * (R - 1) + C):
+        r_lo = max(0, -((-(d - C + 1)) // k))
+        rs = list(range(r_lo, min(R - 1, d // k) + 1))
+        out.append((rs, [d - k * r for r in rs]))
     return out
 
 

@@ -12,9 +12,11 @@ path gives it: K1 (wavefront_decode) and K2 (sixtap_mc) at 720p G=16 for
 the GOP decoder, K3 (predict_mb_tiles), K4 (intra_frame) and K5
 (loop_filter) at 720p G=1 for the single-frame decoder, K7
 (encode_kf_frame, with H1 and H2 inside) at 720p and 176x144, one-pass and
-two-pass, and K8 (encode_inter_frame) at 720p and 176x144 in best, rt and
-two-pass, as the fused 2-QP pair and on seeded extreme motion, on decoded
-frames of the fixtures.  Then it drives the paths over
+two-pass, K8 (encode_inter_frame) at 720p and 176x144 in best, rt and
+two-pass, as the fused 2-QP pair and on seeded extreme motion, and K9
+(decide_inter_frame) and K10 (intra_fixup_frame) on what the fast path
+hands them at 720p (one quantizer, the pair, a scene cut) and 176x144, on
+decoded frames of the fixtures.  Then it drives the paths over
 tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
 
 - main_path: 16 lockstep GOPs through BatchedGopDecoder.decode_stream
@@ -28,7 +30,12 @@ tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
 - inter_encode: the port's Encoder encodes decoded frames 0-5, a key frame
   and then interframes, in best, rt, two-pass, minimum SSIM and the fused
   quantizer pair (INTER_ENCODE_SHA1: the JAX package's encoder's frames),
-  and the port's Decoder re-decodes every frame to the encoder's minihash.
+  and the port's Decoder re-decodes every frame to the encoder's minihash;
+- fast_encode: the port's Encoder(quality="rt", fast=True) encodes a key
+  frame and 17 fast interframes, and encode_interframe_fast_multiqp the
+  Salsify pair over five frames (FAST_ENCODE_SHA1: the JAX package's fast
+  path's frames); the Decoder re-decodes every frame to the encoder's
+  minihash, and the stream stays within the serial rt encoder's RD band.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; the last lines are the `kernels` JSON line (one entry per
@@ -54,19 +61,21 @@ from alfalfa_tpu_torch.bitstream.header import QuantIndices
 from alfalfa_tpu_torch.decoder import Decoder, FilePlayer
 from alfalfa_tpu_torch.decoder import reconstruct_torch as RT
 from alfalfa_tpu_torch.encoder import Encoder
-from alfalfa_tpu_torch.encoder import encode_inter
+from alfalfa_tpu_torch.encoder import encode_inter, encode_inter_fast
 from alfalfa_tpu_torch.encoder.costs import rd_multipliers
 from alfalfa_tpu_torch.encoder.encode_intra import QUANT_KEYS
 from alfalfa_tpu_torch.encoder.trellis import token_costs_pm
 from alfalfa_tpu_torch.native import bitwork
-from alfalfa_tpu_torch.ops import enc_inter, enc_inter_cuda, enc_intra, \
-    enc_intra_cuda, enc_transforms, intra_cuda, lf_cuda, sixtap, \
+from alfalfa_tpu_torch.ops import enc_decide, enc_decide_cuda, enc_inter, \
+    enc_inter_cuda, enc_intra, enc_intra_cuda, enc_intra_fixup, \
+    enc_intra_fixup_cuda, enc_transforms, intra_cuda, lf_cuda, sixtap, \
     sixtap_cuda, transforms, trellis, wavefront, wavefront_cuda
 from alfalfa_tpu_torch.parallel import gop
 from alfalfa_tpu_torch.state import serdes
 from alfalfa_tpu_torch.state.decoder_state import Raster
 from alfalfa_tpu_torch.util import tracing
 from alfalfa_tpu_torch.util.ivf import IVFReader
+from alfalfa_tpu_torch.util.ssim import ssim
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CLIP = os.path.join(REPO, "tests", "fixtures", "inter_1280x720_q48.ivf")
@@ -440,6 +449,62 @@ INTER_ENCODE_SHA1 = {
     "rt_qi48_frame5": "1cec8d82fd9bf6d4eb04813e14dea75b9238c30b",
 }
 
+# fast_encode: SHA-1 of each frame the JAX package's fast rt path
+# (alfalfa_tpu.encoder.Encoder(quality="rt") with ALFALFA_FAST_INTER=1: the
+# key frame through the host encoder, the interframes through
+# encode_inter_fast) makes of decoded frames of inter_1280x720_q48.ivf: a
+# key frame (frame 0) at qi 48, then frames FAST_ORDER at qi 48, 17 fast
+# interframes whose jumps back to frame 0 are scene cuts and whose 17th
+# re-climbs the loop filter by the 16-frame period; "fast_pair" is a key
+# frame at qi 56, then frames 1-5 each at qi 40 and 72 in two forks of the
+# qi 40 stream (the port encodes each pair in one
+# encode_interframe_fast_multiqp call).  Computed once on a CPU host;
+# tests/test_torch_fast_inter.py recomputes them (-m slow).
+FAST_QI, FAST_ORDER = 48, (1, 2, 3, 4, 5) + (0, 1, 2, 3, 4, 5) * 2
+FAST_PAIR_KEY_QI, FAST_PAIR_QIS, FAST_PAIR_FRAMES = 56, (40, 72), 5
+FAST_ENCODE_SHA1 = {
+    "fast_pair_key_qi56_frame0": "2443209548e97f850ac24a542efecf7a7c98facb",
+    "fast_pair_qi40_frame1": "e8e8d11f2faff020379f8c7bf5326373aaf867bf",
+    "fast_pair_qi40_frame2": "55e98e23c834d5eb94b00c0f2d641e42dfb21ad4",
+    "fast_pair_qi40_frame3": "6028932ce5a6b2d2e752ed2ccbf24f1c7e27ed7d",
+    "fast_pair_qi40_frame4": "f73bf1e6c4d3c35ac123fa6b31a525b20a55bfb2",
+    "fast_pair_qi40_frame5": "48acee3ee753a27e466772826b9535dfde016281",
+    "fast_pair_qi72_frame1": "8d834308c752c38ab698e5001dcfe1786fc98f56",
+    "fast_pair_qi72_frame2": "042e588763a65ab9f6fefc1cd03771402e2f8230",
+    "fast_pair_qi72_frame3": "de107f105a1449bc22a3d3b262256cefeae89c03",
+    "fast_pair_qi72_frame4": "6eb01383b0d83c01bc6909ff148d5a5186ec8394",
+    "fast_pair_qi72_frame5": "f1cc125c9d9b6e85c40ec83c7487c077e87dc2e8",
+    "fast_qi48_00_frame0": "8fd62474aaaa54eb38fe34967290b0be424d977d",
+    "fast_qi48_01_frame1": "b4614dfd8c7fbb8f6b8ff994361257e915a9b49e",
+    "fast_qi48_02_frame2": "1c1e35bbf2878e4a0f094506a82367d3419c9960",
+    "fast_qi48_03_frame3": "c00da5409626ac1d9421987c3972abcd1c476f78",
+    "fast_qi48_04_frame4": "9aaa3a60b1017c221721a6a88f94788bfb64ee53",
+    "fast_qi48_05_frame5": "98b7808dd08ada7e330eb44cd7701ddc637a6b28",
+    "fast_qi48_06_frame0": "e29d5cc03343ab17186d43665494d71ccfae1869",
+    "fast_qi48_07_frame1": "2ecf6ba1400940cdbfab34871257ad596fe55dbe",
+    "fast_qi48_08_frame2": "0a9ecccbcf3067364ecc86227b742a58c1e6349b",
+    "fast_qi48_09_frame3": "9c16cc6d7241367c41cf331718b585019b618448",
+    "fast_qi48_10_frame4": "b42e6ec1e9439d542e6a37eb2121283f3cfbc809",
+    "fast_qi48_11_frame5": "73c2016bc80d6ed7a531e85ac473d122c8e9be44",
+    "fast_qi48_12_frame0": "d60fab93ca547ce1341f8d4ba4e4739c6e4004fe",
+    "fast_qi48_13_frame1": "69604efa832c187a5653fb424ef021d00f01eb8a",
+    "fast_qi48_14_frame2": "737a4d8c7ea399dacb28d81a10396a9781b96980",
+    "fast_qi48_15_frame3": "cec94a9545046b811d3b23f030725e99351b23f3",
+    "fast_qi48_16_frame4": "508c42e9860e7a08924e2d31a3ad40fc4f0a1fa5",
+    "fast_qi48_17_frame5": "713ba0d6757d266efbaaad12509f4deed38dd9a3",
+}
+
+
+def fast_labels(name):
+    """The FAST_ENCODE_SHA1 keys of a run, in payload order."""
+    if name == "fast_pair":
+        return ["fast_pair_key_qi%d_frame0" % FAST_PAIR_KEY_QI] + [
+            "fast_pair_qi%d_frame%d" % (q, k)
+            for k in range(1, FAST_PAIR_FRAMES + 1) for q in FAST_PAIR_QIS]
+    return ["fast_qi%d_%02d_frame%d" % (FAST_QI, i, k)
+            for i, k in enumerate((0,) + FAST_ORDER)]
+
+
 # integer operations K8's work needs, counted as k2_bound counts the same
 # filter: 2 a six-tap tap, only the passes a vector's sub-pel phases need
 # (the mode words count the taps of every diamond site and candidate
@@ -571,6 +636,118 @@ def k8_extreme(seed, width=1280, height=720, shift=127):
     e.references.last = Raster(width, height, *(
         torch.from_numpy(p).to(DEV) for p in last))
     return encode_inter.kernel_inputs(e, orig, [QuantIndices(y_ac_qi=48)])
+
+
+# ------------------------------------------------------------- K9, K10
+
+# integer operations per macroblock of K9 beyond the diamond sites and
+# candidates its decision words count (as K8's): the census, the mv_ref
+# rates and the decision
+K9_OPS_MB = 200
+
+
+def k9_bound(md):
+    """Least time for one decide_inter_frame call on this frame: original
+    and LAST luma in, intra costs in and the four decision words the
+    function yields (is_inter, mode, mvx, mvy) out per quantizer; the
+    operations of the diamond sites and candidates this run scored (the
+    words count them, and the six-tap taps their vectors need), the census
+    and decision per macroblock."""
+    Q, R, C = md.shape[:3]
+    n = R * C
+    w = md.reshape(-1, enc_decide.DECIDE_WORDS).to(torch.int64)
+    sites = int(w[:, enc_decide.SITES].sum().item())
+    cands = int(w[:, enc_decide.CANDS].sum().item())
+    taps = int(w[:, enc_decide.TAPS].sum().item())
+    bytes_ = 2 * n * 256 + Q * n * (4 + 4 * 4)
+    ops = (2 * taps + sites * K8_OPS_SAD_SITE + cands * K8_OPS_VAR_CAND
+           + Q * n * K9_OPS_MB)
+    return bound(bytes_, ops)
+
+
+def k10_bound(md):
+    """Least time for one intra_fixup_frame call: the is_inter word of each
+    macroblock, the originals of the macroblocks intra at some quantizer
+    and the inter reconstruction in, coefficients, modes and the final
+    reconstruction out per quantizer (an inter macroblock reads nothing
+    else); for each intra macroblock K7's whole-mode and chroma searches
+    and its 25 transform chains."""
+    Q, R, C = md.shape[:3]
+    n = R * C
+    is_intra = md[..., 0] == 0
+    intra = int(is_intra.sum().item())
+    intra_any = int(is_intra.any(dim=0).sum().item())
+    bytes_ = intra_any * 384 + Q * n * (4 + 2 * 384 + 25 * 16 * 2
+                                        + enc_intra_fixup.FIXUP_WORDS * 4)
+    ops = intra * (K7_OPS_WHOLE_SEARCH + K7_OPS_CHROMA_SEARCH
+                   + 25 * K7_OPS_CHAIN)
+    return bound(bytes_, ops)
+
+
+def fast_kernel_inputs(key, frame, key_qi, qis):
+    """K9's and K10's arguments as the fast path hands them over for the
+    decoded ``frame`` at the quantizers ``qis``, after a fast rt encoder on
+    the card has encoded ``key`` as a key frame at ``key_qi``: one
+    fast_frame call with its two kernel wrappers recorded (they run as
+    usual)."""
+    e = Encoder(key.display_width, key.display_height, quality="rt",
+                fast=True, device=DEV)
+    e.encode_with_quantizer(key.display(), key_qi, key_frame=True)
+    args = encode_inter_fast.frame_inputs(
+        e, frame.display(), [QuantIndices(y_ac_qi=q) for q in qis])
+    kept = {}
+    saved = {n: getattr(encode_inter_fast, n)
+             for n in ("decide_inter_frame", "intra_fixup_frame")}
+
+    def record(name, fn):
+        def wrapped(*a):
+            kept[name] = a
+            return fn(*a)
+        return wrapped
+
+    for n, fn in saved.items():
+        setattr(encode_inter_fast, n, record(n, fn))
+    try:
+        encode_inter_fast.fast_frame(*args)
+    finally:
+        for n, fn in saved.items():
+            setattr(encode_inter_fast, n, fn)
+    torch.cuda.synchronize()
+    return kept["decide_inter_frame"], kept["intra_fixup_frame"]
+
+
+def k9_case(label, args):
+    seen = {}
+
+    def wrapper(*a):
+        seen["md"] = enc_decide_cuda.decide_inter_frame(*a)
+        return seen["md"]
+
+    R, C = args[0].shape[0] // 16, args[0].shape[1] // 16
+    case = kernel_case("decide_inter_frame", label, wrapper,
+                       enc_decide.decide_inter_frame_plain, args,
+                       lambda: enc_decide_cuda.kernel_launches,
+                       lambda *a: k9_bound(seen["md"]),
+                       quantizers=args[2].shape[0], mbs=R * C)
+    md = seen["md"]
+    say("kernels", kernel="decide_inter_frame", case=label,
+        inter_mbs=int((md[..., 0] != 0).sum().item()),
+        newmv_mbs=int((md[..., 1] == enc_inter.NEWMV).sum().item()),
+        diamond_sites=int(md[..., enc_decide.SITES].sum().item()),
+        candidates=int(md[..., enc_decide.CANDS].sum().item()),
+        luma_taps=int(md[..., enc_decide.TAPS].sum().item()))
+    return case
+
+
+def k10_case(label, args):
+    md = args[3]
+    R, C = md.shape[1:3]
+    return kernel_case("intra_fixup_frame", label,
+                       enc_intra_fixup_cuda.intra_fixup_frame,
+                       enc_intra_fixup.intra_fixup_frame_plain, args,
+                       lambda: enc_intra_fixup_cuda.kernel_launches,
+                       lambda *a: k10_bound(md), quantizers=md.shape[0],
+                       mbs=R * C, intra_mbs=int((md[..., 0] == 0).sum().item()))
 
 
 def helper_plain_ms(blocks=3600 * 25, seed=7):
@@ -873,6 +1050,209 @@ def inter_encode_phase(card, width, height):
     return line
 
 
+FAST_SPANS = ("enc.fast_inputs", "enc.fast_kernel", "enc.fast_fetch",
+              "enc.fast_host", "enc.fast_lf_device", "enc.if_lf_search",
+              "enc.if_counts_join", "enc.if_serialize")
+# what the fast path's speed is printed beside (no claim): the serial rt
+# interframe as PERF.md's interframe table first recorded it (NVIDIA H100
+# 80GB HBM3, 700 W) and the Salsify sender's design point for a 720p frame
+# (salsify-sender.cc:160-170)
+RECORDED_SERIAL_RT_MS = 36.10
+SALSIFY_MS = 33.0
+
+
+def fast_encode_runs(frames, width, height, modes=None, hashes=True,
+                     quality=False):
+    """The fast_encode phase's encodes ("fast" and "fast_pair", all by
+    default or those named in ``modes``), as FAST_ENCODE_SHA1 describes.
+    Returns [(name, [payload], [minihash after each], [loop-filter level of
+    each], [luma SSIM of LAST against the source after each], seconds of
+    the interframes (device drained at both ends), interframes
+    delivered)] (minihashes only if ``hashes``, SSIM only if
+    ``quality``)."""
+    runs = []
+    src = {k: torch.from_numpy(np.ascontiguousarray(f[0])).to(DEV)
+           for k, f in frames.items()} if quality else None
+
+    def kept(out, payload, enc, k):
+        pls, mhs, lfs, ss = out
+        pls.append(payload)
+        mhs.append(enc.minihash() if hashes else None)
+        lfs.append(enc.last_loop_filter_level)
+        ss.append(float(ssim(enc.references.last.y[:height, :width], src[k]))
+                  if quality else None)
+
+    if modes is None or "fast" in modes:
+        e = Encoder(width, height, quality="rt", fast=True, device=DEV)
+        out = ([], [], [], [])
+        kept(out, e.encode_with_quantizer(frames[0], FAST_QI,
+                                          key_frame=True), e, 0)
+        t0 = sync_clock()
+        for k in FAST_ORDER:
+            kept(out, e.encode_with_quantizer(frames[k], FAST_QI), e, k)
+        runs.append(("fast", *out, sync_clock() - t0, len(FAST_ORDER)))
+    if modes is None or "fast_pair" in modes:
+        e = Encoder(width, height, quality="rt", fast=True, device=DEV)
+        out = ([], [], [], [])
+        kept(out, e.encode_with_quantizer(frames[0], FAST_PAIR_KEY_QI,
+                                          key_frame=True), e, 0)
+        t0 = sync_clock()
+        for k in range(1, FAST_PAIR_FRAMES + 1):
+            forks = [e.fork() for _ in FAST_PAIR_QIS]
+            res = encode_inter_fast.encode_interframe_fast_multiqp(
+                forks, frames[k], [QuantIndices(y_ac_qi=q)
+                                   for q in FAST_PAIR_QIS])
+            for (payload, _), f in zip(res, forks):
+                kept(out, payload, f, k)
+            e = forks[0]            # on with the first quantizer's stream
+        runs.append(("fast_pair", *out, sync_clock() - t0,
+                     FAST_PAIR_FRAMES * len(FAST_PAIR_QIS)))
+    torch.cuda.synchronize()
+    return runs
+
+
+def serial_rt_reference(frames, width, height):
+    """The serial rt encoder (K8) on the fast stream's frames and
+    quantizer: (payload sizes, luma SSIM of LAST against the source after
+    each interframe), the RD-parity baseline."""
+    e = Encoder(width, height, quality="rt", device=DEV)
+    e.encode_with_quantizer(frames[0], FAST_QI, key_frame=True)
+    sizes, quals = [], []
+    for k in FAST_ORDER:
+        sizes.append(len(e.encode_with_quantizer(frames[k], FAST_QI)))
+        quals.append(float(ssim(e.references.last.y[:height, :width],
+                                torch.from_numpy(np.ascontiguousarray(
+                                    frames[k][0])).to(DEV))))
+    return sizes, quals
+
+
+def fast_encode_phase(card, width, height, serial_rt_ms):
+    """The fast_encode phase: the fast rt path at 720p through the port's
+    Encoder(fast=True) and encode_interframe_fast_multiqp (see
+    FAST_ENCODE_SHA1); returns its result line."""
+    rasters = decoded_frames(CLIP, tuple(range(6)))
+    frames = {k: r.display() for k, r in rasters.items()}
+    R, C = (height + 15) // 16, (width + 15) // 16
+    per_call = R + C - 1
+
+    # the fast path: counters to 0 just before, read just after; K9's and
+    # K10's plain versions must not run on the card
+    plain_calls = [0]
+    names = {enc_decide_cuda: "decide_inter_frame_plain",
+             enc_intra_fixup_cuda: "intra_fixup_frame_plain"}
+    saved = {m: getattr(m, n) for m, n in names.items()}
+
+    def counted(fn):
+        def wrapped(*a):
+            plain_calls[0] += 1
+            return fn(*a)
+        return wrapped
+
+    for m, fn in saved.items():
+        setattr(m, names[m], counted(fn))
+    try:
+        zero_counts()
+        runs = fast_encode_runs(frames, width, height, quality=True)
+        calls, kernels = read_counts()
+    finally:
+        for m, fn in saved.items():
+            setattr(m, names[m], fn)
+    sha_ok = {}
+    for name, pls, *_ in runs:
+        for key, p in zip(fast_labels(name), pls):
+            sha_ok[key] = hashlib.sha1(p).hexdigest() == \
+                FAST_ENCODE_SHA1.get(key)
+    # every frame re-decoded by the port's Decoder on the card (the pair:
+    # each of its frames by a copy of the decoder of the first stream)
+    decode_ok = []
+    for name, pls, mhs, *_ in runs:
+        dec = Decoder(width, height, device=DEV)
+        dec.decode_frame(pls[0])
+        decode_ok.append(dec.minihash() == mhs[0])
+        step = len(FAST_PAIR_QIS) if name == "fast_pair" else 1
+        for i in range(1, len(pls), step):
+            for j in range(step):
+                d = dec.copy() if step > 1 else dec
+                d.decode_frame(pls[i + j])
+                decode_ok.append(d.minihash() == mhs[i + j])
+            if step > 1:
+                dec.decode_frame(pls[i])
+    # RD parity against the serial rt encoder (tests/test_fast_inter.py's
+    # gate): total size at most 1.15x, mean SSIM at least the serial one
+    # minus 0.01
+    fast_run = runs[0]
+    sizes = [len(p) for p in fast_run[1][1:]]
+    quals = fast_run[4][1:]
+    s_sizes, s_quals = serial_rt_reference(frames, width, height)
+    parity = {"fast_bytes": sum(sizes), "serial_bytes": sum(s_sizes),
+              "size_ratio": sum(sizes) / sum(s_sizes),
+              "fast_mean_ssim": float(np.mean(quals)),
+              "serial_mean_ssim": float(np.mean(s_quals))}
+    parity_ok = (sum(sizes) <= 1.15 * sum(s_sizes)
+                 and np.mean(quals) >= np.mean(s_quals) - 0.01)
+
+    # speed per mode: interframes delivered per second (the key frame not
+    # counted; the pair delivers two per call), better of two passes;
+    # spans in ms per interframe from one traced pass
+    speed = {}
+    for mode in ("fast", "fast_pair"):
+        passes = []
+        for _ in range(2):
+            ((_, _, _, _, _, t, n_if),) = fast_encode_runs(
+                frames, width, height, [mode], hashes=False)
+            passes.append(t)
+        best = min(passes)
+        tracing.enable(True)
+        tracing.snapshot()
+        fast_encode_runs(frames, width, height, [mode], hashes=False)
+        tracing.enable(False)
+        spans = tracing.snapshot()
+        speed[mode] = {"interframes_per_call": n_if, "pass_s": passes,
+                       "interframes_per_s": n_if / best,
+                       "ms_per_interframe": best * 1e3 / n_if,
+                       "traced_ms_per_interframe": {
+                           k: spans[k]["seconds"] * 1e3 / n_if
+                           for k in FAST_SPANS if k in spans}}
+    profile = device_profile(
+        lambda: fast_encode_runs(frames, width, height, ["fast"],
+                                 hashes=False))
+    line = dict(card=card, frames=[0] + list(FAST_ORDER), width=width,
+                height=height, sha1_ok=sha_ok, decode_minihash_ok=decode_ok,
+                rd_parity=parity, rd_parity_ok=bool(parity_ok),
+                serial_rt_sizes=s_sizes, fast_sizes=sizes,
+                launches=calls, kernel_launches=kernels,
+                kernel_launches_per_call=per_call,
+                plain_calls=plain_calls[0],
+                loop_filter_levels={r[0]: r[3] for r in runs}, speed=speed,
+                beside={"serial_rt_ms_this_run": serial_rt_ms,
+                        "serial_rt_ms_recorded": RECORDED_SERIAL_RT_MS,
+                        "salsify_design_point_ms": SALSIFY_MS},
+                device_profile=profile)
+    say("fast_encode", **line)
+    n_calls = len(FAST_ORDER) + FAST_PAIR_FRAMES
+    if set(sha_ok) != set(FAST_ENCODE_SHA1) or not all(sha_ok.values()):
+        raise SystemExit("fast payloads differ from FAST_ENCODE_SHA1")
+    if not all(decode_ok):
+        raise SystemExit("the Decoder's minihash differs from the encoder's")
+    if not parity_ok:
+        raise SystemExit("the fast path left the serial rt encoder's RD band")
+    for k in ("decide_inter_frame", "intra_fixup_frame"):
+        if calls[k] != n_calls:
+            raise SystemExit("%s ran %d times, not once per fast interframe "
+                             "(%d)" % (k, calls[k], n_calls))
+        if kernels[k] != calls[k] * per_call:
+            raise SystemExit("%s did not launch R+C-1 kernels per call" % k)
+    if plain_calls[0]:
+        raise SystemExit("the fast path ran a plain version on the card")
+    if calls["encode_inter_frame"] or calls["loop_filter"] <= 0 \
+            or calls["predict_mb_tiles"] <= 0:
+        raise SystemExit("the fast path launched K8, or not K3 and K5")
+    if any(calls[k] for k in ("sixtap_mc", "wavefront_decode",
+                              "intra_frame")):
+        raise SystemExit("the fast path launched a decode kernel")
+    return line
+
+
 # ----------------------------------------------------------- main path
 
 def decode_all(payloads, width, height, digest):
@@ -928,7 +1308,11 @@ COUNTS = {"sixtap_mc": (sixtap_cuda, "launches", "kernel_launches"),
           "loop_filter": (lf_cuda, "launches", "kernel_launches"),
           "encode_kf_frame": (enc_intra_cuda, "launches", "kernel_launches"),
           "encode_inter_frame": (enc_inter_cuda, "launches",
-                                 "kernel_launches")}
+                                 "kernel_launches"),
+          "decide_inter_frame": (enc_decide_cuda, "launches",
+                                 "kernel_launches"),
+          "intra_fixup_frame": (enc_intra_fixup_cuda, "launches",
+                                "kernel_launches")}
 
 
 def zero_counts():
@@ -1075,6 +1459,23 @@ def main():
                           "rt")),
           k8_case("720p seeded extreme motion", k8_extreme(44))]
     del sm, big
+
+    # K9 and K10 on what the fast path hands them: 720p frame 1 after
+    # frame 0 as a key frame, the pair, a scene cut (frame 0 against frame
+    # 5's reconstruction: many intra macroblocks, some adjacent) and 176x144
+    sm = decoded_frames(SMALL_CLIP, (0, 1))
+    big = decoded_frames(CLIP, (0, 1, 5))
+    fast_in = [("720p frame1 qi48", fast_kernel_inputs(big[0], big[1], 48,
+                                                       [FAST_QI])),
+               ("720p frame1 pair qi56 -> (40, 72)", fast_kernel_inputs(
+                   big[0], big[1], FAST_PAIR_KEY_QI, FAST_PAIR_QIS)),
+               ("720p scene cut: frame0 against frame5 qi48",
+                fast_kernel_inputs(big[5], big[0], 48, [FAST_QI])),
+               ("176x144 frame1 qi48", fast_kernel_inputs(sm[0], sm[1], 48,
+                                                          [FAST_QI]))]
+    k9 = [k9_case(label, a9) for label, (a9, _) in fast_in]
+    k10 = [k10_case(label, a10) for label, (_, a10) in fast_in]
+    del sm, big, fast_in
     say("kernels", helpers=helper_plain_ms())
     if quick:
         return
@@ -1157,6 +1558,8 @@ def main():
 
     kf = keyframe_encode_phase(card, ivf.width, ivf.height)
     inter = inter_encode_phase(card, ivf.width, ivf.height)
+    fast = fast_encode_phase(card, ivf.width, ivf.height,
+                             inter["speed"]["rt_qi48"]["ms_per_interframe"])
 
     def entry(name, source, replaces, launches, primary, all_cases):
         return {"name": name, "route": "cuda", "source": source,
@@ -1192,6 +1595,14 @@ def main():
               "alfalfa_tpu/ops/enc_inter_pallas.py:1003 (with H1 "
               "enc_transforms_pallas.py and H2 trellis_pallas.py:322 inside)",
               inter["launches"]["encode_inter_frame"], k8[0], k8),
+        entry("decide_inter_frame", "alfalfa_tpu_torch/csrc/enc_decide.cu",
+              "alfalfa_tpu/ops/enc_decide_pallas.py:249",
+              fast["launches"]["decide_inter_frame"], k9[0], k9),
+        entry("intra_fixup_frame",
+              "alfalfa_tpu_torch/csrc/enc_intra_fixup.cu",
+              "alfalfa_tpu/ops/enc_intra_fixup_pallas.py:183 (with H1 "
+              "enc_transforms_pallas.py inside)",
+              fast["launches"]["intra_fixup_frame"], k10[0], k10),
     ]}), flush=True)
     # again, so the end of the log has them
     say("throughput", **throughput)
@@ -1200,6 +1611,8 @@ def main():
                               if k != "device_profile"})
     say("inter_encode", **{k: v for k, v in inter.items()
                            if k != "device_profile"})
+    say("fast_encode", **{k: v for k, v in fast.items()
+                          if k != "device_profile"})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
