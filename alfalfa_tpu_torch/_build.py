@@ -121,6 +121,25 @@ def launch(entry, name, device, *args):
     return issued.value
 
 
+def resident_blocks(lib, fn, device):
+    """What the C function ``fn(int device)`` of ``build/lib<lib>.so``
+    returns: the blocks of its kernel that ``device`` holds at once."""
+    f = getattr(load_kernel(lib), fn)
+    f.restype = ctypes.c_int
+    f.argtypes = [ctypes.c_int]
+    index = torch.device(device).index
+    return f(torch.cuda.current_device() if index is None else index)
+
+
+def check_aligned(**tensors):
+    """Raise unless each ``name=(tensor, bytes)`` starts on a multiple of
+    ``bytes`` (what a kernel's asynchronous copies of it need)."""
+    for name, (t, align) in tensors.items():
+        if t.data_ptr() % align:
+            raise ValueError("%s must start on a multiple of %d bytes"
+                             % (name, align))
+
+
 def check_map(name, t, shape, device):
     """Raise unless the per-macroblock map ``t`` is on ``device`` with
     ``shape`` (any dtype: the wrapper packs it)."""

@@ -113,23 +113,33 @@ __device__ __forceinline__ int imode_to_bmode(int m) {
   return m == 0 ? 0 : m == 1 ? 2 : m == 2 ? 3 : 1;
 }
 
-// The originals of macroblock (r, c), its edges in the reconstruction, the
-// neighbours' trellis flags (with a.tc), then the three DC values.  Leaves
+// The originals of macroblock (r, c) (from ``staged``, 384 shared bytes:
+// 16x16 luma, 8x8 U, 8x8 V, where the caller copied them ahead; else from
+// the planes), its edges in the reconstruction, the neighbours' trellis
+// flags (with a.tc), then the three DC values.  The neighbour state may
+// have been written during the launch (the persistent K8, after its
+// acquire and barrier): plain loads, never the non-coherent path.  Leaves
 // threads 128-159 and 180-255 free for the caller's own loads before the
 // call, whose barrier publishes them.  The DC values (threads 0, 32, 64)
 // are published by the caller's next barrier: the B_PRED candidate does
 // not read them.
 __device__ __forceinline__ void mb_load(const MbPlanes& a, MbShared& s,
-                                        int r, int c) {
+                                        int r, int c,
+                                        const uint8_t* staged = nullptr) {
   const int tid = threadIdx.x;
   const int C = a.C, W = C * 16, Wc = C * 8;
   const bool hrow = r > 0, hcol = c > 0, lastc = c == C - 1;
   const int y0 = r * 16, x0 = c * 16, cy0 = r * 8, cx0 = c * 8;
   const int mb = r * C + c;
-  s.o[tid] = a.oy[(size_t)(y0 + (tid >> 4)) * W + x0 + (tid & 15)];
-  if (tid < 128) {
-    const int pl = tid >> 6, k = tid & 63;
-    s.oc[pl][k] = (pl ? a.ov : a.ou)[(size_t)(cy0 + (k >> 3)) * Wc + cx0 + (k & 7)];
+  if (staged != nullptr) {
+    s.o[tid] = staged[tid];
+    if (tid < 128) s.oc[tid >> 6][tid & 63] = staged[256 + tid];
+  } else {
+    s.o[tid] = a.oy[(size_t)(y0 + (tid >> 4)) * W + x0 + (tid & 15)];
+    if (tid < 128) {
+      const int pl = tid >> 6, k = tid & 63;
+      s.oc[pl][k] = (pl ? a.ov : a.ou)[(size_t)(cy0 + (k >> 3)) * Wc + cx0 + (k & 7)];
+    }
   }
   const uint8_t* Yp = a.ry;
   if (tid < 16) {

@@ -116,19 +116,26 @@ def decide_inter_frame_plain(oy, ly, scalars, icost, tables):
     NEARESTMV, NEARMV, NEWMV; 0 intra), mvx, mvy (0 intra), the diamond
     sites evaluated, the candidates scored, the six-tap taps of their luma
     predictions, 0."""
+    R, C = oy.shape[0] // 16, oy.shape[1] // 16
+    tables = tuple(t.to(oy.device, torch.int64) for t in tables)
+    return torch.stack([_decide_frame(oy, ly, sc, icost[q], tables)
+                        for q, sc in enumerate(scalars.tolist())])
+
+
+def _decide_frame(oy, ly, sc, icost, tables, order=None):
+    """One quantizer's decisions (scalars ``sc``, intra costs ``icost`` (R*C),
+    int64 ``tables``): the macroblocks in ``order`` (default the
+    anti-diagonals d = r + c; any list of (rows, cols) in which every
+    macroblock comes after those it reads)."""
     dev = oy.device
     R, C = oy.shape[0] // 16, oy.shape[1] // 16
-    tables = tuple(t.to(dev, torch.int64) for t in tables)
     tiles = oy.reshape(R, 16, C, 16).permute(0, 2, 1, 3).to(torch.int32)
-    out = []
-    for q, sc in enumerate(scalars.tolist()):
-        st = {"R": R, "C": C, "Oy": tiles, "Ly": ly,
-              "nb": torch.zeros((R, C, 6), dtype=torch.int64, device=dev),
-              "md": torch.zeros((R, C, DECIDE_WORDS), dtype=torch.int64,
-                                device=dev)}
-        for rs, cs in diagonals(R, C, 1):
-            _decide_diag(st, torch.tensor(rs, device=dev),
-                         torch.tensor(cs, device=dev), int(sc[6]),
-                         int(sc[7]), int(sc[8]), icost[q], tables)
-        out.append(st["md"].to(torch.int32))
-    return torch.stack(out)
+    st = {"R": R, "C": C, "Oy": tiles, "Ly": ly,
+          "nb": torch.zeros((R, C, 6), dtype=torch.int64, device=dev),
+          "md": torch.zeros((R, C, DECIDE_WORDS), dtype=torch.int64,
+                            device=dev)}
+    for rs, cs in diagonals(R, C, 1) if order is None else order:
+        _decide_diag(st, torch.tensor(rs, device=dev),
+                     torch.tensor(cs, device=dev), int(sc[6]), int(sc[7]),
+                     int(sc[8]), icost, tables)
+    return st["md"].to(torch.int32)

@@ -310,7 +310,11 @@ def _inter_diag(st, r, c, q, rm, dm, sadw, tables, realtime, tcs):
         st["vnz"][r, c], st["y2c"][r, c] = vnz, y2c
 
 
-def _encode_frame(oy, ou, ov, ly, lu, lv, sc, tables, realtime, tcs):
+def _encode_frame(oy, ou, ov, ly, lu, lv, sc, tables, realtime, tcs,
+                  order=None):
+    """One quantizer's frame: the macroblocks in ``order`` (default the
+    anti-diagonals d = 2r + c; any list of (rows, cols) in which every
+    macroblock comes after those it reads)."""
     dev = oy.device
     R, C = oy.shape[0] // 16, oy.shape[1] // 16
     z = lambda *s: torch.zeros(s, dtype=torch.int32, device=dev)
@@ -326,7 +330,7 @@ def _encode_frame(oy, ou, ov, ly, lu, lv, sc, tables, realtime, tcs):
         st.update(ynz=b(4), unz=b(2), vnz=b(2),
                   y2c=torch.zeros((R, C, 4), dtype=torch.bool, device=dev))
     q, (rm, dm, sadw) = tuple(sc[:6]), sc[6:9]
-    for rs, cs in diagonals(R, C):
+    for rs, cs in diagonals(R, C) if order is None else order:
         _inter_diag(st, torch.tensor(rs, device=dev),
                     torch.tensor(cs, device=dev), q, rm, dm, sadw, tables,
                     realtime, tcs)

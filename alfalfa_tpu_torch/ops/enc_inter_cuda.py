@@ -2,14 +2,18 @@
 card, at one or several quantizers (motion search, mode decision,
 residues, plain or trellis quantization of intra macroblocks, the
 unfiltered reconstruction), as the hand-written CUDA kernel
-``enc_inter_diag_kernel`` of csrc/enc_inter.cu (entry
-``encode_inter_frame_launch``: one launch per macroblock diagonal,
-2*(R-1) + C per call, the quantizers on the grid's second axis).
+``enc_inter_row_kernel`` of csrc/enc_inter.cu (entry
+``encode_inter_frame_launch``): one launch per call, persistent, a block per
+(row, quantizer) walking its row and waiting for the row above to publish
+``ROW_LAG`` macroblocks beyond its column (csrc/row_sched.cuh).
 
 Replaces the TPU kernel alfalfa_tpu/ops/enc_inter_pallas.py:
 encode_inter_frame with the helpers traced inside it, H1
-(csrc/enc_transforms.cuh) and H2 (csrc/trellis.cuh); the source note in the
-.cu file says what was kept and what bounds it.  Its plain version is
+(csrc/enc_transforms.cuh) and H2 (csrc/trellis.cuh).  Bound, on this card,
+by the critical path through the macroblocks' dependences and each
+search's chain of diamond steps, not by bytes or operations; the decision
+chain is csrc/enc_inter_chain.cuh, shared with K9, and the source note in
+the .cu file says what was kept.  Its plain version is
 ops.enc_inter.encode_inter_frame_plain: ``encode_inter_frame`` takes it for
 CPU tensors only.  A CUDA tensor launches the kernel or raises.
 """
@@ -18,7 +22,8 @@ import functools
 
 import torch
 
-from alfalfa_tpu_torch._build import c_entry, check_tensor, launch
+from alfalfa_tpu_torch._build import (c_entry, check_aligned, check_tensor,
+                                     launch, resident_blocks)
 from alfalfa_tpu_torch.encoder.trellis import VALUE_COST
 from alfalfa_tpu_torch.ops.enc_inter import (MODE_WORDS, N_SCALARS,
                                              encode_inter_frame_plain)
@@ -28,11 +33,21 @@ kernel_launches = 0  # ``<<<>>>`` launches the C entry reported issuing
 
 TABLE_SHAPES = ((5,), (10,), (6, 4), (256,), (256,), (4, 1024))
 
+# Macroblock (r, c) waits until row r - 1 has published min(c + ROW_LAG, C)
+# macroblocks: its reads reach the above-right neighbour (d = 2r + c).
+ROW_LAG = 2
+
 
 @functools.cache
 def _entry():
     return c_entry("enc_inter", "encode_inter_frame_launch",
-                   [ctypes.c_void_p] * 24 + [ctypes.c_int] * 4)
+                   [ctypes.c_void_p] * 24 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p, ctypes.c_int])
+
+
+def resident(device):
+    """Blocks of the kernel the card ``device`` holds at once."""
+    return resident_blocks("enc_inter", "encode_inter_frame_resident", device)
 
 
 @functools.cache
@@ -77,6 +92,7 @@ def encode_inter_frame(oy, ou, ov, ly, lu, lv, scalars, tables, realtime,
                            ("lu", lu, (H // 2, W // 2)),
                            ("lv", lv, (H // 2, W // 2))):
         check_tensor(name, t, torch.uint8, shape, dev)
+    check_aligned(oy=(oy, 16), ou=(ou, 8), ov=(ov, 8))
     check_tensor("scalars", scalars, torch.int32, (Q, N_SCALARS), dev)
     for i, (t, shape) in enumerate(zip(tables, TABLE_SHAPES)):
         check_tensor("tables[%d]" % i, t, torch.int32, shape, dev)
@@ -92,16 +108,18 @@ def encode_inter_frame(oy, ou, ov, ly, lu, lv, scalars, tables, realtime,
         check_tensor("token_costs", token_costs, torch.int32, (4, 16, 36),
                      dev)
         tc, vc = token_costs, _value_cost(dev)
-        # every macroblock writes its flags before a later diagonal reads
+        # every macroblock writes its flags before a later one reads them
         ynz = empty((Q, 4 * R, 4 * C))
         unz, vnz = empty((Q, 2 * R, 2 * C)), empty((Q, 2 * R, 2 * C))
         y2c = empty((Q, R, C, 4))
+    # the ticket, then each row's progress (zeroed: one memset)
+    sched = torch.zeros(1 + Q * R, dtype=torch.int32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     issued = launch(_entry(), "encode_inter_frame", dev,
                     *(t.data_ptr() for t in (oy, ou, ov, ly, lu, lv, y, u, v,
                                              coeffs, modes, scalars, *tables)),
                     *(ptr(t) for t in (tc, vc, ynz, unz, vnz, y2c)),
-                    int(bool(realtime)), Q, R, C)
+                    int(bool(realtime)), Q, R, C, sched.data_ptr(), ROW_LAG)
     launches += 1
     kernel_launches += issued
     return coeffs, modes, y, u, v

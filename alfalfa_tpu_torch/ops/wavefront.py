@@ -10,6 +10,7 @@ whole frame is predicted before any of it is filtered; the filter of
 (r, c) finds (r, c-1), (r-1, c) and (r-1, c+1) already filtered because
 they lie on earlier diagonals.
 """
+import numpy as np
 import torch
 
 from alfalfa_tpu_torch.ops import intra, loopfilter
@@ -26,6 +27,24 @@ def diagonals(R, C, k=2):
         r_lo = max(0, -((-(d - C + 1)) // k))
         rs = list(range(r_lo, min(R - 1, d // k) + 1))
         out.append((rs, [d - k * r for r in rs]))
+    return out
+
+
+def row_order(R, C, lag, seed):
+    """[([r], [c])]: an order of the R x C macroblocks, one at a time, that
+    row walkers under the progress-flag rule of csrc/row_sched.cuh could
+    produce: each row in column order, macroblock (r, c) only after row
+    r - 1 has done min(c + lag, C), the rows interleaved at random (numpy
+    generator ``seed``).  In the same form as ``diagonals``."""
+    rng = np.random.default_rng(seed)
+    done = [0] * R
+    out = []
+    while len(out) < R * C:
+        ready = [r for r in range(R) if done[r] < C and
+                 (r == 0 or done[r - 1] >= min(done[r] + lag, C))]
+        r = ready[int(rng.integers(len(ready)))]
+        out.append(([r], [done[r]]))
+        done[r] += 1
     return out
 
 

@@ -16,7 +16,12 @@ two-pass, K8 (encode_inter_frame) at 720p and 176x144 in best, rt and
 two-pass, as the fused 2-QP pair and on seeded extreme motion, and K9
 (decide_inter_frame) and K10 (intra_fixup_frame) on what the fast path
 hands them at 720p (one quantizer, the pair, a scene cut) and 176x144, on
-decoded frames of the fixtures.  Then it drives the paths over
+decoded frames of the fixtures.  K8 and K9 are persistent (one launch a
+call, blocks walking rows behind progress flags): each of their 720p cases
+runs REPEATS times, every run held to the plain output, since a race
+between rows would show only now and then, and each runs once more on a
+narrow, tall frame with more (row, quantizer) blocks than the card holds
+at once.  Then it drives the paths over
 tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
 
 - main_path: 16 lockstep GOPs through BatchedGopDecoder.decode_stream
@@ -66,8 +71,8 @@ from alfalfa_tpu_torch.encoder.costs import rd_multipliers
 from alfalfa_tpu_torch.encoder.encode_intra import QUANT_KEYS
 from alfalfa_tpu_torch.encoder.trellis import token_costs_pm
 from alfalfa_tpu_torch.native import bitwork
-from alfalfa_tpu_torch.ops import enc_decide, enc_decide_cuda, enc_inter, \
-    enc_inter_cuda, enc_intra, enc_intra_cuda, enc_intra_fixup, \
+from alfalfa_tpu_torch.ops import enc_batch, enc_decide, enc_decide_cuda, \
+    enc_inter, enc_inter_cuda, enc_intra, enc_intra_cuda, enc_intra_fixup, \
     enc_intra_fixup_cuda, enc_transforms, intra_cuda, lf_cuda, sixtap, \
     sixtap_cuda, transforms, trellis, wavefront, wavefront_cuda
 from alfalfa_tpu_torch.parallel import gop
@@ -149,10 +154,12 @@ def bound(bytes_, ops):
 
 
 def kernel_case(kernel, label, wrapper, plain, args, counts, bound_fn,
-                reps=10, **extra):
+                reps=10, repeats=0, **extra):
     """Launch ``wrapper(*args)`` once and hold it against ``plain(*args)``,
-    run once and timed; then time the wrapper.  ``counts`` reads the
-    wrapper's kernel-launch count (as its C entry reported it)."""
+    run once and timed; with ``repeats``, run the wrapper that many times
+    more, each output held to the plain one; then time the wrapper.
+    ``counts`` reads the wrapper's kernel-launch count (as its C entry
+    reported it)."""
     issued = counts()
     out = wrapper(*args)
     issued = counts() - issued
@@ -162,18 +169,27 @@ def kernel_case(kernel, label, wrapper, plain, args, counts, bound_fn,
     b.record()
     torch.cuda.synchronize()
     plain_ms = a.elapsed_time(b)
-    outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+    tup = lambda x: x if isinstance(x, tuple) else (x,)
+    outs, refs = tup(out), tup(ref)
     equal = all(torch.equal(x, y) for x, y in zip(outs, refs))
     err = max(max_abs_err(x, y) for x, y in zip(outs, refs))
+    repeats_equal = 0
+    for _ in range(repeats):
+        again = tup(wrapper(*args))
+        repeats_equal += all(torch.equal(x, y) for x, y in zip(again, refs))
+        err = max(err, max(max_abs_err(x, y) for x, y in zip(again, refs)))
     ms = time_ms(lambda: wrapper(*args), reps)
     b_ms, by = bound_fn(*args)
     case = dict(kernel=kernel, case=label, equal=equal, max_abs_err=err,
                 kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                 launches_per_call=issued, shape=list(outs[0].shape), **extra)
+    if repeats:
+        case.update(repeats=repeats, repeats_equal=repeats_equal)
     say("kernels", **case)
-    if not equal:
-        raise SystemExit("%s disagrees with its plain version: %s"
-                         % (kernel, label))
+    if not equal or repeats_equal != repeats:
+        raise SystemExit("%s disagrees with its plain version: %s (%d of %d "
+                         "repeats equal)" % (kernel, label, repeats_equal,
+                                              repeats))
     return case
 
 
@@ -565,7 +581,7 @@ def k8_bound(modes, Q, trellis):
     return bound(bytes_, ops)
 
 
-def k8_case(label, args):
+def k8_case(label, args, repeats=0):
     seen = {}
 
     def wrapper(*a):
@@ -579,8 +595,8 @@ def k8_case(label, args):
                        enc_inter.encode_inter_frame_plain, args,
                        lambda: enc_inter_cuda.kernel_launches,
                        lambda *a: k8_bound(seen["modes"], Q, a[9] is not None),
-                       two_pass=args[9] is not None, realtime=bool(args[8]),
-                       quantizers=Q, mbs=R * C)
+                       repeats=repeats, two_pass=args[9] is not None,
+                       realtime=bool(args[8]), quantizers=Q, mbs=R * C)
     md = seen["modes"]
     newmv = md[..., 0] == enc_inter.NEWMV
     say("kernels", kernel="encode_inter_frame", case=label,
@@ -628,14 +644,32 @@ def extreme_motion_planes(seed, width, height, shift):
     return sub(last), sub(orig)
 
 
-def k8_extreme(seed, width=1280, height=720, shift=127):
-    """encode_inter_frame's arguments for extreme_motion_planes at 720p: the
-    search walks out towards its +-1023 eighth-pel edge."""
+def extreme_encoder(seed, width, height, shift, **kw):
+    """(Encoder on the card whose LAST is extreme_motion_planes' LAST, the
+    original planes)."""
     last, orig = extreme_motion_planes(seed, width, height, shift)
-    e = Encoder(width, height, device=DEV)
+    e = Encoder(width, height, device=DEV, **kw)
     e.references.last = Raster(width, height, *(
         torch.from_numpy(p).to(DEV) for p in last))
-    return encode_inter.kernel_inputs(e, orig, [QuantIndices(y_ac_qi=48)])
+    return e, orig
+
+
+def k8_extreme(seed, width=1280, height=720, shift=127, qis=(48,)):
+    """encode_inter_frame's arguments for extreme_motion_planes (by default
+    at 720p: the search walks out towards its +-1023 eighth-pel edge)."""
+    e, orig = extreme_encoder(seed, width, height, shift)
+    return encode_inter.kernel_inputs(
+        e, orig, [QuantIndices(y_ac_qi=q) for q in qis])
+
+
+# the persistent kernels' repeat check: runs of each 720p case
+REPEATS = 20
+
+
+def over_residency_rows(resident, Q):
+    """Rows of a frame whose (row, quantizer) blocks outnumber the
+    ``resident`` blocks the card holds at once by a quarter."""
+    return -(-resident * 5 // 4) // Q
 
 
 # ------------------------------------------------------------- K9, K10
@@ -716,7 +750,21 @@ def fast_kernel_inputs(key, frame, key_qi, qis):
     return kept["decide_inter_frame"], kept["intra_fixup_frame"]
 
 
-def k9_case(label, args):
+def k9_extreme(seed, width, height, shift, qis):
+    """decide_inter_frame's arguments as fast_frame hands them over for
+    extreme_motion_planes at the quantizers ``qis``."""
+    e, orig = extreme_encoder(seed, width, height, shift, quality="rt",
+                              fast=True)
+    oy, _, _, ly, _, _, scalars, tables, rd = encode_inter_fast.frame_inputs(
+        e, orig, [QuantIndices(y_ac_qi=q) for q in qis])
+    mbc, _ibc, mvc2p, pcost, sadcost, mvcost = tables
+    oy_t = wavefront.tile(oy[None], 16)[0]
+    icost = torch.stack([enc_batch.intra_screen_source(oy_t, mbc, rm, dm)
+                         for rm, dm in rd])
+    return oy, ly, scalars, icost, (mvc2p, pcost, sadcost, mvcost)
+
+
+def k9_case(label, args, repeats=0):
     seen = {}
 
     def wrapper(*a):
@@ -727,7 +775,7 @@ def k9_case(label, args):
     case = kernel_case("decide_inter_frame", label, wrapper,
                        enc_decide.decide_inter_frame_plain, args,
                        lambda: enc_decide_cuda.kernel_launches,
-                       lambda *a: k9_bound(seen["md"]),
+                       lambda *a: k9_bound(seen["md"]), repeats=repeats,
                        quantizers=args[2].shape[0], mbs=R * C)
     md = seen["md"]
     say("kernels", kernel="decide_inter_frame", case=label,
@@ -963,8 +1011,7 @@ def inter_encode_phase(card, width, height):
     result line."""
     rasters = decoded_frames(CLIP, tuple(range(INTER_FRAMES)))
     frames = {k: r.display() for k, r in rasters.items()}
-    R, C = (height + 15) // 16, (width + 15) // 16
-    per_call = 2 * (R - 1) + C
+    per_call = 1        # K8 is persistent: one launch a call
 
     # the encode path: counters to 0 just before, read just after; K8's
     # plain version must not run on the card
@@ -1041,7 +1088,7 @@ def inter_encode_phase(card, width, height):
     if calls["encode_inter_frame"] <= 0 or calls["loop_filter"] <= 0:
         raise SystemExit("the encode path did not launch K8 and K5")
     if kernels["encode_inter_frame"] != calls["encode_inter_frame"] * per_call:
-        raise SystemExit("K8 did not launch 2(R-1)+C kernels per call")
+        raise SystemExit("K8 did not launch one persistent kernel per call")
     if plain_calls[0]:
         raise SystemExit("the encode path ran K8's plain version on the card")
     if any(calls[k] for k in ("sixtap_mc", "wavefront_decode",
@@ -1133,7 +1180,8 @@ def fast_encode_phase(card, width, height, serial_rt_ms):
     rasters = decoded_frames(CLIP, tuple(range(6)))
     frames = {k: r.display() for k, r in rasters.items()}
     R, C = (height + 15) // 16, (width + 15) // 16
-    per_call = R + C - 1
+    # K9 is persistent (one launch a call), K10 a launch per diagonal r + c
+    per_call = {"decide_inter_frame": 1, "intra_fixup_frame": R + C - 1}
 
     # the fast path: counters to 0 just before, read just after; K9's and
     # K10's plain versions must not run on the card
@@ -1240,8 +1288,9 @@ def fast_encode_phase(card, width, height, serial_rt_ms):
         if calls[k] != n_calls:
             raise SystemExit("%s ran %d times, not once per fast interframe "
                              "(%d)" % (k, calls[k], n_calls))
-        if kernels[k] != calls[k] * per_call:
-            raise SystemExit("%s did not launch R+C-1 kernels per call" % k)
+        if kernels[k] != calls[k] * per_call[k]:
+            raise SystemExit("%s did not launch %d kernels per call"
+                             % (k, per_call[k]))
     if plain_calls[0]:
         raise SystemExit("the fast path ran a plain version on the card")
     if calls["encode_inter_frame"] or calls["loop_filter"] <= 0 \
@@ -1313,6 +1362,29 @@ COUNTS = {"sixtap_mc": (sixtap_cuda, "launches", "kernel_launches"),
                                  "kernel_launches"),
           "intra_fixup_frame": (enc_intra_fixup_cuda, "launches",
                                 "kernel_launches")}
+
+
+def record_launches(mods):
+    """Wrap the ``launch`` of each wrapper module in ``mods`` ({kernel:
+    module}) so that every call's kernel launches are recorded.  Returns
+    ({kernel: [launches of each call]}, a function that unwraps them)."""
+    rec = {k: [] for k in mods}
+    saved = {k: m.launch for k, m in mods.items()}
+
+    def wrap(fn, calls):
+        def wrapped(*a):
+            n = fn(*a)
+            calls.append(n)
+            return n
+        return wrapped
+
+    for k, m in mods.items():
+        m.launch = wrap(saved[k], rec[k])
+
+    def undo():
+        for k, m in mods.items():
+            m.launch = saved[k]
+    return rec, undo
 
 
 def zero_counts():
@@ -1448,7 +1520,7 @@ def main():
     sm = decoded_frames(SMALL_CLIP, (0, 1))
     big = decoded_frames(CLIP, (0, 1))
     k8 = [k8_case("720p frame1 best qi48",
-                  k8_args(big[0], big[1], 48, [48])),
+                  k8_args(big[0], big[1], 48, [48]), REPEATS),
           k8_case("176x144 frame1 best qi48", k8_args(sm[0], sm[1], 48, [48])),
           k8_case("176x144 frame1 rt qi48",
                   k8_args(sm[0], sm[1], 48, [48], "rt")),
@@ -1456,9 +1528,19 @@ def main():
                   k8_args(sm[0], sm[1], 32, [32], two_pass=True)),
           k8_case("720p frame1 rt pair qi56 -> (40, 72)",
                   k8_args(big[0], big[1], INTER_PAIR_KEY_QI, INTER_PAIR_QIS,
-                          "rt")),
-          k8_case("720p seeded extreme motion", k8_extreme(44))]
+                          "rt"), REPEATS),
+          k8_case("720p seeded extreme motion", k8_extreme(44), REPEATS),
+          k8_case("720p frame1 rt qi48",
+                  k8_args(big[0], big[1], 48, [48], "rt"), REPEATS)]
     del sm, big
+    # more (row, quantizer) blocks than the card holds at once: a narrow,
+    # tall frame at two quantizers
+    res8 = enc_inter_cuda.resident(DEV)
+    rows8 = over_residency_rows(res8, len(INTER_PAIR_QIS))
+    say("kernels", kernel="encode_inter_frame", resident_blocks=res8,
+        over_residency_blocks=rows8 * len(INTER_PAIR_QIS))
+    k8.append(k8_case("176x%d over-residency extreme motion pair" % (16 * rows8),
+                      k8_extreme(45, 176, 16 * rows8, 40, INTER_PAIR_QIS)))
 
     # K9 and K10 on what the fast path hands them: 720p frame 1 after
     # frame 0 as a key frame, the pair, a scene cut (frame 0 against frame
@@ -1473,9 +1555,16 @@ def main():
                 fast_kernel_inputs(big[5], big[0], 48, [FAST_QI])),
                ("176x144 frame1 qi48", fast_kernel_inputs(sm[0], sm[1], 48,
                                                           [FAST_QI]))]
-    k9 = [k9_case(label, a9) for label, (a9, _) in fast_in]
+    k9 = [k9_case(label, a9, REPEATS if label.startswith("720p") else 0)
+          for label, (a9, _) in fast_in]
     k10 = [k10_case(label, a10) for label, (_, a10) in fast_in]
     del sm, big, fast_in
+    res9 = enc_decide_cuda.resident(DEV)
+    rows9 = over_residency_rows(res9, len(FAST_PAIR_QIS))
+    say("kernels", kernel="decide_inter_frame", resident_blocks=res9,
+        over_residency_blocks=rows9 * len(FAST_PAIR_QIS))
+    k9.append(k9_case("176x%d over-residency extreme motion pair" % (16 * rows9),
+                      k9_extreme(46, 176, 16 * rows9, 40, FAST_PAIR_QIS)))
     say("kernels", helpers=helper_plain_ms())
     if quick:
         return
@@ -1557,9 +1646,22 @@ def main():
         raise SystemExit("the single-frame path launched a GOP kernel")
 
     kf = keyframe_encode_phase(card, ivf.width, ivf.height)
-    inter = inter_encode_phase(card, ivf.width, ivf.height)
-    fast = fast_encode_phase(card, ivf.width, ivf.height,
-                             inter["speed"]["rt_qi48"]["ms_per_interframe"])
+    # every K8 and K9 call of the encode phases: one persistent launch
+    per_call, undo = record_launches({"encode_inter_frame": enc_inter_cuda,
+                                      "decide_inter_frame": enc_decide_cuda})
+    try:
+        inter = inter_encode_phase(card, ivf.width, ivf.height)
+        fast = fast_encode_phase(
+            card, ivf.width, ivf.height,
+            inter["speed"]["rt_qi48"]["ms_per_interframe"])
+    finally:
+        undo()
+    persistent = {k: {"calls": len(v), "launches_per_call": sorted(set(v))}
+                  for k, v in per_call.items()}
+    say("persistent_launches", **persistent)
+    if any(not v or set(v) != {1} for v in per_call.values()):
+        raise SystemExit("a K8 or K9 call of the encode phases issued other "
+                         "than one kernel launch")
 
     def entry(name, source, replaces, launches, primary, all_cases):
         return {"name": name, "route": "cuda", "source": source,
