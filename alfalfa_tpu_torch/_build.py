@@ -121,14 +121,15 @@ def launch(entry, name, device, *args):
     return issued.value
 
 
-def resident_blocks(lib, fn, device):
-    """What the C function ``fn(int device)`` of ``build/lib<lib>.so``
-    returns: the blocks of its kernel that ``device`` holds at once."""
+def resident_blocks(lib, fn, device, *flags):
+    """What the C function ``fn(int device, int flags...)`` of
+    ``build/lib<lib>.so`` returns: the blocks of its kernel that ``device``
+    holds at once."""
     f = getattr(load_kernel(lib), fn)
     f.restype = ctypes.c_int
-    f.argtypes = [ctypes.c_int]
+    f.argtypes = [ctypes.c_int] * (1 + len(flags))
     index = torch.device(device).index
-    return f(torch.cuda.current_device() if index is None else index)
+    return f(torch.cuda.current_device() if index is None else index, *flags)
 
 
 def check_aligned(**tensors):

@@ -25,7 +25,7 @@
 // practice the critical path through the macroblocks' dependences: every
 // read of macroblock (r, c) is of (r, c-1) or of row r-1 up to column c+1,
 // and a macroblock's search is a chain of dependent diamond steps, the
-// intra macroblocks K7's serial sub-block chain.
+// intra macroblocks K7's B_PRED chain of 10 dependent steps.
 //
 // Design: one launch per call, persistent (row_sched.cuh).  A block of 256
 // threads takes a (row, quantizer) ticket and walks the row left to right,
@@ -41,12 +41,12 @@
 // decision chain (census, diamond search, candidates) is
 // enc_inter_chain.cuh, shared with K9: one barrier a diamond step, each
 // warp taking the step's pick itself.  The intra macroblock code is K7's
-// (enc_mb_device.cuh): whole-mode screening, B_PRED with reconstruction in
-// the loop under the interframe's non-contextual b-mode costs, the Y2 path
-// and chroma.  Neighbour state in device memory: the unfiltered
-// reconstruction, the mode words (census) and, two-pass, the per-4x4
-// nonzero flags and Y2 chains (inter macroblocks write zero flags and pass
-// the chains on).
+// (enc_mb_device.cuh:intra_mb): after the whole-mode screening, B_PRED with
+// reconstruction in the loop under the interframe's non-contextual b-mode
+// costs on warp 0, beside the whole-mode Y2 path and chroma on warps 1-7.
+// Neighbour state in device memory: the unfiltered reconstruction, the
+// mode words (census) and, two-pass, the per-4x4 nonzero flags and Y2
+// chains (inter macroblocks write zero flags and pass the chains on).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -151,7 +151,7 @@ __global__ void __launch_bounds__(256) enc_inter_row_kernel(InterArgs a) {
     mb_load(P, s, r, c, s_src[c & 1]);
     if (tid == 96) census_decide(d, r, c, R, C);
     __syncthreads();                // the DC values, the census
-    whole_luma_costs(P, s, s_mbc, false);  // intra screening: s.wcost
+    whole_luma_costs(P, s, s_mbc);  // intra screening: s.wcost
 
     // ---- NEWMV, then the four candidates by variance rd-cost ----
     const int o = s.o[tid];
@@ -172,6 +172,7 @@ __global__ void __launch_bounds__(256) enc_inter_row_kernel(InterArgs a) {
 
     // ---- encode the winner ----
     const bool inter = win >= 0;
+    bool use_b = false;
     int mvx = 0, mvy = 0, cmx = 0, cmy = 0;
     if (inter) {
       mvx = win < 3 ? d.mv[win][0] : nx;
@@ -188,10 +189,10 @@ __global__ void __launch_bounds__(256) enc_inter_row_kernel(InterArgs a) {
       y2_path(P, s, false, TilePred{});   // inter macroblocks: no trellis
       chroma_code(P, s, r, c, false, TilePred{});
     } else {
-      intra_mb(P, s, r, c, s_mbc, s_ibc, false);
+      use_b = intra_mb(P, s, r, c, s_mbc, s_ibc, false, P.tc != nullptr,
+                       true);
     }
-    const bool use_b = !inter && s.dec[0] != 0;
-    const int wm = s.dec[1], um = s.dec[2];
+    const int wm = s.dec[0], um = s.dec[1];
 
     // ---- outputs: coefficients, mode words, luma, the trellis state ----
     int16_t* coeffs = a.coeffs + (qp * n_mb + mb) * 400;
@@ -205,7 +206,8 @@ __global__ void __launch_bounds__(256) enc_inter_row_kernel(InterArgs a) {
       coeffs[i] = (int16_t)v;
       any |= v != 0;
     }
-    P.ry[(size_t)Y * W + X] = (uint8_t)s.t[1 + py][1 + px];
+    P.ry[(size_t)Y * W + X] =
+        (uint8_t)(inter || use_b ? s.t[1 + py][1 + px] : s.wt[py][px]);
     const int has_nonzero = __syncthreads_or(any);
     int* md = modes + (size_t)mb * MODE_WORDS;
     if (tid < 16) {

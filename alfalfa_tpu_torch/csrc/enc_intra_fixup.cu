@@ -77,10 +77,10 @@ __global__ void __launch_bounds__(256) enc_fixup_diag_kernel(FixupArgs a,
   MB_SHARED(s);
   mb_load(P, s, r, c);
   __syncthreads();                                   // the DC values
-  whole_luma_costs(P, s, a.mbc, false, FIXUP_INF);   // s.dec[1]
-  y2_path(P, s, false, WholePred{s.dec[1]});
+  whole_luma_costs(P, s, a.mbc, FIXUP_INF);   // s.dec[0]
+  y2_path(P, s, false, WholePred{s.dec[0]});
   chroma_mode(s);
-  chroma_code(P, s, r, c, false, WholePred{s.dec[2]});
+  chroma_code(P, s, r, c, false, WholePred{s.dec[1]});
 
   int16_t* co = a.coeffs + (qp * n_mb + mb) * 400;
   int any = 0;
@@ -96,8 +96,8 @@ __global__ void __launch_bounds__(256) enc_fixup_diag_kernel(FixupArgs a,
   const int nz = __syncthreads_or(any);
   if (tid == 0) {
     int* m = a.modes + (qp * n_mb + mb) * FIXUP_WORDS;
-    m[0] = s.dec[1];
-    m[1] = s.dec[2];
+    m[0] = s.dec[0];
+    m[1] = s.dec[1];
     m[2] = nz != 0;
   }
 }

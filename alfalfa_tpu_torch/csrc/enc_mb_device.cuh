@@ -7,8 +7,12 @@
 // luma Y2 path and the chroma mode search and transform chain, each with
 // plain or trellis quantization.  One block of 256 threads runs one
 // macroblock; every step is called by all its threads, and each says what
-// its last phase leaves unpublished (a barrier costs a K7 or K8 launch about
-// as much as a small step, so there is no barrier a caller does not need).
+// its last phase leaves unpublished (a barrier costs about as much as a
+// small step, so there is no barrier a caller does not need).  The intra
+// macroblock (intra_mb, K7's and K8's) runs the B_PRED candidate on warp 0
+// (a chain of 16 dependent sub-blocks, each spread over the warp's lanes,
+// with __syncwarp between them) while warps 1-7 run the whole-mode and
+// chroma steps, which read nothing it writes.
 // Every step is inlined, and the kernels pass a local copy of MbPlanes and
 // an MbShared of distinct shared arrays, so the planes, quantizers,
 // multipliers and the working values stay in registers along the serial
@@ -65,9 +69,11 @@ struct MbShared {
   int (&cl)[2][8];        // chroma left column
   int (&dc)[3];           // whole-block DC values: Y, U, V
   int (&p16)[256];        // the luma prediction the Y2 path codes
+  int (&wt)[16][16];      // the whole-mode reconstruction, where the Y2
+                          // path runs beside the B_PRED candidate
   int (&pc)[2][64];       // the chroma predictions the chroma chain codes
-  int (&pred)[10][16];    // the ten b-mode predictions of a sub-block
-  int (&sse)[10];
+  int (&edge)[2][13];     // the edges (bpred_pixel's E) of the sub-blocks
+                          // warp 0's halves predict
   int (&bm)[16];          // B_PRED candidate b-modes
   int (&nbm)[8];          // above MB's bottom row, left MB's right column
                           // of b-modes (key frames: the b-mode context)
@@ -84,29 +90,56 @@ struct MbShared {
   uint8_t (&bnz)[16];
   uint8_t (&wnz)[16];
   uint8_t (&uvnz)[8];
+  uint8_t (&tsel)[16];    // trellis blocks whose contexts chain: the start
+                          // level per context (bits 0-2) and the nonzero
+                          // flag per start level (bits 3-4)
   uint8_t& y2nz;
   long long (&red)[8][8];
   long long& wcost;       // the best whole-mode cost
   long long& bcost;       // the B_PRED candidate's cost
-  int (&dec)[3];          // use B_PRED, whole mode, chroma mode
+  int (&dec)[2];          // whole mode, chroma mode
 };
 
 // Declares the shared arrays of one macroblock's state and ``s``, the
 // MbShared over them (arrays a kernel never reads take no memory).
 #define MB_SHARED(s)                                                      \
   __shared__ int s##_o[256], s##_oc[2][64], s##_t[17][21], s##_ce[2][9],  \
-      s##_cl[2][8], s##_dc[3], s##_p16[256], s##_pc[2][64],               \
-      s##_pred[10][16], s##_sse[10], s##_bm[16], s##_nbm[8],              \
+      s##_cl[2][8], s##_dc[3], s##_p16[256], s##_wt[16][16],              \
+      s##_pc[2][64], s##_edge[2][13], s##_bm[16], s##_nbm[8],             \
       s##_bco[16][16], s##_wco[16][16], s##_walsh[16], s##_y2[16],        \
-      s##_dcv[16], s##_uvco[8][16], s##_dec[3];                           \
+      s##_dcv[16], s##_uvco[8][16], s##_dec[2];                           \
   __shared__ uint8_t s##_ctx[20], s##_bnz[16], s##_wnz[16], s##_uvnz[8],  \
-      s##_y2nz;                                                           \
+      s##_tsel[16], s##_y2nz;                                             \
   __shared__ long long s##_red[8][8], s##_wcost, s##_bcost;               \
-  MbShared s{s##_o,    s##_oc,   s##_t,    s##_ce,   s##_cl,   s##_dc,    \
-             s##_p16,  s##_pc,   s##_pred, s##_sse,  s##_bm,   s##_nbm,   \
-             s##_bco,  s##_wco,  s##_walsh, s##_y2,  s##_dcv,  s##_uvco,  \
-             s##_ctx,  s##_bnz,  s##_wnz,  s##_uvnz, s##_y2nz, s##_red,   \
-             s##_wcost, s##_bcost, s##_dec}
+  MbShared s{s##_o,     s##_oc,    s##_t,    s##_ce,   s##_cl,   s##_dc,  \
+             s##_p16,   s##_wt,    s##_pc,   s##_edge, s##_bm,   s##_nbm, \
+             s##_bco,   s##_wco,   s##_walsh, s##_y2,  s##_dcv,  s##_uvco,\
+             s##_ctx,   s##_bnz,   s##_wnz,  s##_uvnz, s##_tsel, s##_y2nz,\
+             s##_red,   s##_wcost, s##_bcost, s##_dec}
+
+// The threads running a step: the whole block (BlockTeam: barrier 0, the
+// Y2 path's reconstruction into the working tile), or warps 1-7 while warp
+// 0 runs the B_PRED candidate (SideTeam: named barrier 1 of 224 threads,
+// which warp 0 never waits at; the reconstruction into s.wt, since B_PRED
+// writes the working tile meanwhile).  Thread t of a team is its tid().
+struct BlockTeam {
+  static constexpr int kThreads = 256, kWarps = 8;
+  static __device__ __forceinline__ int tid() { return threadIdx.x; }
+  static __device__ __forceinline__ void sync() { __syncthreads(); }
+  static __device__ __forceinline__ int& rec(MbShared& s, int y, int x) {
+    return s.t[1 + y][1 + x];
+  }
+};
+struct SideTeam {
+  static constexpr int kThreads = 224, kWarps = 7;
+  static __device__ __forceinline__ int tid() { return threadIdx.x - 32; }
+  static __device__ __forceinline__ void sync() {
+    asm volatile("bar.sync 1, 224;" ::: "memory");
+  }
+  static __device__ __forceinline__ int& rec(MbShared& s, int y, int x) {
+    return s.wt[y][x];
+  }
+};
 
 __device__ __forceinline__ int imode_to_bmode(int m) {
   // whole mode (DC, V, H, TM) -> the b-mode neighbours see
@@ -201,26 +234,41 @@ __device__ __forceinline__ void mb_load(const MbPlanes& a, MbShared& s,
 }
 
 // Whole-MB luma, DC, V, H, TM by variance (sse - s*s/256) rd-cost under
-// mbc[0..3]: the first of least cost in s.dec[1], its cost in s.wcost;
-// after the B_PRED candidate (``bpred``) also the decision in s.dec[0]:
-// B_PRED only if strictly cheaper.  With ``start`` >= 0 the scan starts
-// from that cost instead of DC's (the fast path's INF: a mode costing it or
-// more is never taken, and DC is kept if all do).
+// mbc[0..3]: the first of least cost in s.dec[0], its cost in s.wcost.
+// With ``start`` >= 0 the scan starts from that cost instead of DC's (the
+// fast path's INF: a mode costing it or more is never taken, and DC is
+// kept if all do).
+template <typename Team = BlockTeam>
 __device__ __forceinline__ void whole_luma_costs(const MbPlanes& a,
                                                  MbShared& s, const int* mbc,
-                                                 bool bpred,
                                                  long long start = -1) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = Team::tid(), lane = tid & 31, warp = tid >> 5;
   {
-    const int py = tid >> 4, px = tid & 15;
     long long acc[8];
+    if constexpr (Team::kThreads == 256) {  // a pixel a thread
+      const int py = tid >> 4, px = tid & 15;
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int pred = whole_pixel(m, s.dc[0], s.t[0][1 + px], s.t[1 + py][0],
-                                   s.t[0][0]);
-      const int diff = s.o[tid] - pred;
-      acc[m] = diff;
-      acc[4 + m] = diff * diff;
+      for (int m = 0; m < 4; ++m) {
+        const int pred = whole_pixel(m, s.dc[0], s.t[0][1 + px],
+                                     s.t[1 + py][0], s.t[0][0]);
+        const int diff = s.o[tid] - pred;
+        acc[m] = diff;
+        acc[4 + m] = diff * diff;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc[k] = 0;
+      for (int i = tid; i < 256; i += Team::kThreads) {
+        const int py = i >> 4, px = i & 15;
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int pred = whole_pixel(m, s.dc[0], s.t[0][1 + px],
+                                       s.t[1 + py][0], s.t[0][0]);
+          const int diff = s.o[i] - pred;
+          acc[m] += diff;
+          acc[4 + m] += diff * diff;
+        }
+      }
     }
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
@@ -228,102 +276,129 @@ __device__ __forceinline__ void whole_luma_costs(const MbPlanes& a,
       if (lane == 0) s.red[warp][k] = acc[k];
     }
   }
-  __syncthreads();
+  Team::sync();
   if (tid == 0) {
     int wm = 0;
     long long wcost = start;
     for (int m = 0; m < 4; ++m) {
       long long sm = 0, sse = 0;
-      for (int w = 0; w < 8; ++w) { sm += s.red[w][m]; sse += s.red[w][4 + m]; }
+      for (int w = 0; w < Team::kWarps; ++w) { sm += s.red[w][m]; sse += s.red[w][4 + m]; }
       const long long cost = rdcost(mbc[m], sse - sm * sm / 256, a.rm, a.dm);
       if ((m == 0 && start < 0) || cost < wcost) { wcost = cost; wm = m; }
     }
-    s.dec[0] = bpred && s.bcost < wcost;
-    s.dec[1] = wm;
+    s.dec[0] = wm;
     s.wcost = wcost;
   }
-  __syncthreads();
+  Team::sync();
 }
 
-// The B_PRED candidate: the 16 sub-blocks in raster order, each scoring
-// the ten b-modes by SSE rd-cost, then its transform chain into the
-// working tile the next sub-block predicts from.  b-mode rates: with
-// ``contextual``, bcost[(above * 10 + left) * 10 + mode] under the
-// neighbours' modes (s.nbm off the macroblock); else bcost[mode].  Its
-// rd-cost in s.bcost (thread 0's, unpublished); modes, coefficients, flags
-// in s.bm, s.bco, s.bnz.
+// The B_PRED candidate, warp 0's (the other warps return at once):
+// the 16 sub-blocks, each scoring the ten b-modes by SSE rd-cost, then its
+// transform chain into the working tile the later ones predict from.  A
+// sub-block reads its left, above, above-left and above-right neighbours
+// only (the right column's above-right lies above the macroblock), so the
+// ones on a diagonal d = 2 sr + sc depend only on earlier diagonals: the
+// chain is 10 steps, not 16, each step's one or two sub-blocks on the
+// warp's two 16-lane halves (where a step has one, the second half repeats
+// the first's without writing).  The sums, rates and contexts are those of
+// raster order, which the plain version walks: integer sums in another
+// order, each context from a sub-block already done.  Lane p of a half
+// predicts pixel p in all ten modes, each mode known at compile time (no
+// divergent switch), 16-lane shuffle sums give each mode's SSE, and every
+// lane scans the ten costs in mode order with strict '<' (the first strict
+// minimum).  The chain runs on the half's 16 lanes (H1's lane forms); with
+// ``trellis`` every lane of a half runs its sub-block's backward pass on
+// the same shared coefficients and quantizes its own position.  b-mode
+// rates: with ``contextual``, bcost[(above * 10 + left) * 10 + mode] under
+// the neighbours' modes (s.nbm off the macroblock); else bcost[mode].  Its
+// rd-cost in s.bcost, modes, coefficients and flags in s.bm, s.bco, s.bnz:
+// warp 0's, published by the caller's next barrier.
 __device__ __forceinline__ void bpred_candidate(const MbPlanes& a,
                                                 MbShared& s, const int* mbc,
                                                 const int* bcost,
-                                                bool contextual) {
-  const int tid = threadIdx.x;
-  const bool trellis = a.tc != nullptr;
-  const int ydc = a.q[0], yac = a.q[1];
-  long long b_rate = mbc[B_PRED], b_dist = 0;  // thread 0's
-  for (int sb = 0; sb < 16; ++sb) {
-    const int sr = sb >> 2, sc = sb & 3;
-    if (tid < 160) {
-      const int m = tid >> 4, p = tid & 15, ly = p >> 2, lx = p & 3;
-      int E[13];
-      // the right-most sub-block takes its above-right from the row above
-      // the macroblock in every sub-block row
-      const int arow = sc == 3 ? 0 : sr * 4;
+                                                bool contextual, bool trellis) {
+  const int lane = threadIdx.x;
+  if (lane >= 32) return;
+  const int p = lane & 15, h = lane >> 4, ly = p >> 2, lx = p & 3;
+  const int f = p ? a.q[1] : a.q[0];    // this lane's quantizer factor
+  const unsigned inv = quantize_inv(f);
+  long long b_rate = 0, b_dist = 0;     // this half's sub-blocks
+  for (int d = 0; d < 10; ++d) {
+    // half h takes the (h+1)-th sub-block of diagonal d, in order of rows
+    const int first = d < 3 ? 0 : (d - 2) >> 1;
+    const bool active = first + h <= 3 && d - 2 * (first + h) >= 0;
+    const int sr = active ? first + h : first, sc = d - 2 * sr;
+    const int sb = sr * 4 + sc, y0 = sr * 4, x0 = sc * 4;
+    int* E = s.edge[h];
+    // E[0..3] the left column bottom-up, E[4] above-left, E[5..12] above
+    // and above-right; the right-most sub-block takes its above-right from
+    // the row above the macroblock in every sub-block row
+    if (p < 4) E[p] = s.t[y0 + 4 - p][x0];
+    else if (p < 9) E[p] = s.t[y0][x0 + p - 4];
+    else if (p < 13) E[p] = s.t[sc == 3 ? 0 : y0][x0 + p - 4];
+    const int* rates = bcost;
+    if (contextual) {
+      const int above = sr ? s.bm[sb - 4] : s.nbm[sc];
+      const int left = sc ? s.bm[sb - 1] : s.nbm[4 + sr];
+      rates = bcost + (above * 10 + left) * 10;
+    }
+    const int o = s.o[(y0 + ly) * 16 + x0 + lx];
+    __syncwarp();
+    int pm[10], v[10];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        E[3 - k] = s.t[sr * 4 + 1 + k][sc * 4];
-        E[5 + k] = s.t[sr * 4][sc * 4 + 1 + k];
-        E[9 + k] = s.t[arow][sc * 4 + 5 + k];
-      }
-      E[4] = s.t[sr * 4][sc * 4];
-      const int pred = bpred_pixel(m, E, ly, lx);
-      const int diff = s.o[(sr * 4 + ly) * 16 + sc * 4 + lx] - pred;
-      int v = diff * diff;
-      s.pred[m][p] = pred;
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      v += __shfl_xor_sync(0xffffffffu, v, 1);
-      if (p == 0) s.sse[m] = v;
+    for (int m = 0; m < 10; ++m) {
+      pm[m] = bpred_pixel(m, E, ly, lx);
+      v[m] = (o - pm[m]) * (o - pm[m]);
     }
-    __syncthreads();
-    if (tid == 0) {
-      const int* rates = bcost;
-      if (contextual) {
-        const int above = sr ? s.bm[sb - 4] : s.nbm[sc];
-        const int left = sc ? s.bm[sb - 1] : s.nbm[4 + sr];
-        rates = bcost + (above * 10 + left) * 10;
+#pragma unroll
+    for (int sh = 8; sh; sh >>= 1)
+#pragma unroll
+      for (int m = 0; m < 10; ++m) v[m] += __shfl_xor_sync(0xffffffffu, v[m], sh);
+    // selects with compile-time indices: pm[best] would put the arrays in
+    // local memory
+    long long best_cost = rdcost(rates[0], v[0], a.rm, a.dm);
+    int best = 0, pred = pm[0], sse = v[0];
+#pragma unroll
+    for (int m = 1; m < 10; ++m) {
+      const long long cost = rdcost(rates[m], v[m], a.rm, a.dm);
+      if (cost < best_cost) {
+        best_cost = cost; best = m; pred = pm[m]; sse = v[m];
       }
-      int best = 0;
-      long long best_cost = rdcost(rates[0], s.sse[0], a.rm, a.dm);
-      for (int m = 1; m < 10; ++m) {
-        const long long cost = rdcost(rates[m], s.sse[m], a.rm, a.dm);
-        if (cost < best_cost) { best_cost = cost; best = m; }
-      }
-      s.bm[sb] = best;
+    }
+    if (active) {
       b_rate += rates[best];
-      b_dist += s.sse[best];
-      int res[16], co[16], qc[16];
-      for (int p = 0; p < 16; ++p)
-        res[p] = s.o[(sr * 4 + (p >> 2)) * 16 + sc * 4 + (p & 3)] - s.pred[best][p];
-      fdct4x4(res, co);
-      if (trellis) {
-        const int up = sr ? s.bnz[sb - 4] : s.ctx[sc];
-        const int lf = sc ? s.bnz[sb - 1] : s.ctx[4 + sr];
-        s.bnz[sb] = trellis_quantize(co, ydc, yac, a.tc + BT_Y_WITHOUT_Y2 * 576,
-                                     a.vcost, up + lf, 0, a.rm, a.dm, qc);
-      } else {
-        quantize4x4(co, ydc, yac, qc);
-      }
-      for (int p = 0; p < 16; ++p) s.bco[sb][p] = qc[p];
-      dequantize4x4(qc, ydc, yac, co);
-      idct4x4(co, res);
-      for (int p = 0; p < 16; ++p)
-        s.t[sr * 4 + 1 + (p >> 2)][sc * 4 + 1 + (p & 3)] =
-            clampi(s.pred[best][p] + res[p], 0, 255);
+      b_dist += sse;
     }
-    __syncthreads();
+    const int co = fdct4x4_lane(o - pred, p);
+    int q;
+    if (trellis) {
+      if (active) s.bco[sb][p] = co;     // unquantized
+      __syncwarp();
+      const int up = sr ? s.bnz[sb - 4] : s.ctx[sc];
+      const int lf = sc ? s.bnz[sb - 1] : s.ctx[4 + sr];
+      const int* tc = a.tc + BT_Y_WITHOUT_Y2 * 576;
+      const TrellisNodes n = trellis_backward(s.bco[sb], a.q[0], a.q[1], tc,
+                                              a.vcost, 0, a.rm, a.dm);
+      unsigned levels;
+      const int end = trellis_path(
+          n, 0, trellis_choose(n, tc, 0, up + lf, a.rm, a.dm), levels);
+      q = trellis_coeff(co, f, unzigzag(p), 0, end, levels);
+      __syncwarp();
+      if (active && p == 0) s.bnz[sb] = trellis_nonzero(n, 0, end, levels);
+    } else {
+      q = quantize_lane(co, inv);
+    }
+    const int res = idct4x4_lane(dequantize_lane(q, f), p);
+    if (active) {
+      s.bco[sb][p] = q;
+      s.t[y0 + 1 + ly][x0 + 1 + lx] = clampi(pred + res, 0, 255);
+      if (p == 0) s.bm[sb] = best;
+    }
+    __syncwarp();
   }
-  if (tid == 0) s.bcost = rdcost(b_rate, b_dist, a.rm, a.dm);
+  b_rate += __shfl_xor_sync(0xffffffffu, b_rate, 16);
+  b_dist += __shfl_xor_sync(0xffffffffu, b_dist, 16);
+  if (lane == 0) s.bcost = rdcost(mbc[B_PRED] + b_rate, b_dist, a.rm, a.dm);
 }
 
 // Where the luma and chroma chains take their prediction from: the whole
@@ -348,16 +423,65 @@ struct TilePred {
   }
 };
 
+// The trellis of ``n`` blocks whose entry contexts chain, after each
+// block's backward pass ran on a thread of its own: that thread's bits for
+// s.tsel (the start level under each context 0-2, the nonzero flag of each
+// start level's walk), with the two walks' (end, levels) kept in ``end``
+// and ``levels`` for the coefficients once the contexts are resolved.
+__device__ __forceinline__ int trellis_bits(const TrellisNodes& n,
+                                            const int* tc, int first, int rm,
+                                            int dm, int (&end)[2],
+                                            unsigned (&levels)[2]) {
+  int bits = 0;
+#pragma unroll
+  for (int ctx = 0; ctx < 3; ++ctx)
+    bits |= trellis_choose(n, tc, first, ctx, rm, dm) << ctx;
+#pragma unroll
+  for (int ch = 0; ch < 2; ++ch) {
+    end[ch] = trellis_path(n, first, ch, levels[ch]);
+    bits |= trellis_nonzero(n, first, end[ch], levels[ch]) << (3 + ch);
+  }
+  return bits;
+}
+
+// The start level of block ``b`` of a w x w grid of chained blocks
+// (their bits in tsel, raster order): the grid resolved in raster order up
+// to b from the flags above it (abv[k], column k) and left of it (lft[k],
+// row k); b's nonzero flag into ``nz``.  Each block's thread resolves the
+// chain itself (bit operations on shared bytes), so no thread walks it for
+// the others.
+__device__ __forceinline__ int trellis_resolve(const uint8_t* tsel,
+                                               const uint8_t* abv,
+                                               const uint8_t* lft, int w,
+                                               int b, uint8_t& nz) {
+  unsigned flags = 0;  // bit k: block k's nonzero flag
+  int ch = 0;
+  for (int k = 0; k <= b; ++k) {
+    const int sr = k / w, sc = k % w;
+    const int ctx = (sr ? (flags >> (k - w)) & 1 : abv[sc]) +
+                    (sc ? (flags >> (k - 1)) & 1 : lft[sr]);
+    const int bits = tsel[k];
+    ch = (bits >> ctx) & 1;
+    flags |= (unsigned)((bits >> (3 + ch)) & 1) << k;
+  }
+  nz = (flags >> b) & 1;
+  return ch;
+}
+
 // The whole-macroblock luma chain of ``pred``'s luma: 16 fDCTs, their DCs
 // through the WHT into Y2, quantization (the trellis with ``trellis``: the
-// 16 blocks in raster order under their known contexts, then Y2 under its
-// chains), and the decoder's reconstruction into the working tile's pixels
-// (threads 0-15, unpublished).
-template <typename Pred>
+// 16 backward passes at once, a thread each, then each block's walk under
+// its resolved context, while thread 32 quantizes Y2 under its chains),
+// and the decoder's reconstruction into Team::rec (the working tile's
+// pixels, or s.wt) by the team's threads 0-15, unpublished.
+template <typename Pred, typename Team = BlockTeam>
 __device__ __forceinline__ void y2_path(const MbPlanes& a, MbShared& s,
                                         bool trellis, Pred pred) {
-  const int tid = threadIdx.x;
+  const int tid = Team::tid();
   const int ydc = a.q[0], yac = a.q[1], y2dc = a.q[2], y2ac = a.q[3];
+  const int* tcy = a.tc + BT_Y_AFTER_Y2 * 576;
+  int end[2];
+  unsigned levels[2];
   if (tid < 16) {
     const int sr = tid >> 2, sc = tid & 3;
     int res[16], co[16];
@@ -370,37 +494,41 @@ __device__ __forceinline__ void y2_path(const MbPlanes& a, MbShared& s,
     co[0] = 0;
     if (trellis) {
       for (int p = 0; p < 16; ++p) s.wco[tid][p] = co[p];  // unquantized
+      const TrellisNodes n = trellis_backward(s.wco[tid], ydc, yac, tcy,
+                                              a.vcost, 1, a.rm, a.dm);
+      s.tsel[tid] = trellis_bits(n, tcy, 1, a.rm, a.dm, end, levels);
     } else {
       quantize4x4(co, ydc, yac, s.wco[tid]);
     }
   }
-  __syncthreads();
-  if (tid == 0) {
+  Team::sync();
+  if (trellis && tid < 16) {
+    // the walk of the level the contexts choose, in place
+    const int ch = trellis_resolve(s.tsel, s.ctx, s.ctx + 4, 4, tid,
+                                   s.wnz[tid]);
+    for (int p = 0; p < 16; ++p)
+      s.wco[tid][p] = trellis_coeff(s.wco[tid][p], yac, unzigzag(p), 1,
+                                    ch ? end[1] : end[0],
+                                    ch ? levels[1] : levels[0]);
+  }
+  if (tid == (trellis ? 32 : 0)) {
     int y2[16], q2[16], dq[16];
     if (trellis) {
-      for (int b = 0; b < 16; ++b) {
-        const int sr = b >> 2, sc = b & 3;
-        const int up = sr ? s.wnz[b - 4] : s.ctx[sc];
-        const int lf = sc ? s.wnz[b - 1] : s.ctx[4 + sr];
-        int unq[16];
-        for (int p = 0; p < 16; ++p) unq[p] = s.wco[b][p];
-        s.wnz[b] = trellis_quantize(unq, ydc, yac, a.tc + BT_Y_AFTER_Y2 * 576,
-                                    a.vcost, up + lf, 1, a.rm, a.dm, s.wco[b]);
-      }
-    }
-    fwht4x4(s.walsh, y2);
-    if (trellis) {
+      // Y2 in place in s.y2: shared, not a local array indexed at run time
+      fwht4x4(s.walsh, s.y2);
       const int ctx = (s.ctx[16] & s.ctx[17]) + (s.ctx[18] & s.ctx[19]);
-      s.y2nz = trellis_quantize(y2, y2dc, y2ac, a.tc + BT_Y2 * 576, a.vcost,
-                                ctx, 0, a.rm, a.dm, q2);
+      s.y2nz = trellis_quantize(s.y2, y2dc, y2ac, a.tc + BT_Y2 * 576, a.vcost,
+                                ctx, 0, a.rm, a.dm, s.y2);
+      for (int p = 0; p < 16; ++p) q2[p] = s.y2[p];
     } else {
+      fwht4x4(s.walsh, y2);
       quantize4x4(y2, y2dc, y2ac, q2);
+      for (int p = 0; p < 16; ++p) s.y2[p] = q2[p];
     }
-    for (int p = 0; p < 16; ++p) s.y2[p] = q2[p];
     dequantize4x4(q2, y2dc, y2ac, dq);
     iwht4x4(dq, s.dcv);
   }
-  __syncthreads();
+  Team::sync();
   if (tid < 16) {
     const int sr = tid >> 2, sc = tid & 3;
     int dq[16], res[16];
@@ -415,14 +543,15 @@ __device__ __forceinline__ void y2_path(const MbPlanes& a, MbShared& s,
     // the prediction's sources (a whole mode's edges, or s.p16) are not
     // among the pixels written
     for (int p = 0; p < 16; ++p)
-      s.t[sr * 4 + 1 + (p >> 2)][sc * 4 + 1 + (p & 3)] = pix[p];
+      Team::rec(s, sr * 4 + (p >> 2), sc * 4 + (p & 3)) = pix[p];
   }
 }
 
 // Chroma intra: the mode of least raw SSE over U and V (no rate), in
-// s.dec[2].
+// s.dec[1].
+template <typename Team = BlockTeam>
 __device__ __forceinline__ void chroma_mode(MbShared& s) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = Team::tid(), lane = tid & 31, warp = tid >> 5;
   if (tid < 128) {
     const int pl = tid >> 6, k = tid & 63, cy = k >> 3, cx = k & 7;
     long long acc[4];
@@ -439,7 +568,7 @@ __device__ __forceinline__ void chroma_mode(MbShared& s) {
       if (lane == 0) s.red[warp][m] = acc[m];
     }
   }
-  __syncthreads();
+  Team::sync();
   if (tid == 0) {
     int um = 0;
     long long best = 0;
@@ -447,22 +576,26 @@ __device__ __forceinline__ void chroma_mode(MbShared& s) {
       const long long sse = s.red[0][m] + s.red[1][m] + s.red[2][m] + s.red[3][m];
       if (m == 0 || sse < best) { best = sse; um = m; }
     }
-    s.dec[2] = um;
+    s.dec[1] = um;
   }
-  __syncthreads();
+  Team::sync();
 }
 
 // The chroma transform chain of ``pred``'s chroma (the trellis with
-// ``trellis``: U and V as independent 2x2 chains in raster order), the
+// ``trellis``: the 8 backward passes at once, a thread each, then each
+// block's walk under its context in U's or V's independent 2x2 chain), the
 // coefficients into s.uvco, the reconstruction into the planes at
 // macroblock (r, c) (threads 0-7, unpublished).
-template <typename Pred>
+template <typename Pred, typename Team = BlockTeam>
 __device__ __forceinline__ void chroma_code(const MbPlanes& a, MbShared& s,
                                             int r, int c, bool trellis,
                                             Pred pred) {
-  const int tid = threadIdx.x;
+  const int tid = Team::tid();
   const int uvdc = a.q[4], uvac = a.q[5];
   const int Wc = a.C * 8, cy0 = r * 8, cx0 = c * 8;
+  const int* tcu = a.tc + BT_UV * 576;
+  int end[2];
+  unsigned levels[2];
   if (tid < 8) {
     const int pl = tid >> 2, b = tid & 3, sr = b >> 1, sc = b & 1;
     int res[16], co[16];
@@ -473,26 +606,26 @@ __device__ __forceinline__ void chroma_code(const MbPlanes& a, MbShared& s,
     fdct4x4(res, co);
     if (trellis) {
       for (int p = 0; p < 16; ++p) s.uvco[tid][p] = co[p];  // unquantized
+      const TrellisNodes n = trellis_backward(s.uvco[tid], uvdc, uvac, tcu,
+                                              a.vcost, 0, a.rm, a.dm);
+      s.tsel[tid] = trellis_bits(n, tcu, 0, a.rm, a.dm, end, levels);
     } else {
       quantize4x4(co, uvdc, uvac, s.uvco[tid]);
     }
   }
-  __syncthreads();
-  if (trellis && tid < 2) {
-    // U (thread 0) and V (thread 1): independent 2x2 chains, raster order
-    const int pl = tid;
-    for (int b = 0; b < 4; ++b) {
-      const int sr = b >> 1, sc = b & 1;
-      const int up = sr ? s.uvnz[4 * pl + b - 2] : s.ctx[8 + 4 * pl + sc];
-      const int lf = sc ? s.uvnz[4 * pl + b - 1] : s.ctx[10 + 4 * pl + sr];
-      int unq[16];
-      for (int p = 0; p < 16; ++p) unq[p] = s.uvco[4 * pl + b][p];
-      s.uvnz[4 * pl + b] = trellis_quantize(unq, uvdc, uvac, a.tc + BT_UV * 576,
-                                            a.vcost, up + lf, 0, a.rm, a.dm,
-                                            s.uvco[4 * pl + b]);
-    }
+  Team::sync();
+  if (trellis && tid < 8) {
+    // U and V: independent 2x2 chains, raster order
+    const int pl = tid >> 2;
+    const int ch = trellis_resolve(s.tsel + 4 * pl, s.ctx + 8 + 4 * pl,
+                                   s.ctx + 10 + 4 * pl, 2, tid & 3,
+                                   s.uvnz[tid]);
+    for (int p = 0; p < 16; ++p)
+      s.uvco[tid][p] = trellis_coeff(s.uvco[tid][p], p ? uvac : uvdc,
+                                     unzigzag(p), 0, ch ? end[1] : end[0],
+                                     ch ? levels[1] : levels[0]);
   }
-  __syncthreads();
+  Team::sync();
   if (tid < 8) {
     const int pl = tid >> 2, b = tid & 3, sr = b >> 1, sc = b & 1;
     int dq[16], res[16];
@@ -507,17 +640,27 @@ __device__ __forceinline__ void chroma_code(const MbPlanes& a, MbShared& s,
   }
 }
 
-// The full intra encode of the macroblock after mb_load: B_PRED candidate,
-// whole-mode costs, the decision (B_PRED only if strictly cheaper), the
-// whole-mode chain where it won, chroma.  Results in s (s.dec[0] = use
-// B_PRED); the caller writes the outputs.
-__device__ __forceinline__ void intra_mb(const MbPlanes& a, MbShared& s,
+// The intra encode of the macroblock after mb_load and a barrier: warp 0
+// runs the B_PRED candidate while warps 1-7 (SideTeam) run the whole-mode
+// costs (unless ``screened``: a caller's whole_luma_costs published them),
+// the whole-mode chain (its reconstruction into s.wt) and the chroma mode
+// and chain, none of which reads what B_PRED writes; one block barrier
+// joins them.  Returns the decision, B_PRED only if strictly cheaper: its
+// luma reconstruction is the working tile's pixels, the whole mode's s.wt.
+// The whole and chroma modes in s.dec; the caller writes the outputs.
+__device__ __forceinline__ bool intra_mb(const MbPlanes& a, MbShared& s,
                                          int r, int c, const int* mbc,
-                                         const int* bcost, bool contextual) {
-  const bool trellis = a.tc != nullptr;
-  bpred_candidate(a, s, mbc, bcost, contextual);
-  whole_luma_costs(a, s, mbc, true);
-  if (!s.dec[0]) y2_path(a, s, trellis, WholePred{s.dec[1]});
-  chroma_mode(s);
-  chroma_code(a, s, r, c, trellis, WholePred{s.dec[2]});
+                                         const int* bcost, bool contextual,
+                                         bool trellis, bool screened) {
+  if (threadIdx.x < 32) {
+    bpred_candidate(a, s, mbc, bcost, contextual, trellis);
+  } else {
+    if (!screened) whole_luma_costs<SideTeam>(a, s, mbc);
+    y2_path<WholePred, SideTeam>(a, s, trellis, WholePred{s.dec[0]});
+    chroma_mode<SideTeam>(s);
+    chroma_code<WholePred, SideTeam>(a, s, r, c, trellis,
+                                     WholePred{s.dec[1]});
+  }
+  __syncthreads();
+  return s.bcost < s.wcost;
 }

@@ -1,8 +1,11 @@
-// H1: the encoder's 4x4 transforms as device helpers, one block per call
-// in one thread's registers: forward DCT and WHT, truncating quantization,
-// and the decoder's dequantization, inverse WHT and inverse DCT that the
-// encoder reconstructs with.  Shared by the encode kernels (enc_intra.cu,
-// enc_inter.cu).  Blocks are 16 ints in raster order.
+// H1: the encoder's 4x4 transforms as device helpers: forward DCT and WHT,
+// truncating quantization, and the decoder's dequantization, inverse WHT
+// and inverse DCT that the encoder reconstructs with.  Shared by the encode
+// kernels (enc_intra.cu, enc_inter.cu, enc_intra_fixup.cu).  Two forms: one
+// block per call in one thread's registers (blocks are 16 ints in raster
+// order), and lane-parallel forms for the B_PRED chain (enc_mb_device.cuh),
+// where lane p of each 16-lane half of a warp holds raster position p and
+// a row or column pass gathers its four inputs with shuffles.
 //
 // Replaces alfalfa_tpu/ops/enc_transforms_pallas.py (fdct:37, idct:72,
 // fwht:117, iwht:159, quantize:195, dequantize:211), which runs every
@@ -140,4 +143,69 @@ __device__ __forceinline__ void iwht4x4(const int* c, int* out) {
     out[4 * i + 2] = w16((a1 - b1 + 3) >> 3);
     out[4 * i + 3] = w16((d1 - c1 + 3) >> 3);
   }
+}
+
+// ---- lane-parallel forms: every lane of the warp calls them; lane p of
+// each 16-lane half holds the block's value at raster position p & 15
+
+__device__ __forceinline__ int shfl16(int v, int src) {
+  return __shfl_sync(0xffffffffu, v, src, 16);
+}
+
+// fdct4x4: the residual at this lane's position -> its coefficient.
+__device__ __forceinline__ int fdct4x4_lane(int d, int p) {
+  const int i = p >> 2, j = p & 3;
+  // row pass: this lane computes t[4i + j] from row i
+  const int x0 = shfl16(d, 4 * i), x1 = shfl16(d, 4 * i + 1);
+  const int x2 = shfl16(d, 4 * i + 2), x3 = shfl16(d, 4 * i + 3);
+  int a1 = (x0 + x3) * 8, b1 = (x1 + x2) * 8;
+  int c1 = (x1 - x2) * 8, d1 = (x0 - x3) * 8;
+  const int t = j == 0 ? w16(a1 + b1)
+                : j == 1 ? w16((c1 * 2217 + d1 * 5352 + 14500) >> 12)
+                : j == 2 ? w16(a1 - b1)
+                         : w16((d1 * 2217 - c1 * 5352 + 7500) >> 12);
+  // column pass: out[4i + j] from column j
+  const int t0 = shfl16(t, j), t1 = shfl16(t, 4 + j);
+  const int t2 = shfl16(t, 8 + j), t3 = shfl16(t, 12 + j);
+  a1 = t0 + t3; b1 = t1 + t2; c1 = t1 - t2; d1 = t0 - t3;
+  return i == 0 ? w16((a1 + b1 + 7) >> 4)
+         : i == 1 ? w16(((c1 * 2217 + d1 * 5352 + 12000) >> 16) + (d1 != 0))
+         : i == 2 ? w16((a1 - b1 + 7) >> 4)
+                  : w16((d1 * 2217 - c1 * 5352 + 51000) >> 16);
+}
+
+// quantize4x4 / dequantize4x4 at this lane's position (factor f: DC at
+// position 0, AC elsewhere).  quantize_lane divides by a multiply with
+// ``inv`` = quantize_inv(f): exact, since |c| < 2^16 and 4 <= f < 2^15
+// (VP8's factors are at least 4), so the multiplier's error n * e / 2^32,
+// e <= f, stays below 1 / f.
+__device__ __forceinline__ unsigned quantize_inv(int f) {
+  return 0xffffffffu / (unsigned)f + 1;
+}
+__device__ __forceinline__ int quantize_lane(int c, unsigned inv) {
+  const int q = (int)__umulhi((unsigned)(c < 0 ? -c : c), inv);
+  return c < 0 ? -q : q;
+}
+__device__ __forceinline__ int dequantize_lane(int c, int f) {
+  return w16(c * f);
+}
+
+// idct4x4: the dequantized coefficient at this lane's position -> the
+// residual there.
+__device__ __forceinline__ int idct4x4_lane(int c, int p) {
+  const int hi = p >> 2, lo = p & 3;
+  // pass 1: this lane computes t[p] = t[4 * col + k] from input column hi
+  const int c0 = shfl16(c, hi), c1 = shfl16(c, 4 + hi);
+  const int c2 = shfl16(c, 8 + hi), c3 = shfl16(c, 12 + hi);
+  int t0 = c0 + c2, t1 = c0 - c2;
+  int t2 = mul35468(c1) - mul20091(c3), t3 = mul20091(c1) + mul35468(c3);
+  const int t = lo == 0 ? w16(t0 + t3) : lo == 1 ? w16(t1 + t2)
+                : lo == 2 ? w16(t1 - t2) : w16(t0 - t3);
+  // pass 2: out[4k + m] from t[k], t[4 + k], t[8 + k], t[12 + k]
+  const int u0 = shfl16(t, hi), u1 = shfl16(t, 4 + hi);
+  const int u2 = shfl16(t, 8 + hi), u3 = shfl16(t, 12 + hi);
+  t0 = u0 + u2; t1 = u0 - u2;
+  t2 = mul35468(u1) - mul20091(u3); t3 = mul20091(u1) + mul35468(u3);
+  return lo == 0 ? (t0 + t3 + 4) >> 3 : lo == 1 ? (t1 + t2 + 4) >> 3
+         : lo == 2 ? (t1 - t2 + 4) >> 3 : (t0 - t3 + 4) >> 3;
 }

@@ -1,10 +1,10 @@
 // The row scheduler of the persistent wavefront kernels (enc_inter.cu: K8,
-// enc_decide.cu: K9): one launch per call, in place of one launch per
-// macroblock anti-diagonal.
+// enc_decide.cu: K9, enc_intra.cu: K7, wavefront.cu: K5): one launch per
+// call, in place of one launch per macroblock anti-diagonal.
 //
 // Each block takes a ticket from a counter in device memory (atomicAdd),
-// row-major with the quantizer inner: ticket t is row t / Q at quantizer
-// t % Q.  It then walks that row's columns left to right.  Before
+// row-major with the quantizer (K5: the frame) inner: ticket t is row t / Q
+// at quantizer t % Q.  It then walks that row's columns left to right.  Before
 // macroblock (r, c) thread 0 waits until row r - 1 of its quantizer has
 // published min(c + lag, C) macroblocks: lag 2 where a macroblock reads its
 // above-right neighbour (the diagonals d = 2r + c), lag 1 where it reads
@@ -15,9 +15,11 @@
 // launch is relied on.
 //
 // Publishing macroblock (r, c): every output written, a barrier, then
-// thread 0 fences and stores c + 1 to the row's counter with release
-// semantics; the waiter loads it with acquire semantics, and a barrier
-// after the wait hands that on to the block's other threads.  Neighbour
+// thread 0 stores c + 1 to the row's counter with release semantics (a
+// release is cumulative: it orders the writes the barrier ordered before
+// it, so no separate fence is needed); the waiter loads it with acquire
+// semantics, and a barrier after the wait hands that on to the block's
+// other threads.  Neighbour
 // state written during the launch is read with plain or L2 (__ldcg) loads,
 // never through the non-coherent path (__ldg, const __restrict__).
 //
@@ -77,7 +79,6 @@ __device__ __forceinline__ void row_wait(const int* counter, int need) {
 // Thread 0 only, after a barrier that follows every write of the
 // macroblock (or after its own writes, where it made them all).
 __device__ __forceinline__ void row_publish(int* counter, int value) {
-  __threadfence();
   st_release(counter, value);
 }
 

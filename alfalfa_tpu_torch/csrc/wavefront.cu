@@ -7,8 +7,8 @@
 // wavefront_decode_launch), alfalfa_tpu/ops/intra_pallas.py:intra_frame
 // (K4, entry intra_frame_launch: the intra phase alone) and
 // alfalfa_tpu/ops/lf_pallas.py:lf_pallas (K5, entry loop_filter_launch: the
-// filter phase alone, all three planes in one launch per diagonal, where
-// the TPU kernel is called once per plane).  The device code is
+// filter phase alone, all three planes in one persistent launch, where the
+// TPU kernel is called once per plane).  The device code is
 // wavefront_device.cuh.  Kept from them: the arithmetic and the two
 // ordering rules.  (1) Intra prediction of MB (r, c)
 // reads the UNFILTERED pixels of (r, c-1), (r-1, c-1), (r-1, c) and
@@ -20,24 +20,43 @@
 // gather or transpose cheaply.  Here the planes live in global memory (L2
 // holds them at 720p G=16) and a block addresses its neighbours directly.
 //
-// Design (the simple right form): phases are separated in time instead of
-// lagged.  One launch copies the inter-predicted tiles into the planes;
-// then one launch per diagonal predicts the intra macroblocks of that
-// diagonal (grid: MBs of the diagonal x G, 256 threads, B_PRED's 16
-// sub-blocks as a serial chain in warp 0); when the whole frame is
-// reconstructed, one launch per diagonal filters it in place (one warp per
+// Design of K1 and K4 (the simple right form): phases are separated in
+// time instead of lagged.  One launch copies the inter-predicted tiles into
+// the planes; then one launch per diagonal predicts the intra macroblocks
+// of that diagonal (grid: MBs of the diagonal x G, 256 threads, B_PRED's
+// 16 sub-blocks as a serial chain in warp 0); K1, when the whole frame is
+// reconstructed, filters it with one launch per diagonal (one warp per
 // macroblock: lanes 0-15 luma rows/columns, 16-23 U, 24-31 V).  Stream
 // order between launches is the only synchronisation, so nothing can wait
 // on an unscheduled block.  Launches per frame: 1 + 2 * (2*(R-1) + C) for
-// K1, 1 + (2*(R-1) + C) for K4, 2*(R-1) + C for K5.  K4 and K5 take the
-// dense (G, R, C, ...) tiles and (G, H, W) planes that K1 takes, where the
-// TPU kernels took skewed (n_diags, R_pad, P) slabs: the skew is a layout
-// of that machine, not of the function.
+// K1, 1 + (2*(R-1) + C) for K4.  K4 and K5 take the dense (G, R, C, ...)
+// tiles and (G, H, W) planes that K1 takes, where the TPU kernels took
+// skewed (n_diags, R_pad, P) slabs: the skew is a layout of that machine,
+// not of the function.
+//
+// Design of K5: one launch per call, persistent (row_sched.cuh).  A warp
+// takes a (row, frame) ticket, the frame inner, and walks its row left to
+// right, waiting before (r, c)'s horizontal edges for row r-1 of its frame
+// to have published min(c + 2, C) macroblocks (ROW_LAG in ops/lf_cuda.py:
+// (r-1, c+1)'s left edge writes pixels of (r-1, c) that (r, c)'s top edge
+// reads); (r, c)'s vertical edges, which read only row r, run before the
+// wait.  The input
+// copy is folded into the walk: a macroblock reads its own pixels from the
+// input and writes them to the output itself, since no one else writes
+// them before (r, c+1) and (r+1, c), which come later; its left halo is
+// the previous macroblock's last columns, kept in shared memory, and its
+// halo above comes from the output, through L2.  The input may be one
+// frame broadcast over the G levels of the encoders' loop-filter search
+// (a batch stride of 0).  The per-macroblock filter is lf_filter_window,
+// K1's.
 //
 // Bound: on paper memory (tiles and residuals in, planes out, about
 // 6 bytes per luma pixel; K5: planes in and out); in practice the critical
-// path: one dependent launch per diagonal and phase, each a small grid,
-// with the B_PRED chain of 16 dependent steps inside the intra ones.
+// path: one dependent launch per diagonal and phase for K1 and K4, each a
+// small grid, with the B_PRED chain of 16 dependent steps inside the
+// intra ones; 2*(R-1) + C macroblocks one after another for K5, each a
+// wait on the row above, an L2 load, the horizontal edges and the stores
+// (the vertical edges overlap the wait).
 
 #include "wavefront_device.cuh"
 
@@ -107,25 +126,39 @@ extern "C" int intra_frame_launch(
   return (int)cudaGetLastError();
 }
 
-// K5: the loop filter of whole planes.  The input planes are copied into
-// the output planes (a copy on the stream, not a kernel launch), which are
-// then filtered in place: the input is never written.  mbp words 4-9 are
-// read (level 0 = macroblock not filtered).
+// K5: the loop filter of whole planes, one persistent launch of G * R
+// warps.  The input planes hold G frames (``in_batch`` 1) or one frame for
+// all G (0); the output planes are written whole, the input never.  mbp
+// words 4-9 are read (level 0 = macroblock not filtered); ``sched`` is
+// 1 + G * R zeroed ints (the ticket, then the rows' progress), ``lag`` the
+// wait rule's lag (2).
 extern "C" int loop_filter_launch(
     void* Y, void* U, void* V, const void* y_in, const void* u_in,
-    const void* v_in, const void* mbp, int G, int R, int C, void* stream,
-    int* n_launched) {
-  *n_launched = 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t ny = (size_t)G * R * 16 * C * 16, nc = ny / 4;
-  cudaError_t e = cudaMemcpyAsync(Y, y_in, ny, cudaMemcpyDeviceToDevice, st);
-  if (e == cudaSuccess)
-    e = cudaMemcpyAsync(U, u_in, nc, cudaMemcpyDeviceToDevice, st);
-  if (e == cudaSuccess)
-    e = cudaMemcpyAsync(V, v_in, nc, cudaMemcpyDeviceToDevice, st);
-  if (e != cudaSuccess) return (int)e;
-  const WaveArgs a = wave_args(Y, U, V, nullptr, nullptr, nullptr, nullptr,
-                               nullptr, nullptr, mbp, nullptr, G, R, C);
-  *n_launched = enqueue_diagonals(a, 1, st);
+    const void* v_in, int in_batch, const void* mbp, int G, int R, int C,
+    void* sched, int lag, void* stream, int* n_launched) {
+  LfRowArgs a;
+  a.Y = (uint8_t*)Y; a.U = (uint8_t*)U; a.V = (uint8_t*)V;
+  a.y_in = (const uint8_t*)y_in; a.u_in = (const uint8_t*)u_in;
+  a.v_in = (const uint8_t*)v_in;
+  a.in_y = in_batch ? (size_t)R * 16 * C * 16 : 0;
+  a.in_c = a.in_y / 4;
+  a.mbp = (const int16_t*)mbp;
+  a.G = G; a.R = R; a.C = C;
+  a.rs.ticket = (int*)sched;
+  a.rs.progress = (int*)sched + 1;
+  a.rs.lag = lag;
+  lf_row_kernel<<<G * R, 32, 0, (cudaStream_t)stream>>>(a);
+  *n_launched = 1;
   return (int)cudaGetLastError();
+}
+
+// Blocks of K5's kernel the card ``device`` holds at once (0 on an error).
+extern "C" int loop_filter_resident(int device) {
+  int per_sm = 0, sms = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lf_row_kernel,
+                                                    32, 0) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess)
+    return 0;
+  return per_sm * sms;
 }

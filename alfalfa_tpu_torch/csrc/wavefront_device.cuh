@@ -2,8 +2,10 @@
 // wavefront.cu: K1 wavefront_decode_launch (GOP batch: untile, intra, loop
 // filter), K4 intra_frame_launch (untile, intra) and K5 loop_filter_launch
 // (loop filter alone).  One copy of the math: untile_kernel,
-// intra_diag_kernel and lf_diag_kernel with their helpers.  wavefront.cu's
-// header says what these kernels replace and how they are scheduled.
+// intra_diag_kernel, lf_diag_kernel (K1's filter phase) and lf_row_kernel
+// (K5) with their helpers; the two filter kernels share lf_filter_window.
+// wavefront.cu's header says what these kernels replace and how they are
+// scheduled.
 
 #pragma once
 
@@ -11,6 +13,7 @@
 #include <stdint.h>
 
 #include "intra_device.cuh"
+#include "row_sched.cuh"
 
 #define NP 12  // int16 words per macroblock in mbp
 // mbp words: 0 ymode, 1 uvmode, 2 has_nonzero, 3 intra, 4 filter level
@@ -251,9 +254,47 @@ __device__ void lf_line(int* line, int st, bool do_mb, bool do_sb, int interior,
       filter_edge(line + o * st, st, false, interior, sb_lim, hev_t);
 }
 
-// One warp per macroblock of diagonal d.  Pass order inside a macroblock:
-// left MB edge, interior vertical edges, top MB edge, interior horizontal
-// edges.
+// The filter of one macroblock's three windows (luma 20x20, U and V 12x12,
+// each with its 4-pixel halo above and left), one warp: the vertical
+// edges a lane per pixel row, then the horizontal edges a lane per pixel
+// column (lanes 0-15 luma, 16-23 U, 24-31 V).  Pass order: left MB edge,
+// interior vertical edges, top MB edge, interior horizontal edges.  K5 runs
+// the two passes apart (``vertical``, ``horizontal``): the vertical one
+// reads no pixel of the row above.
+__device__ __forceinline__ void lf_filter_window(int* s_y, int* s_u, int* s_v,
+                                                 int lane, bool do_left,
+                                                 bool do_top, bool do_sb,
+                                                 int interior, int mb_lim,
+                                                 int sb_lim, int hev_t,
+                                                 bool vertical = true,
+                                                 bool horizontal = true) {
+  // vertical edges: one lane per pixel row of the macroblock
+  if (!vertical) {
+  } else if (lane < 16)
+    lf_line<16>(s_y + (4 + lane) * 20, 1, do_left, do_sb, interior, mb_lim,
+                sb_lim, hev_t);
+  else if (lane < 24)
+    lf_line<8>(s_u + (4 + lane - 16) * 12, 1, do_left, do_sb, interior, mb_lim,
+               sb_lim, hev_t);
+  else
+    lf_line<8>(s_v + (4 + lane - 24) * 12, 1, do_left, do_sb, interior, mb_lim,
+               sb_lim, hev_t);
+  __syncwarp();
+  if (!horizontal) return;
+  // horizontal edges: one lane per pixel column
+  if (lane < 16)
+    lf_line<16>(s_y + 4 + lane, 20, do_top, do_sb, interior, mb_lim, sb_lim,
+                hev_t);
+  else if (lane < 24)
+    lf_line<8>(s_u + 4 + lane - 16, 12, do_top, do_sb, interior, mb_lim, sb_lim,
+               hev_t);
+  else
+    lf_line<8>(s_v + 4 + lane - 24, 12, do_top, do_sb, interior, mb_lim, sb_lim,
+               hev_t);
+  __syncwarp();
+}
+
+// One warp per macroblock of diagonal d (K1's filter phase).
 __global__ void lf_diag_kernel(WaveArgs a, int d, int r_lo) {
   const int r = r_lo + blockIdx.x, c = d - 2 * r, g = blockIdx.y;
   const int mb = (g * a.R + r) * a.C + c;
@@ -274,31 +315,155 @@ __global__ void lf_diag_kernel(WaveArgs a, int d, int r_lo) {
   lf_load<8>(s_u, Up, Wc, r * 8, c * 8, do_left, do_top, lane, 32);
   lf_load<8>(s_v, Vp, Wc, r * 8, c * 8, do_left, do_top, lane, 32);
   __syncwarp();
-
-  // vertical edges: one lane per pixel row of the macroblock
-  if (lane < 16)
-    lf_line<16>(s_y + (4 + lane) * 20, 1, do_left, do_sb, interior, mb_lim,
-                sb_lim, hev_t);
-  else if (lane < 24)
-    lf_line<8>(s_u + (4 + lane - 16) * 12, 1, do_left, do_sb, interior, mb_lim,
-               sb_lim, hev_t);
-  else
-    lf_line<8>(s_v + (4 + lane - 24) * 12, 1, do_left, do_sb, interior, mb_lim,
-               sb_lim, hev_t);
-  __syncwarp();
-  // horizontal edges: one lane per pixel column
-  if (lane < 16)
-    lf_line<16>(s_y + 4 + lane, 20, do_top, do_sb, interior, mb_lim, sb_lim,
-                hev_t);
-  else if (lane < 24)
-    lf_line<8>(s_u + 4 + lane - 16, 12, do_top, do_sb, interior, mb_lim, sb_lim,
-               hev_t);
-  else
-    lf_line<8>(s_v + 4 + lane - 24, 12, do_top, do_sb, interior, mb_lim, sb_lim,
-               hev_t);
-  __syncwarp();
-
+  lf_filter_window(s_y, s_u, s_v, lane, do_left, do_top, do_sb, interior,
+                   mb_lim, sb_lim, hev_t);
   lf_store<16>(s_y, Yp, W, r * 16, c * 16, do_left, do_top, lane, 32);
   lf_store<8>(s_u, Up, Wc, r * 8, c * 8, do_left, do_top, lane, 32);
   lf_store<8>(s_v, Vp, Wc, r * 8, c * 8, do_left, do_top, lane, 32);
+}
+
+// ------------------------------------------------- K5: the persistent form
+
+struct LfRowArgs {
+  uint8_t *Y, *U, *V;                 // filtered planes (G,16R,16C), (G,8R,8C)
+  const uint8_t *y_in, *u_in, *v_in;  // unfiltered planes: frame g at
+  size_t in_y, in_c;                  // g * in_y / in_c (0: one frame for all)
+  const int16_t* mbp;                 // (G,R,C,NP), words 4-9
+  int G, R, C;
+  RowSched rs;                        // progress (G, R)
+};
+
+// One warp per (row, frame) ticket, the frame inner: the row's macroblocks
+// left to right.  Lane ``lane`` owns one pixel row of the macroblock
+// (lanes 0-15 luma rows, 16-23 U rows, 24-31 V rows) in the windows
+// lf_filter_window filters.  A macroblock's own pixels come from the input
+// (read before the wait: no one writes them during the launch), the
+// 4-pixel halo above from the output (row r-1's, written during the
+// launch: L2 loads after the acquire), the 4-pixel halo on the left from
+// shared memory, where the previous macroblock left its right columns
+// after its own filter.  The vertical edges run before the wait on row
+// r-1 (the split wait), the horizontal ones after it; every output pixel is written by its macroblock
+// (a copy where the level is 0), the 3 columns left and 3 rows above it by
+// the filter of their edges.
+__global__ void __launch_bounds__(32) lf_row_kernel(LfRowArgs a) {
+  const int lane = threadIdx.x;
+  __shared__ int s_y[20 * 20], s_u[12 * 12], s_v[12 * 12];
+  __shared__ int s_ticket;
+  if (lane == 0) s_ticket = atomicAdd(a.rs.ticket, 1);
+  __syncwarp();
+  const int G = a.G, R = a.R, C = a.C;
+  const int r = s_ticket / G, g = s_ticket % G;
+  const int W = C * 16, H = R * 16, Wc = W / 2, Hc = H / 2;
+  const bool luma = lane < 16, is_u = lane >= 16 && lane < 24;
+  const int S = luma ? 16 : 8, WS = S + 4, Wp = luma ? W : Wc;
+  const int row = luma ? lane : lane & 7;
+  int* win = luma ? s_y : is_u ? s_u : s_v;
+  uint8_t* out = luma ? a.Y + (size_t)g * H * W
+                      : (is_u ? a.U : a.V) + (size_t)g * Hc * Wc;
+  const uint8_t* in = luma ? a.y_in + g * a.in_y
+                           : (is_u ? a.u_in : a.v_in) + g * a.in_c;
+  // the halo above: lanes 0-3 luma rows, 4-7 U rows, 8-11 V rows
+  const int hp = lane >> 2, hrow = lane & 3, HS = hp ? 8 : 16;
+  int* hwin = hp == 0 ? s_y : hp == 1 ? s_u : s_v;
+  uint8_t* hplane = hp == 0 ? a.Y + (size_t)g * H * W
+                    : (hp == 1 ? a.U : a.V) + (size_t)g * Hc * Wc;
+  const int hW = hp ? Wc : W;
+  int* prog = a.rs.progress + g * R + r;
+  const int lag = a.rs.lag;
+  const int y = r * S + row;             // this lane's plane row
+  const int16_t* mbp = a.mbp + (size_t)(g * R + r) * C * NP;
+
+  // the next macroblock's input row of this lane (4 pixels a word) and its
+  // words 4-9 (two int16 a word), loaded a macroblock ahead
+  uint32_t nx[4], nw[3];
+  auto fetch = [&](int c) {
+    const uint8_t* src = in + (size_t)y * Wp + c * S;
+    if (luma) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
+      nx[0] = v.x; nx[1] = v.y; nx[2] = v.z; nx[3] = v.w;
+    } else {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(src));
+      nx[0] = v.x; nx[1] = v.y; nx[2] = nx[3] = 0;
+    }
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(mbp + (size_t)c * NP + 4);
+    nw[0] = __ldg(w); nw[1] = __ldg(w + 1); nw[2] = __ldg(w + 2);
+  };
+  fetch(0);
+  for (int c = 0; c < C; ++c) {
+    const int x0 = c * S;
+    uint32_t px[4] = {nx[0], nx[1], nx[2], nx[3]};
+    const uint32_t w0 = nw[0], w1 = nw[1], w2 = nw[2];
+    if (c + 1 < C) fetch(c + 1);
+    const int16_t p[6] = {(int16_t)w0, (int16_t)(w0 >> 16), (int16_t)w1,
+                          (int16_t)(w1 >> 16), (int16_t)w2,
+                          (int16_t)(w2 >> 16)};  // words 4-9
+    const bool on = p[0] != 0;
+    const bool do_left = on && c > 0, do_top = on && r > 0;
+    int* own = win + (4 + row) * WS + 4;
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      if (k < S) own[k] = (px[k >> 2] >> (8 * (k & 3))) & 255;
+    // the vertical edges (each lane its own row and the kept left halo)
+    // before the wait: they read nothing of row r-1
+    if (on)
+      lf_filter_window(s_y, s_u, s_v, lane, do_left, do_top, p[5] == 0, p[1],
+                       p[2], p[3], p[4], true, false);
+    if (lane == 0 && r > 0) row_wait(prog - 1, min(c + lag, C));
+    __syncwarp();
+    if (do_top && lane < 12) {
+      const uint8_t* src = hplane + (size_t)(r * HS - 4 + hrow) * hW + c * HS;
+      uint32_t h[4];
+      if (hp == 0) {
+        const uint4 v = __ldcg(reinterpret_cast<const uint4*>(src));
+        h[0] = v.x; h[1] = v.y; h[2] = v.z; h[3] = v.w;
+      } else {
+        const uint2 v = __ldcg(reinterpret_cast<const uint2*>(src));
+        h[0] = v.x; h[1] = v.y; h[2] = h[3] = 0;
+      }
+      int* dst = hwin + hrow * (HS + 4) + 4;
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+        if (k < HS) dst[k] = (h[k >> 2] >> (8 * (k & 3))) & 255;
+    }
+    __syncwarp();
+    if (on)
+      lf_filter_window(s_y, s_u, s_v, lane, do_left, do_top, p[5] == 0, p[1],
+                       p[2], p[3], p[4], false, true);
+    // this lane's row: the macroblock's pixels, and with the left edge
+    // filtered the left neighbour's last 3
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      uint32_t v = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (4 * w + k < S) v |= (uint32_t)own[4 * w + k] << (8 * k);
+      px[w] = v;
+    }
+    uint8_t* dst = out + (size_t)y * Wp + x0;
+    if (luma) *reinterpret_cast<uint4*>(dst) = make_uint4(px[0], px[1], px[2], px[3]);
+    else *reinterpret_cast<uint2*>(dst) = make_uint2(px[0], px[1]);
+    if (do_left)
+      for (int k = 1; k < 4; ++k) dst[k - 4] = (uint8_t)own[k - 4];
+    // with the top edge filtered, the last 3 rows of the macroblock above
+    if (do_top && lane < 12 && hrow > 0) {
+      const int* srcw = hwin + hrow * (HS + 4) + 4;
+      uint32_t h[4];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        uint32_t v = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (4 * w + k < HS) v |= (uint32_t)srcw[4 * w + k] << (8 * k);
+        h[w] = v;
+      }
+      uint8_t* hd = hplane + (size_t)(r * HS - 4 + hrow) * hW + c * HS;
+      if (hp == 0) *reinterpret_cast<uint4*>(hd) = make_uint4(h[0], h[1], h[2], h[3]);
+      else *reinterpret_cast<uint2*>(hd) = make_uint2(h[0], h[1]);
+    }
+    // the next macroblock's left halo: this one's last 4 columns, kept
+#pragma unroll
+    for (int k = 0; k < 4; ++k) own[k - 4] = own[S - 4 + k];
+    __syncwarp();                       // every output of (r, c) written
+    if (lane == 0) row_publish(prog, c + 1);
+  }
 }

@@ -328,8 +328,9 @@ class Encoder:
                        key_frame):
         """The unfiltered reconstruction loop-filtered at each of
         ``levels``: one batched K5 call, one batch entry per level (level
-        0: the planes unfiltered).  Returns (G, H, W), (G, H/2, W/2),
-        (G, H/2, W/2) uint8 planes."""
+        0: the planes unfiltered), the frame broadcast over them, not
+        copied.  Returns (G, H, W), (G, H/2, W/2), (G, H/2, W/2) uint8
+        planes."""
         per_level = []
         for level in levels:
             h = _copy.copy(header)
@@ -338,7 +339,7 @@ class Encoder:
         lf = [torch.from_numpy(np.stack(x)).to(self.device)
               for x in zip(*per_level)]
         G = len(levels)
-        planes = [p.expand((G,) + p.shape).contiguous()
+        planes = [p.expand((G,) + p.shape)
                   for p in (recon.y, recon.u, recon.v)]
         return loop_filter(*planes, tuple(lf))
 

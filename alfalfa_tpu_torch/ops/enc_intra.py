@@ -353,9 +353,11 @@ def _encode_diag(st, rs, cs, q, rm, dm, tcs):
 
 
 def encode_kf_frame_plain(oy, ou, ov, quant, rate_mult, dist_mult,
-                          token_costs=None):
+                          token_costs=None, order=None):
     """Plain version of ops.enc_intra_cuda.encode_kf_frame (same contract,
-    any device).
+    any device), the macroblocks in ``order`` (default the anti-diagonals
+    d = 2r + c; any list of (rows, cols) in which every macroblock comes
+    after those it reads, such as ops.wavefront.row_order's).
 
     oy: (16R, 16C), ou / ov: (8R, 8C) uint8 original planes, padded to
     whole macroblocks; quant: the six quantizer factors (y_dc, y_ac,
@@ -388,7 +390,7 @@ def encode_kf_frame_plain(oy, ou, ov, quant, rate_mult, dist_mult,
         st.update(ynz=z(4), unz=z(2), vnz=z(2),
                   y2c=torch.zeros((R, C, 4), dtype=torch.bool, device=dev))
     q = tuple(int(x) for x in quant)
-    for rs, cs in diagonals(R, C):
+    for rs, cs in diagonals(R, C) if order is None else order:
         _encode_diag(st, rs, cs, q, int(rate_mult), int(dist_mult), tcs)
     y = untile(st["Ty"][None])[0]
     u = untile(st["Tu"][None])[0]

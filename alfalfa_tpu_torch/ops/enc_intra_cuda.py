@@ -1,23 +1,30 @@
 """``encode_kf_frame``: every macroblock of a key frame encoded on the card
 (mode decision, transforms, plain or trellis quantization, the unfiltered
-reconstruction), as the hand-written CUDA kernel ``enc_kf_diag_kernel`` of
-csrc/enc_intra.cu (entry ``encode_kf_frame_launch``: one launch per
-macroblock diagonal, 2*(R-1) + C per call).
+reconstruction), as the hand-written CUDA kernel ``enc_kf_row_kernel`` of
+csrc/enc_intra.cu (entry ``encode_kf_frame_launch``): one launch per call,
+persistent, a block per row walking its row and waiting for the row above
+to publish ``ROW_LAG`` macroblocks beyond its column (csrc/row_sched.cuh);
+the B_PRED chain of a macroblock runs on one warp beside the whole-mode
+and chroma chains, the trellis's chained blocks run their backward passes
+at once.  The kernel has a one-pass and a two-pass (trellis) form; the
+call takes the one its ``token_costs`` asks for.
 
 Replaces the TPU kernel alfalfa_tpu/ops/enc_intra_pallas.py:encode_kf_frame
 with the helpers traced inside it, H1 (enc_transforms_pallas.py ->
-csrc/enc_transforms.cuh) and H2 (trellis_pallas.py -> csrc/trellis.cuh);
-the source note in the .cu file says what was kept and what bounds it.
-Its plain version is ops.enc_intra.encode_kf_frame_plain:
-``encode_kf_frame`` takes it for CPU tensors only.  A CUDA tensor launches
-the kernel or raises.
+csrc/enc_transforms.cuh) and H2 (trellis_pallas.py -> csrc/trellis.cuh).
+Bound, on this card, by the critical path: 2*(R-1) + C macroblocks one
+after another, each its B_PRED chain of 10 dependent steps; the source
+note in the .cu file says what was kept.  Its plain version is
+ops.enc_intra.encode_kf_frame_plain: ``encode_kf_frame`` takes it for CPU
+tensors only.  A CUDA tensor launches the kernel or raises.
 """
 import ctypes
 import functools
 
 import torch
 
-from alfalfa_tpu_torch._build import c_entry, check_tensor, launch
+from alfalfa_tpu_torch._build import (c_entry, check_aligned, check_tensor,
+                                     launch, resident_blocks)
 from alfalfa_tpu_torch.encoder.trellis import VALUE_COST
 from alfalfa_tpu_torch.ops.enc_intra import (MODE_WORDS, encode_kf_frame_plain,
                                              mode_costs)
@@ -25,11 +32,27 @@ from alfalfa_tpu_torch.ops.enc_intra import (MODE_WORDS, encode_kf_frame_plain,
 launches = 0        # op launches so far (not plain-version calls)
 kernel_launches = 0  # ``<<<>>>`` launches the C entry reported issuing
 
+# Macroblock (r, c) waits until row r - 1 has published min(c + ROW_LAG, C)
+# macroblocks: its B_PRED candidate reads the above-right neighbour
+# (d = 2r + c).
+ROW_LAG = 2
+
+# the C entry's arguments before the stream: planes, outputs, tables and
+# trellis state, the quantizers, multipliers and R, C, the schedule
+ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 10
+            + [ctypes.c_void_p, ctypes.c_int])
+
 
 @functools.cache
 def _entry():
-    return c_entry("enc_intra", "encode_kf_frame_launch",
-                   [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10)
+    return c_entry("enc_intra", "encode_kf_frame_launch", ARGTYPES)
+
+
+def resident(device, trellis=False):
+    """Blocks of the kernel (its two-pass form with ``trellis``) the card
+    ``device`` holds at once."""
+    return resident_blocks("enc_intra", "encode_kf_frame_resident", device,
+                           int(trellis))
 
 
 @functools.cache
@@ -69,6 +92,7 @@ def encode_kf_frame(oy, ou, ov, quant, rate_mult, dist_mult,
     check_tensor("oy", oy, torch.uint8, (H, W), dev)
     check_tensor("ou", ou, torch.uint8, (H // 2, W // 2), dev)
     check_tensor("ov", ov, torch.uint8, (H // 2, W // 2), dev)
+    check_aligned(oy=(oy, 16), ou=(ou, 8), ov=(ov, 8))
     mbc, bcost, vcost = _tables(dev)
     empty = lambda shape, dt=torch.uint8: torch.empty(shape, dtype=dt,
                                                       device=dev)
@@ -81,10 +105,12 @@ def encode_kf_frame(oy, ou, ov, quant, rate_mult, dist_mult,
         check_tensor("token_costs", token_costs, torch.int32, (4, 16, 36),
                      dev)
         tc, vc = token_costs, vcost
-        # every macroblock writes its flags before a later diagonal reads
+        # every macroblock writes its flags before a later one reads them
         ynz, unz, vnz = empty((4 * R, 4 * C)), empty((2 * R, 2 * C)), \
             empty((2 * R, 2 * C))
         y2c = empty((R, C, 4))
+    # the ticket, then each row's progress (zeroed: one memset)
+    sched = torch.zeros(1 + R, dtype=torch.int32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     q = [int(x) for x in quant]
     issued = launch(_entry(), "encode_kf_frame", dev,
@@ -93,7 +119,7 @@ def encode_kf_frame(oy, ou, ov, quant, rate_mult, dist_mult,
                     coeffs.data_ptr(), modes.data_ptr(), mbc.data_ptr(),
                     bcost.data_ptr(), ptr(tc), ptr(vc), ptr(ynz), ptr(unz),
                     ptr(vnz), ptr(y2c), *q, int(rate_mult), int(dist_mult),
-                    R, C)
+                    R, C, sched.data_ptr(), ROW_LAG)
     launches += 1
     kernel_launches += issued
     return coeffs, modes, y, u, v

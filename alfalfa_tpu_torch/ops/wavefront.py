@@ -180,16 +180,19 @@ def intra_frame_plain(y, u, v, res_y, res_u, res_v, ymode, uvmode, bmode,
     return untile(Ty), untile(Tu), untile(Tv)
 
 
-def loop_filter_plain(y, u, v, lf_params):
+def loop_filter_plain(y, u, v, lf_params, order=None):
     """Plain version of ops.lf_cuda.loop_filter: the loop filter of whole
     (G, 16R, 16C), (G, 8R, 8C), (G, 8R, 8C) uint8 planes with the six
-    (G, R, C) limit tensors (level 0 = macroblock not filtered).  Returns
-    new planes; the inputs are not written."""
+    (G, R, C) limit tensors (level 0 = macroblock not filtered), the
+    macroblocks in ``order`` (default the anti-diagonals d = 2r + c; any
+    list of (rows, cols) in which every macroblock comes after those whose
+    pixels it reads or writes, such as row_order's).  Returns new planes;
+    the inputs are not written."""
     G, R, C = lf_params[0].shape
     # U and V filter alike: one batch of 2G chroma planes
     Ty, Tuv = tile(y, 16), tile(torch.cat([u, v]), 8)
     lf_uv = tuple(torch.cat([x, x]) for x in lf_params)
-    for rs, cs in diagonals(R, C):
+    for rs, cs in diagonals(R, C) if order is None else order:
         _lf_diag(((Ty, 16),), rs, cs, lf_params)
         _lf_diag(((Tuv, 8),), rs, cs, lf_uv)
     U, V = untile(Tuv).chunk(2)

@@ -1,21 +1,33 @@
 #!/usr/bin/env python3
-"""Ablation of the persistent K8 / K9 kernels' steps on one NVIDIA GPU.
+"""Ablation of the persistent kernels' steps on one NVIDIA GPU.
 
     python3 chip_ablation.py                  # from the repo root
-    python3 chip_ablation.py --parent DIR     # also: K7's and K10's machine
-                                              # code against DIR's sources
+    python3 chip_ablation.py --parent DIR     # also: K7's clocked phases on
+                                              # DIR's sources, K9's, K10's,
+                                              # K1's and K4's machine code
+                                              # against DIR's, and K10, K4,
+                                              # K1 and K8 timed against
+                                              # DIR's in alternation
+    python3 chip_ablation.py --kernels k7     # K7's clocked phases only
 
 Writes variants of alfalfa_tpu_torch/csrc/ into build/ablation/<variant>/,
-each the sources with one step of the redesign undone (or, for
-"separable", one tried step added), builds them all at once (one nvcc per
-source) and times K8 (encode_inter_frame) and K9 (decide_inter_frame) on
-720p inputs chip_smoke.py makes (frame 1 after frame 0 as a key frame, best
-and rt at qi 48, the rt pair, seeded extreme motion; K9 one quantizer and
-the pair), every variant in one process, "kept" first and last for the
-spread; each output is compared with the kept form's.  The "clocked"
-variant adds thread 0's clock64() per phase of K8 and prints cycles a
-macroblock.  Prints JSON lines; exits non-zero without a CUDA device or if
-a variant does not build or its output differs.
+each the sources with one step of a redesign undone (or, for "separable",
+one tried step added), builds them all at once (one nvcc per source) and
+times them on 720p inputs chip_smoke.py makes, every variant in one
+process, "kept" first and last for the spread; each output is compared
+with the kept form's.  K5 and K7 (kernels k5, k7): K7 (encode_kf_frame)
+on frame 0 one-pass at qi 24 and two-pass at qi 32, K8 rt on frame 1 (its
+intra macroblocks run K7's B_PRED chain), K5 (loop_filter) on the
+single-frame decoder's frame 1 and on the encoders' 8-level search call;
+K7's "clocked" variant adds thread 0's clock64() per phase and prints
+cycles a macroblock.  K8 and K9 (kernels k8): K8 (encode_inter_frame) best
+and rt at qi 48, the rt pair, seeded extreme motion, K9
+(decide_inter_frame) one quantizer and the pair; its "clocked" variant
+prints K8's phases.  The pairs (kernels pairs, with --parent): each case
+of K10, K4, K1 and K8 timed from DIR's library and from this checkout's,
+alternating which goes first, 12 readings a side.  Prints JSON lines;
+exits non-zero without a CUDA device or if a variant does not build or its
+output differs.
 
 The variants are text edits of the current sources: an edit that no longer
 applies fails loudly, and the script then describes an earlier design.
@@ -24,7 +36,9 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -36,7 +50,9 @@ sys.path.insert(0, REPO)
 
 import chip_smoke as cs  # noqa: E402
 from alfalfa_tpu_torch import _build  # noqa: E402
-from alfalfa_tpu_torch.ops import enc_decide_cuda, enc_inter_cuda  # noqa: E402
+from alfalfa_tpu_torch.ops import enc_decide_cuda, enc_inter_cuda, \
+    enc_intra_cuda, enc_intra_fixup_cuda, intra_cuda, lf_cuda, \
+    wavefront_cuda  # noqa: E402
 
 OUT = os.path.join(REPO, "build", "ablation")
 SOURCES = ("enc_inter", "enc_decide")
@@ -214,8 +230,8 @@ struct InterArgs {''')
             "    TICK(2)\n    const int nx")
     s = rep(s, "    // ---- encode the winner ----\n",
             "    TICK(3)\n    // ---- encode the winner ----\n")
-    s = rep(s, "    const bool use_b = !inter && s.dec[0] != 0;\n",
-            "    TICK(4)\n    const bool use_b = !inter && s.dec[0] != 0;\n")
+    s = rep(s, "    const int wm = s.dec[0], um = s.dec[1];\n",
+            "    TICK(4)\n    const int wm = s.dec[0], um = s.dec[1];\n")
     return rep(s, "    if (tid == 0) row_publish(prog, c + 1);\n  }\n",
                "    if (tid == 0) row_publish(prog, c + 1);\n    TICK(5)\n  }\n"
                "  if (tid == 0)\n    for (int k = 0; k < 6; ++k)\n"
@@ -237,9 +253,105 @@ VARIANTS = {
 PHASES = ("wait", "load_screen_census", "search", "candidates", "encode",
           "outputs_publish")
 
+# ---- K7: thread 0's clock per phase, on this checkout's sources or a
+# parent's (the edits take either form of enc_intra.cu)
 
-def write_variants():
-    for name, edits in VARIANTS.items():
+# thread 0's phases; where the whole-mode and chroma steps run beside B_PRED
+# (warps 1-7), thread 32 clocks those and thread 0 the wait at the join
+K7_PHASES = ("wait", "load", "bpred_search", "bpred_chain", "whole_costs",
+             "y2_path", "chroma", "join_wait", "outputs_publish")
+
+K7_TICK = '''#include "trellis.cuh"
+
+__device__ unsigned long long g_k7phase[16];
+extern "C" int k7_phase_read(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_k7phase, sizeof(g_k7phase));
+}
+extern "C" int k7_phase_zero() {
+  unsigned long long z[16] = {0};
+  return (int)cudaMemcpyToSymbol(g_k7phase, z, sizeof(z));
+}
+// thread ``who``: the cycles since its last tick go to phase k (k < 0:
+// none)
+template <int who>
+__device__ __forceinline__ void ph_clock(int k) {
+  __shared__ long long ph_t;
+  if (threadIdx.x == who) {
+    const long long t = clock64();
+    if (k >= 0) atomicAdd(&g_k7phase[k], (unsigned long long)(t - ph_t));
+    ph_t = t;
+  }
+}
+#define ph_tick ph_clock<0>
+#define ph_side ph_clock<32>
+'''
+
+
+def rep_any(s, pairs):
+    """The first (old, new) of ``pairs`` whose old text ``s`` holds."""
+    for old, new in pairs:
+        if old in s:
+            return s.replace(old, new)
+    raise SystemExit("the ablation edit no longer applies: %r" % pairs[0][0][:60])
+
+
+def clocked_k7_steps(s):
+    """enc_mb_device.cuh: ticks around the B_PRED search and chain and
+    after each later step of intra_mb."""
+    s = rep(s, '#include "trellis.cuh"\n', K7_TICK)
+    s = rep_any(s, [("      s.bm[sb] = best;\n",
+                     "      ph_tick(2);\n      s.bm[sb] = best;\n"),
+                    ("    if (active) {\n      b_rate += rates[best];\n",
+                     "    ph_tick(2);\n    if (active) {\n      b_rate += "
+                     "rates[best];\n")])
+    s = rep_any(s, [("    __syncthreads();\n  }\n  if (tid == 0) s.bcost = ",
+                     "    __syncthreads();\n    ph_tick(3);\n  }\n"
+                     "  if (tid == 0) s.bcost = "),
+                    ("    __syncwarp();\n  }\n  b_rate += ",
+                     "    __syncwarp();\n    ph_tick(3);\n  }\n"
+                     "  b_rate += ")])
+    if "whole_luma_costs<SideTeam>" in s:
+        # the steps beside B_PRED: thread 32's clock; thread 0's at the join
+        s = rep(s, "    if (!screened) whole_luma_costs<SideTeam>(a, s, mbc);\n",
+                "    ph_side(-1);\n    if (!screened) "
+                "whole_luma_costs<SideTeam>(a, s, mbc);\n    ph_side(4);\n")
+        s = rep(s, "    y2_path<WholePred, SideTeam>(a, s, trellis, "
+                   "WholePred{s.dec[0]});\n",
+                "    y2_path<WholePred, SideTeam>(a, s, trellis, "
+                "WholePred{s.dec[0]});\n    ph_side(5);\n")
+        return rep(s, "                                     WholePred{s.dec[1]});"
+                      "\n  }\n  __syncthreads();\n",
+                   "                                     WholePred{s.dec[1]});"
+                   "\n    ph_side(6);\n  }\n  __syncthreads();\n  ph_tick(7);\n")
+    s = rep(s, "  whole_luma_costs(a, s, mbc, true);\n",
+            "  whole_luma_costs(a, s, mbc, true);\n  ph_tick(4);\n")
+    s = rep(s, "  if (!s.dec[0]) y2_path(a, s, trellis, WholePred{s.dec[1]});\n",
+            "  if (!s.dec[0]) y2_path(a, s, trellis, WholePred{s.dec[1]});\n"
+            "  ph_tick(5);\n")
+    return rep(s, "  chroma_code(a, s, r, c, trellis, WholePred{s.dec[2]});\n}",
+               "  chroma_code(a, s, r, c, trellis, WholePred{s.dec[2]});\n"
+               "  ph_tick(6);\n}")
+
+
+def clocked_k7(s):
+    """enc_intra.cu: ticks after the row wait, the load and the outputs."""
+    s = rep(s, "  MB_SHARED(s);\n", "  MB_SHARED(s);\n  ph_tick(-1);\n")
+    if "row_wait(" in s:
+        s = rep(s, "row_wait(prog - 1, min(c + lag, C));\n",
+                "row_wait(prog - 1, min(c + lag, C));\n    ph_tick(0);\n")
+    s = rep_any(s, [("  mb_load(P, s, r, c);\n",
+                     "  mb_load(P, s, r, c);\n  ph_tick(1);\n"),
+                    ("  mb_load(P, s, r, c, staged);\n",
+                     "  mb_load(P, s, r, c, staged);\n  ph_tick(1);\n")])
+    return rep_any(s, [("    if (tid == 0) row_publish(prog, c + 1);\n",
+                        "    if (tid == 0) row_publish(prog, c + 1);\n"
+                        "    ph_tick(8);\n"),
+                       ("\n  }\n}\n\n// Enqueue the 2*(R-1) + C",
+                        "\n  }\n  ph_tick(8);\n}\n\n// Enqueue the 2*(R-1) + C")])
+
+
+def write_variants(variants):
+    for name, edits in variants.items():
         d = os.path.join(OUT, name)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(_build.CSRC_DIR, d)
@@ -266,39 +378,471 @@ def build(jobs):
     return logs
 
 
+# each library's C entry and the argument types its wrapper gives it
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+ENTRIES = {
+    "enc_inter": ("encode_inter_frame_launch",
+                  [_PTR] * 24 + [_INT] * 4 + [_PTR, _INT]),
+    "enc_decide": ("decide_inter_frame_launch",
+                   [_PTR] * 9 + [_INT] * 3 + [_PTR, _INT]),
+    "enc_intra": ("encode_kf_frame_launch", enc_intra_cuda.ARGTYPES),
+    "wavefront": ("loop_filter_launch", lf_cuda.ARGTYPES),
+}
+
+
 def entry(name, src):
     """The C entry of variant ``name``'s ``src`` library, typed as the
     wrapper types it."""
-    lib = ctypes.CDLL(os.path.join(OUT, name, "lib%s.so" % src))
-    if src == "enc_inter":
-        f, n_ptr, n_int = lib.encode_inter_frame_launch, 24, 4
-    else:
-        f, n_ptr, n_int = lib.decide_inter_frame_launch, 9, 3
+    fn, types = ENTRIES[src]
+    f = getattr(ctypes.CDLL(os.path.join(OUT, name, "lib%s.so" % src)), fn)
     f.restype = ctypes.c_int
-    f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                  + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                     ctypes.POINTER(ctypes.c_int)])
+    f.argtypes = list(types) + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     return f
 
 
+# the kernels a redesign of K5 and K7 leaves alone: K9's library, K1's and
+# K4's diagonal kernels in the library they share with K5, and K10, which
+# shares K7's steps
+SAME_SASS = {"enc_decide": None,
+             "wavefront": ("untile_kernel", "intra_diag_kernel",
+                           "lf_diag_kernel"),
+             "enc_intra_fixup": None}
+
+
+def sass_functions(so, cuobjdump):
+    """{function name: [instruction lines]} of a library's machine code."""
+    funcs, name = {}, None
+    for line in subprocess.run([cuobjdump, "-sass", so], capture_output=True,
+                               text=True, check=True).stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            funcs[name] = []
+        elif name is not None and "/*" in line:
+            funcs[name].append(line)
+    return funcs
+
+
+def _instruction(line):
+    """A machine-code line without its address and encoding comments, and
+    with the offsets into the user constant bank (c[0x3], where __constant__
+    tables land) written as *: they move when a library's tables do."""
+    return re.sub(r"c\[0x3\]\[0x[0-9a-f]+\]", "c[0x3][*]",
+                  re.sub(r"/\*[^*]*\*/", "", line)).strip()
+
+
 def same_sass(parent):
-    """K7's and K10's machine code from ``parent``'s sources and from this
-    checkout's: {source: (instructions parent, here, identical)}."""
+    """The machine code of SAME_SASS's kernels from ``parent``'s sources
+    and from this checkout's: {kernel: (instructions parent, here,
+    identical, instructions that differ beyond constant-bank offsets)}."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     out = {}
-    for src in ("enc_intra", "enc_intra_fixup"):
+    for src, names in SAME_SASS.items():
         jobs = [(os.path.join(OUT, "%s_%s.so" % (tag, src)),
                  os.path.join(d, src + ".cu"))
                 for tag, d in (("parent", os.path.join(
                     parent, "alfalfa_tpu_torch", "csrc")),
                     ("here", _build.CSRC_DIR))]
         build(jobs)
-        sass = [[l for l in subprocess.run(
-            [cuobjdump, "-sass", so], capture_output=True, text=True,
-            check=True).stdout.splitlines() if "/*" in l]
-            for so, _ in jobs]
-        out[src] = (len(sass[0]), len(sass[1]), sass[0] == sass[1])
+        funcs = [sass_functions(so, cuobjdump) for so, _ in jobs]
+        for fn in sorted(funcs[0]):
+            if names is None or any(n in fn for n in names):
+                a, b = funcs[0][fn], funcs[1].get(fn, [])
+                na = [x for x in map(_instruction, a) if x]
+                nb = [x for x in map(_instruction, b) if x]
+                out[fn] = (len(a), len(b), a == b,
+                           sum(x != y for x, y in zip(na, nb))
+                           + abs(len(na) - len(nb)))
     return out
+
+
+# ---- K7 and K5: each step of their redesign undone
+
+THREAD_CHAIN = '''__device__ __forceinline__ void bpred_candidate(const MbPlanes& a,
+                                                MbShared& s, const int* mbc,
+                                                const int* bcost,
+                                                bool contextual, bool trellis) {
+  __shared__ int abl_pred[10][16], abl_sse[10];
+  const int tid = threadIdx.x;
+  const int ydc = a.q[0], yac = a.q[1];
+  long long b_rate = mbc[B_PRED], b_dist = 0;  // thread 0's
+  for (int sb = 0; sb < 16; ++sb) {
+    const int sr = sb >> 2, sc = sb & 3;
+    if (tid < 160) {
+      const int m = tid >> 4, p = tid & 15, ly = p >> 2, lx = p & 3;
+      int E[13];
+      // the right-most sub-block takes its above-right from the row above
+      // the macroblock in every sub-block row
+      const int arow = sc == 3 ? 0 : sr * 4;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        E[3 - k] = s.t[sr * 4 + 1 + k][sc * 4];
+        E[5 + k] = s.t[sr * 4][sc * 4 + 1 + k];
+        E[9 + k] = s.t[arow][sc * 4 + 5 + k];
+      }
+      E[4] = s.t[sr * 4][sc * 4];
+      const int pred = bpred_pixel(m, E, ly, lx);
+      const int diff = s.o[(sr * 4 + ly) * 16 + sc * 4 + lx] - pred;
+      int v = diff * diff;
+      abl_pred[m][p] = pred;
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      if (p == 0) abl_sse[m] = v;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      const int* rates = bcost;
+      if (contextual) {
+        const int above = sr ? s.bm[sb - 4] : s.nbm[sc];
+        const int left = sc ? s.bm[sb - 1] : s.nbm[4 + sr];
+        rates = bcost + (above * 10 + left) * 10;
+      }
+      int best = 0;
+      long long best_cost = rdcost(rates[0], abl_sse[0], a.rm, a.dm);
+      for (int m = 1; m < 10; ++m) {
+        const long long cost = rdcost(rates[m], abl_sse[m], a.rm, a.dm);
+        if (cost < best_cost) { best_cost = cost; best = m; }
+      }
+      s.bm[sb] = best;
+      b_rate += rates[best];
+      b_dist += abl_sse[best];
+      int res[16], co[16], qc[16];
+      for (int p = 0; p < 16; ++p)
+        res[p] = s.o[(sr * 4 + (p >> 2)) * 16 + sc * 4 + (p & 3)] - abl_pred[best][p];
+      fdct4x4(res, co);
+      if (trellis) {
+        const int up = sr ? s.bnz[sb - 4] : s.ctx[sc];
+        const int lf = sc ? s.bnz[sb - 1] : s.ctx[4 + sr];
+        s.bnz[sb] = trellis_quantize(co, ydc, yac, a.tc + BT_Y_WITHOUT_Y2 * 576,
+                                     a.vcost, up + lf, 0, a.rm, a.dm, qc);
+      } else {
+        quantize4x4(co, ydc, yac, qc);
+      }
+      for (int p = 0; p < 16; ++p) s.bco[sb][p] = qc[p];
+      dequantize4x4(qc, ydc, yac, co);
+      idct4x4(co, res);
+      for (int p = 0; p < 16; ++p)
+        s.t[sr * 4 + 1 + (p >> 2)][sc * 4 + 1 + (p & 3)] =
+            clampi(abl_pred[best][p] + res[p], 0, 255);
+    }
+    __syncthreads();
+  }
+  if (tid == 0) s.bcost = rdcost(b_rate, b_dist, a.rm, a.dm);
+}
+'''
+
+
+def thread_chain(s):
+    """The parent's B_PRED candidate: 160 threads predict, thread 0 picks
+    and runs each sub-block's transform chain between two barriers (with
+    no_overlap: its barriers are the whole block's)."""
+    i = s.index("__device__ __forceinline__ void bpred_candidate(")
+    j = s.index("// Where the luma and chroma chains take their prediction")
+    return s[:i] + THREAD_CHAIN + "\n" + s[j:]
+
+
+def raster_chain(s):
+    """The B_PRED sub-blocks one a step in raster order, both halves of warp
+    0 alike, not two a step along the diagonals 2 sr + sc."""
+    return rep(s, """  for (int d = 0; d < 10; ++d) {
+    // half h takes the (h+1)-th sub-block of diagonal d, in order of rows
+    const int first = d < 3 ? 0 : (d - 2) >> 1;
+    const bool active = first + h <= 3 && d - 2 * (first + h) >= 0;
+    const int sr = active ? first + h : first, sc = d - 2 * sr;""",
+               """  for (int d = 0; d < 16; ++d) {
+    const bool active = h == 0;
+    const int sr = d >> 2, sc = d & 3;""")
+
+
+def device_tables(s):
+    """K7's cost tables read from device memory, not staged in shared
+    memory."""
+    s = rep(s, "    P.tc = tab_tc;\n    P.vcost = tab_vcost;\n", "")
+    return rep(s, "  t.mbc = tab_mbc;\n  t.bcost = tab_bcost;\n", "")
+
+
+def k5_no_prefetch(s):
+    """K5 loads a macroblock's input row and limits when it reaches it, not
+    one macroblock ahead."""
+    s = rep(s, "  fetch(0);\n", "")
+    s = rep(s, "    const int x0 = c * S;\n    uint32_t px[4]",
+            "    const int x0 = c * S;\n    fetch(c);\n    uint32_t px[4]")
+    return rep(s, "    if (c + 1 < C) fetch(c + 1);\n", "")
+
+
+def no_overlap(s):
+    """The intra macroblock's steps one after another on the whole block
+    (the parent's intra_mb, K7's and K8's), not the whole-mode and chroma
+    chains beside B_PRED; the whole mode's reconstruction copied to s.wt,
+    where the callers read it."""
+    i = s.index("  if (threadIdx.x < 32) {\n    bpred_candidate(")
+    j = s.index("  return s.bcost < s.wcost;\n}", i)
+    return s[:i] + """  bpred_candidate(a, s, mbc, bcost, contextual, trellis);
+  if (screened) __syncthreads();
+  else whole_luma_costs(a, s, mbc);
+  const bool use_b = s.bcost < s.wcost;
+  if (!use_b) {
+    y2_path(a, s, trellis, WholePred{s.dec[0]});
+    __syncthreads();
+    const int py = threadIdx.x >> 4, px = threadIdx.x & 15;
+    s.wt[py][px] = s.t[1 + py][1 + px];
+  }
+  chroma_mode(s);
+  chroma_code(a, s, r, c, trellis, WholePred{s.dec[1]});
+  __syncthreads();
+  return use_b;
+}""" + s[j + len("  return s.bcost < s.wcost;\n}"):]
+
+
+def one_form(s):
+    """K7 as one kernel for one-pass and two-pass (the form that tests the
+    token costs at run time), not two instantiations."""
+    return rep(s, "enc_kf_row_kernel<false><<<", "enc_kf_row_kernel<true><<<")
+
+
+def serial_walks(s):
+    """The parent's trellis of the chained blocks: thread 0 walks the 16
+    whole-luma blocks, threads 0 and 1 U's and V's four, one after another
+    with the one-call form."""
+    s = rep(s, """      const TrellisNodes n = trellis_backward(s.wco[tid], ydc, yac, tcy,
+                                              a.vcost, 1, a.rm, a.dm);
+      s.tsel[tid] = trellis_bits(n, tcy, 1, a.rm, a.dm, end, levels);
+""", "")
+    s = rep(s, """      const TrellisNodes n = trellis_backward(s.uvco[tid], uvdc, uvac, tcu,
+                                              a.vcost, 0, a.rm, a.dm);
+      s.tsel[tid] = trellis_bits(n, tcu, 0, a.rm, a.dm, end, levels);
+""", "")
+    i = s.index("  if (trellis && tid < 16) {\n    // the walk of the level")
+    j = s.index("  if (tid == (trellis ? 32 : 0)) {")
+    s = s[:i] + """  if (trellis && tid == 0) {
+    for (int b = 0; b < 16; ++b) {
+      const int up = b >> 2 ? s.wnz[b - 4] : s.ctx[b & 3];
+      const int lf = b & 3 ? s.wnz[b - 1] : s.ctx[4 + (b >> 2)];
+      s.wnz[b] = trellis_quantize(s.wco[b], ydc, yac, tcy, a.vcost, up + lf,
+                                  1, a.rm, a.dm, s.wco[b]);
+    }
+  }
+""" + s[j:]
+    i = s.index("  if (trellis && tid < 8) {\n    // U and V")
+    j = s.index("  Team::sync();\n", i)
+    return s[:i] + """  if (trellis && tid < 2) {
+    const int pl = tid;
+    for (int b = 0; b < 4; ++b) {
+      const int k = 4 * pl + b;
+      const int up = b >> 1 ? s.uvnz[k - 2] : s.ctx[8 + 4 * pl + (b & 1)];
+      const int lf = b & 1 ? s.uvnz[k - 1] : s.ctx[10 + 4 * pl + (b >> 1)];
+      s.uvnz[k] = trellis_quantize(s.uvco[k], uvdc, uvac, tcu, a.vcost,
+                                   up + lf, 0, a.rm, a.dm, s.uvco[k]);
+    }
+  }
+""" + s[j:]
+
+
+def diagonal_k7(s):
+    """K7 as the parent launched it: one launch per diagonal d = 2r + c, a
+    block per macroblock, the originals loaded from the planes."""
+    s = rep(s, "// Launch the persistent kernel for one frame", """template <bool kTrellis>
+__global__ void __launch_bounds__(256) abl_kf_diag(EncArgs a, int d,
+                                                  int r_lo) {
+  const int r = r_lo + blockIdx.x, c = d - 2 * r;
+  const MbPlanes P = a.p;
+  MB_SHARED(s);
+  kf_mb<kTrellis>(a, P, s, r, c, nullptr);
+}
+
+// Launch the persistent kernel for one frame""")
+    return rep(s, """  if (tc != nullptr)
+    enc_kf_row_kernel<true><<<R, 256, 0, (cudaStream_t)stream>>>(a);
+  else
+    enc_kf_row_kernel<false><<<R, 256, 0, (cudaStream_t)stream>>>(a);
+  *n_launched = 1;""", """  int issued = 0;
+  for (int d = 0; d < 2 * (R - 1) + C; ++d) {
+    const int lo = d - C + 1, r_lo = lo > 0 ? (lo + 1) / 2 : 0;
+    const int n = (d / 2 < R - 1 ? d / 2 : R - 1) - r_lo + 1;
+    if (n <= 0) continue;
+    if (tc != nullptr)
+      abl_kf_diag<true><<<n, 256, 0, (cudaStream_t)stream>>>(a, d, r_lo);
+    else
+      abl_kf_diag<false><<<n, 256, 0, (cudaStream_t)stream>>>(a, d, r_lo);
+    ++issued;
+  }
+  *n_launched = issued;""")
+
+
+def diagonal_k5(s):
+    """K5 as the parent launched it: the input copied into the output on
+    the stream (a frame a copy where it is broadcast), then one launch per
+    diagonal filtering it in place."""
+    return rep(s, """  lf_row_kernel<<<G * R, 32, 0, (cudaStream_t)stream>>>(a);
+  *n_launched = 1;""", """  cudaStream_t st = (cudaStream_t)stream;
+  const size_t ny = (size_t)R * 16 * C * 16, nc = ny / 4;
+  for (int g = 0; g < (in_batch ? 1 : G); ++g) {
+    const size_t k = in_batch ? G : 1;
+    cudaMemcpyAsync((uint8_t*)Y + g * ny, y_in, k * ny,
+                    cudaMemcpyDeviceToDevice, st);
+    cudaMemcpyAsync((uint8_t*)U + g * nc, u_in, k * nc,
+                    cudaMemcpyDeviceToDevice, st);
+    cudaMemcpyAsync((uint8_t*)V + g * nc, v_in, k * nc,
+                    cudaMemcpyDeviceToDevice, st);
+  }
+  *n_launched = enqueue_diagonals(
+      wave_args(Y, U, V, nullptr, nullptr, nullptr, nullptr, nullptr,
+                nullptr, mbp, nullptr, G, R, C), 1, st);""")
+
+
+def k5_whole_wait(s):
+    """K5 waits on the row above before a macroblock's vertical edges too,
+    not only before its horizontal ones."""
+    s = rep(s, """    if (on)
+      lf_filter_window(s_y, s_u, s_v, lane, do_left, do_top, p[5] == 0, p[1],
+                       p[2], p[3], p[4], true, false);
+    if (lane == 0 && r > 0) row_wait(prog - 1, min(c + lag, C));
+    __syncwarp();
+""", """    if (lane == 0 && r > 0) row_wait(prog - 1, min(c + lag, C));
+    __syncwarp();
+    if (on)
+      lf_filter_window(s_y, s_u, s_v, lane, do_left, do_top, p[5] == 0, p[1],
+                       p[2], p[3], p[4], true, false);
+""")
+    return s
+
+
+def halo_reloaded(s):
+    """K5's left halo loaded again from the output (the lane's own row,
+    stored at the previous macroblock) instead of kept in shared memory."""
+    s = rep(s, """#pragma unroll
+    for (int k = 0; k < 4; ++k) own[k - 4] = own[S - 4 + k];
+""", "")
+    return rep(s, """    // the vertical edges (each lane its own row and the kept left halo)
+""", """    if (do_left)
+      for (int k = 0; k < 4; ++k)
+        own[k - 4] = out[(size_t)y * Wp + x0 - 4 + k];
+    // the vertical edges (each lane its own row and the kept left halo)
+""")
+
+
+# variant: {file: edit}, built from SOURCES_K7
+VARIANTS_K7 = {
+    "kept": {},
+    "thread_chain": {"enc_mb_device.cuh":
+                     lambda s: no_overlap(thread_chain(s))},
+    "raster_chain": {"enc_mb_device.cuh": raster_chain},
+    "no_overlap": {"enc_mb_device.cuh": no_overlap},
+    "one_form": {"enc_intra.cu": one_form},
+    "device_tables": {"enc_intra.cu": device_tables},
+    "serial_walks": {"enc_mb_device.cuh": serial_walks},
+    "diagonal_k7": {"enc_intra.cu": diagonal_k7},
+    "diagonal_k5": {"wavefront.cu": diagonal_k5},
+    "halo_reloaded": {"wavefront_device.cuh": halo_reloaded},
+    "k5_no_prefetch": {"wavefront_device.cuh": k5_no_prefetch},
+    "k5_whole_wait": {"wavefront_device.cuh": k5_whole_wait},
+}
+SOURCES_K7 = ("enc_intra", "wavefront", "enc_inter")
+
+
+def k7_variant_entry(lib_path, persistent):
+    """The C entry of a K7 library typed as enc_intra_cuda types it; a
+    library of the diagonal form (the parent's: no schedule arguments) is
+    called through a shim that drops them."""
+    f = getattr(ctypes.CDLL(lib_path), "encode_kf_frame_launch")
+    f.restype = ctypes.c_int
+    types = enc_intra_cuda.ARGTYPES[:None if persistent else -2]
+    f.argtypes = list(types) + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    if persistent:
+        return f
+    n = len(types)
+    return lambda *a: f(*(a[:n] + a[-2:]))
+
+
+def k7_clocked(card, csrc, tag):
+    """Thread 0's cycles a macroblock per phase of K7 built from ``csrc``
+    (a csrc/ directory), one-pass and two-pass at 720p."""
+    d = os.path.join(OUT, "k7_clocked_" + tag)
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(csrc, d)
+    for fn, edit in (("enc_intra.cu", clocked_k7),
+                     ("enc_mb_device.cuh", clocked_k7_steps)):
+        p = os.path.join(d, fn)
+        with open(p) as fh:
+            text = edit(fh.read())
+        with open(p, "w") as fh:
+            fh.write(text)
+    so = os.path.join(d, "libenc_intra.so")
+    cs.say("ablation_build", variant="k7_clocked_" + tag,
+           ptxas=build([(so, os.path.join(d, "enc_intra.cu"))])[so])
+    with open(os.path.join(d, "enc_intra.cu")) as fh:
+        persistent = "row_wait(" in fh.read()
+    f = k7_variant_entry(so, persistent)
+    lib = ctypes.CDLL(so)
+    saved = enc_intra_cuda._entry
+    enc_intra_cuda._entry = lambda: f
+    buf = (ctypes.c_ulonglong * 16)()
+    try:
+        for case, args in k7_cases().items():
+            lib.k7_phase_zero()
+            enc_intra_cuda.encode_kf_frame(*args)
+            torch.cuda.synchronize()
+            lib.k7_phase_read(buf)
+            n = args[0].numel() // 256
+            cs.say("ablation_k7_phases", source=tag, case=case, card=card,
+                   cycles_per_macroblock={p: buf[i] / n
+                                          for i, p in enumerate(K7_PHASES)})
+    finally:
+        enc_intra_cuda._entry = saved
+
+
+_K7_CASES = {}
+
+
+def run_k7_k5(card):
+    """Time K7, K8 rt and K5 with each step of K7's and K5's redesign
+    undone (VARIANTS_K7)."""
+    write_variants(VARIANTS_K7)
+    t0 = time.perf_counter()
+    logs = build([(os.path.join(OUT, n, "lib%s.so" % src),
+                   os.path.join(OUT, n, src + ".cu"))
+                  for n in VARIANTS_K7 for src in SOURCES_K7])
+    cs.say("ablation_build", seconds=time.perf_counter() - t0,
+           ptxas={os.path.relpath(k, OUT): v for k, v in logs.items()})
+    big = cs.decoded_frames(cs.CLIP, (0, 1))
+    ivf = cs.IVFReader(cs.CLIP)
+    sf = cs.single_frame_kernel_inputs([ivf.frame(i) for i in (0, 1)],
+                                       ivf.width, ivf.height)
+    cases = [(enc_intra_cuda.encode_kf_frame, "k7_" + k, a)
+             for k, a in k7_cases().items()]
+    cases += [(enc_inter_cuda.encode_inter_frame, "k8_rt",
+               cs.k8_args(big[0], big[1], 48, [48], "rt")),
+              (lf_cuda.loop_filter, "k5_frame1", sf[("loop_filter", 1)][0]),
+              (lf_cuda.loop_filter, "k5_search",
+               cs.k5_search_inputs(big[0], 24))]
+    ref, ok = {}, True
+    for name in list(VARIANTS_K7) + ["kept"]:
+        enc_intra_cuda._entry = lambda n=name: entry(n, "enc_intra")
+        lf_cuda._entry = lambda n=name: entry(n, "wavefront")
+        enc_inter_cuda._entry = lambda n=name: entry(n, "enc_inter")
+        ms, equal = {}, {}
+        for fn, case, a in cases:
+            out = fn(*a)
+            ref.setdefault(case, out)
+            equal[case] = all(torch.equal(x, y)
+                              for x, y in zip(out, ref[case]))
+            ms[case] = cs.time_ms(lambda: fn(*a), 10)
+        ok &= all(equal.values())
+        cs.say("ablation", variant=name, card=card, ms=ms, equal=equal)
+    return ok
+
+
+def k7_cases():
+    """K7's 720p cases: frame 0 one-pass at qi 24, two-pass at qi 32 under
+    the default token costs."""
+    if not _K7_CASES:
+        big = cs.decoded_frames(cs.CLIP, (0,))
+        tc = torch.from_numpy(cs.token_costs_pm(
+            cs.T.DEFAULT_COEFF_PROBS)).to(cs.DEV)
+        _K7_CASES.update({"one_pass": cs.kf_args(big[0], 24),
+                          "two_pass": cs.kf_args(big[0], 32, tc)})
+    return _K7_CASES
 
 
 def main():
@@ -306,23 +850,61 @@ def main():
         raise SystemExit("chip_ablation.py needs a CUDA device")
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", help="a checkout of the parent commit")
+    ap.add_argument("--kernels", default="k7,k5,k8,pairs",
+                    help="comma-separated: k7 (its clocked phases), k5 (K7's "
+                         "and K5's variants), k8 (K8's and K9's, with "
+                         "--parent also the machine code), sass (the "
+                         "machine code alone, with --parent), pairs "
+                         "(with --parent: K10, K4, K1 and K8 timed from the "
+                         "parent's library and this one's in alternation)")
+    ap.add_argument("--pairs", type=int, default=12,
+                    help="readings of each side in the pairs")
     args = ap.parse_args()
+    kernels = set(args.kernels.split(","))
     card = cs.smi()
     cs.say("ablation_env", card=card, device=torch.cuda.get_device_name(0))
     os.makedirs(OUT, exist_ok=True)
-    write_variants()
+    ok = True
+    if "k7" in kernels:
+        k7_clocked(card, _build.CSRC_DIR, "here")
+        if args.parent:
+            k7_clocked(card, os.path.join(args.parent, "alfalfa_tpu_torch",
+                                          "csrc"), "parent")
+    if "k5" in kernels:
+        ok &= run_k7_k5(card)
+    if "k8" in kernels:
+        ok &= run_k8_k9(card, args.parent)
+    if "sass" in kernels and "k8" not in kernels and args.parent:
+        sass(args.parent)
+    if "pairs" in kernels and args.parent:
+        ok &= parent_pairs(card, args.parent, args.pairs)
+    if not ok:
+        raise SystemExit("a variant's output differs from the kept form's "
+                         "(or, in the pairs, from the parent's)")
+
+
+def sass(parent):
+    cs.say("ablation_sass", **{k: {"instructions_parent": a,
+                                   "instructions_here": b,
+                                   "identical": same,
+                                   "differing_beyond_constant_offsets": n}
+                               for k, (a, b, same, n) in
+                               same_sass(parent).items()})
+
+
+def run_k8_k9(card, parent):
+    """Time K8 and K9 with each step of their redesign undone (VARIANTS),
+    K8's clocked phases; with ``parent``, compare SAME_SASS's machine
+    code."""
+    write_variants(VARIANTS)
     t0 = time.perf_counter()
     logs = build([(os.path.join(OUT, n, "lib%s.so" % src),
                    os.path.join(OUT, n, src + ".cu"))
                   for n in VARIANTS for src in SOURCES])
     cs.say("ablation_build", seconds=time.perf_counter() - t0,
            ptxas={os.path.relpath(k, OUT): v for k, v in logs.items()})
-    if args.parent:
-        cs.say("ablation_sass", **{k: {"instructions_parent": a,
-                                       "instructions_here": b,
-                                       "identical": same}
-                                   for k, (a, b, same) in
-                                   same_sass(args.parent).items()})
+    if parent:
+        sass(parent)
 
     big = cs.decoded_frames(cs.CLIP, (0, 1))
     k8 = {"best": cs.k8_args(big[0], big[1], 48, [48]),
@@ -366,8 +948,117 @@ def main():
                 cs.say("ablation_phases", case=case, card=card,
                        cycles_per_macroblock={p: buf[i] / n
                                               for i, p in enumerate(PHASES)})
-    if not ok:
-        raise SystemExit("a variant's output differs from the kept form's")
+    return ok
+
+
+# ---- the kernels this redesign holds to the parent: each case timed from
+# the parent's library and from this checkout's in alternation
+
+# source: (its C entry, the argument types, the wrapper's module)
+PAIR_ENTRIES = {
+    "enc_intra_fixup": ("intra_fixup_frame_launch",
+                        [_PTR] * 11 + [_INT] * 3, enc_intra_fixup_cuda),
+    "enc_inter": ENTRIES["enc_inter"] + (enc_inter_cuda,),
+}
+PAIR_WAVE = {"intra_frame_launch": intra_cuda,
+             "wavefront_decode_launch": wavefront_cuda}
+
+
+def pair_cases():
+    """[(source, C entry, case, wrapper, args)]: K10 on the fast path's four
+    cases, K4 and K1 on the decoders' 720p frames, K8 on chip_smoke.py's
+    720p and 176x144 cases."""
+    ivf = cs.IVFReader(cs.CLIP)
+    payloads = [ivf.frame(i) for i in range(len(ivf))]
+    sm = cs.decoded_frames(cs.SMALL_CLIP, (0, 1))
+    big = cs.decoded_frames(cs.CLIP, (0, 1, 5))
+    out = []
+    for label, (k, f, key_qi, qis) in {
+            "720p frame1 qi48": (0, 1, 48, [cs.FAST_QI]),
+            "720p pair": (0, 1, cs.FAST_PAIR_KEY_QI, cs.FAST_PAIR_QIS),
+            "720p scene cut": (5, 0, 48, [cs.FAST_QI]),
+            "176x144 frame1 qi48": (None, None, 48, [cs.FAST_QI])}.items():
+        a, b = (sm[0], sm[1]) if k is None else (big[k], big[f])
+        out.append(("enc_intra_fixup", "intra_fixup_frame_launch",
+                    "k10 " + label, enc_intra_fixup_cuda.intra_fixup_frame,
+                    cs.fast_kernel_inputs(a, b, key_qi, qis)[1]))
+    sf = cs.single_frame_kernel_inputs(payloads[:2], ivf.width, ivf.height)
+    for f, label in ((1, "interframe"), (0, "key frame")):
+        out.append(("wavefront", "intra_frame_launch", "k4 720p " + label,
+                    intra_cuda.intra_frame, sf[("intra_frame", f)][0]))
+    kept = cs.real_kernel_inputs(payloads, ivf.width, ivf.height, cs.G)
+    for key, label in (("wave_inter", "interframe"), ("wave_key", "key frame")):
+        out.append(("wavefront", "wavefront_decode_launch",
+                    "k1 720p G=16 " + label, wavefront_cuda.wavefront_decode,
+                    kept[key]))
+    for label, args in (
+            ("720p best", cs.k8_args(big[0], big[1], 48, [48])),
+            ("720p rt", cs.k8_args(big[0], big[1], 48, [48], "rt")),
+            ("720p pair", cs.k8_args(big[0], big[1], cs.INTER_PAIR_KEY_QI,
+                                     cs.INTER_PAIR_QIS, "rt")),
+            ("720p extreme", cs.k8_extreme(44)),
+            ("176x144 best", cs.k8_args(sm[0], sm[1], 48, [48])),
+            ("176x144 rt", cs.k8_args(sm[0], sm[1], 48, [48], "rt")),
+            ("176x144 two-pass", cs.k8_args(sm[0], sm[1], 32, [32],
+                                            two_pass=True))):
+        out.append(("enc_inter", "encode_inter_frame_launch", "k8 " + label,
+                    enc_inter_cuda.encode_inter_frame, args))
+    return out
+
+
+def parent_pairs(card, parent, pairs):
+    """Each pair_cases() case timed ``pairs`` times from the parent's
+    library and from this checkout's, alternating which goes first, each
+    reading the median of 10 calls: the medians of each side's readings,
+    their spread, and whether the two outputs are equal."""
+    jobs = [(os.path.join(OUT, "pairs", tag, "lib%s.so" % src),
+             os.path.join(d, src + ".cu"))
+            for src in ("enc_intra_fixup", "enc_inter", "wavefront")
+            for tag, d in (("parent", os.path.join(
+                parent, "alfalfa_tpu_torch", "csrc")),
+                ("here", _build.CSRC_DIR))]
+    for so, _ in jobs:
+        os.makedirs(os.path.dirname(so), exist_ok=True)
+    cs.say("ablation_build", variant="pairs", ptxas={
+        os.path.relpath(k, OUT): v for k, v in build(jobs).items()})
+
+    def typed(tag, src, fn):
+        types = (PAIR_ENTRIES[src][1] if src in PAIR_ENTRIES
+                 else wavefront_cuda.WAVE_ARGTYPES)
+        f = getattr(ctypes.CDLL(os.path.join(OUT, "pairs", tag,
+                                             "lib%s.so" % src)), fn)
+        f.restype = ctypes.c_int
+        f.argtypes = list(types) + [ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.c_int)]
+        return f
+
+    ok = True
+    for src, fn, case, wrapper, args in pair_cases():
+        mod = PAIR_ENTRIES[src][2] if src in PAIR_ENTRIES else PAIR_WAVE[fn]
+        entries = {tag: typed(tag, src, fn) for tag in ("parent", "here")}
+        saved = mod._entry
+        outs, ms = {}, {"parent": [], "here": []}
+        try:
+            for i in range(pairs):
+                for tag in (("parent", "here") if i % 2 == 0
+                            else ("here", "parent")):
+                    mod._entry = lambda t=tag: entries[t]
+                    if tag not in outs:
+                        outs[tag] = wrapper(*args)
+                    ms[tag].append(cs.time_ms(lambda: wrapper(*args), 10))
+        finally:
+            mod._entry = saved
+        tup = lambda x: x if isinstance(x, tuple) else (x,)
+        equal = all(torch.equal(x, y) for x, y in
+                    zip(tup(outs["parent"]), tup(outs["here"])))
+        ok &= equal
+        med = {t: statistics.median(v) for t, v in ms.items()}
+        cs.say("ablation_pairs", case=case, card=card, pairs=pairs,
+               equal=equal, median_parent=med["parent"],
+               median_here=med["here"], ratio=med["here"] / med["parent"],
+               range_parent=[min(ms["parent"]), max(ms["parent"])],
+               range_here=[min(ms["here"]), max(ms["here"])])
+    return ok
 
 
 if __name__ == "__main__":

@@ -16,12 +16,14 @@ two-pass, K8 (encode_inter_frame) at 720p and 176x144 in best, rt and
 two-pass, as the fused 2-QP pair and on seeded extreme motion, and K9
 (decide_inter_frame) and K10 (intra_fixup_frame) on what the fast path
 hands them at 720p (one quantizer, the pair, a scene cut) and 176x144, on
-decoded frames of the fixtures.  K8 and K9 are persistent (one launch a
-call, blocks walking rows behind progress flags): each of their 720p cases
-runs REPEATS times, every run held to the plain output, since a race
-between rows would show only now and then, and each runs once more on a
-narrow, tall frame with more (row, quantizer) blocks than the card holds
-at once.  Then it drives the paths over
+decoded frames of the fixtures; K5 also on the encoders' 8-level
+loop-filter search call and at G=16 on the GOP clip.  K5, K7, K8 and K9
+are persistent (one launch a call, blocks walking rows behind progress
+flags): each of their 720p cases runs 10 (K5, K7) or REPEATS (K8, K9) times
+more, every run held to the plain output, since a race between rows would
+show only now and then, and each runs once more with more (row, frame or
+quantizer) blocks than the card holds at once.  Then it drives the paths
+over
 tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
 
 - main_path: 16 lockstep GOPs through BatchedGopDecoder.decode_stream
@@ -43,8 +45,10 @@ tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
   minihash, and the stream stays within the serial rt encoder's RD band.
 
 Each path runs with the launch counts set to 0 just before it and read
-just after; the last lines are the `kernels` JSON line (one entry per
-kernel), the card's name and power limit, and the result line.
+just after, and every K5, K7, K8 and K9 call of the single-frame and encode
+paths is checked to be one kernel launch (`persistent_launches`); the last
+lines are the `kernels` JSON line (one entry per kernel), the card's name
+and power limit, and the result line.
 Each phase prints JSON lines; any failure is a non-zero exit.  There is no
 CPU path: without a CUDA device main() raises before it prints anything
 (the module itself imports on a CPU host, for its constants).
@@ -69,6 +73,7 @@ from alfalfa_tpu_torch.encoder import Encoder
 from alfalfa_tpu_torch.encoder import encode_inter, encode_inter_fast
 from alfalfa_tpu_torch.encoder.costs import rd_multipliers
 from alfalfa_tpu_torch.encoder.encode_intra import QUANT_KEYS
+from alfalfa_tpu_torch.encoder.encoder import LF_CHUNK
 from alfalfa_tpu_torch.encoder.trellis import token_costs_pm
 from alfalfa_tpu_torch.native import bitwork
 from alfalfa_tpu_torch.ops import enc_batch, enc_decide, enc_decide_cuda, \
@@ -280,9 +285,12 @@ def k4_bound(*args):
 
 
 def k5_bound(y, u, v, lfp):
-    """Planes in and out, per-MB words in; the filter's operations."""
+    """Planes in (a frame broadcast over G, batch stride 0, read once) and
+    out, per-MB words in; the filter's operations."""
     n_mb = lfp[0].numel()
-    return bound(2 * n_mb * 384 + n_mb * wavefront_cuda.NP * 2, lf_ops(lfp))
+    n_in = n_mb // y.shape[0] if y.stride(0) == 0 else n_mb
+    return bound((n_in + n_mb) * 384 + n_mb * wavefront_cuda.NP * 2,
+                 lf_ops(lfp))
 
 
 def k1_case(label, args):
@@ -301,11 +309,49 @@ def k4_case(label, args):
                        intra_mbs=int(args[10].sum().item()))
 
 
-def k5_case(label, args):
+def k5_case(label, args, repeats=0):
     return kernel_case("loop_filter", label, lf_cuda.loop_filter,
                        wavefront.loop_filter_plain, args,
                        lambda: lf_cuda.kernel_launches, k5_bound,
+                       repeats=repeats, frames=args[3][0].shape[0],
+                       broadcast_input=args[0].stride(0) == 0,
                        filtered_mbs=int((args[3][0] > 0).sum().item()))
+
+
+def k5_search_inputs(raster, qi):
+    """loop_filter's arguments as the encoder's loop-filter search hands
+    them over (Encoder._filter_levels: the unfiltered reconstruction
+    broadcast over LF_CHUNK levels) when a best-quality encoder on the card
+    encodes the decoded ``raster`` as a key frame at ``qi``: its first
+    call, recorded around the wrapper (which runs as usual)."""
+    from alfalfa_tpu_torch.encoder import encoder as enc_mod
+    seen = []
+    saved = enc_mod.loop_filter
+
+    def record(*a):
+        seen.append(a)
+        return saved(*a)
+
+    enc_mod.loop_filter = record
+    try:
+        Encoder(raster.display_width, raster.display_height,
+                device=DEV).encode_with_quantizer(raster.display(), qi,
+                                                  key_frame=True)
+    finally:
+        enc_mod.loop_filter = saved
+    torch.cuda.synchronize()
+    return seen[0]
+
+
+def k5_tiled(args, G):
+    """``args`` (one frame's planes and limits) broadcast over G frames,
+    the levels varied per frame (frame g at level + g, mod 64, where the
+    macroblock is filtered)."""
+    y, u, v, lfp = args
+    lf = tuple(torch.cat([x[:1]] * G) for x in lfp)
+    step = torch.arange(G, device=lf[0].device)[:, None, None]
+    lf = (torch.where(lf[0] > 0, (lf[0] + step) % 64, 0),) + lf[1:]
+    return tuple(t[:1].expand((G,) + t.shape[1:]) for t in (y, u, v)) + (lf,)
 
 
 def real_kernel_inputs(payloads, width, height, n_gops):
@@ -405,7 +451,7 @@ def kf_args(raster, qi, token_costs=None):
             rm, dm, token_costs)
 
 
-def k7_case(label, args):
+def k7_case(label, args, repeats=0):
     seen = {}
 
     def wrapper(*a):
@@ -418,7 +464,8 @@ def k7_case(label, args):
                        enc_intra.encode_kf_frame_plain, args,
                        lambda: enc_intra_cuda.kernel_launches,
                        lambda *a: k7_bound(seen["modes"], a[6] is not None),
-                       two_pass=args[6] is not None, mbs=R * C)
+                       repeats=repeats, two_pass=args[6] is not None,
+                       mbs=R * C)
 
 
 # ------------------------------------------------------------------ K8
@@ -872,8 +919,7 @@ def keyframe_encode_phase(card, width, height):
     result line."""
     rasters = decoded_frames(CLIP, (0, 3))
     frames = {k: r.display() for k, r in rasters.items()}
-    R, C = (height + 15) // 16, (width + 15) // 16
-    per_call = 2 * (R - 1) + C
+    per_call = 1        # K7 is persistent: one launch a call
 
     # the encode path: counters to 0 just before, read just after
     zero_counts()
@@ -938,7 +984,7 @@ def keyframe_encode_phase(card, width, height):
     if calls["encode_kf_frame"] <= 0 or calls["loop_filter"] <= 0:
         raise SystemExit("the encode path did not launch K7 and K5")
     if kernels["encode_kf_frame"] != calls["encode_kf_frame"] * per_call:
-        raise SystemExit("K7 did not launch 2(R-1)+C kernels per call")
+        raise SystemExit("K7 did not launch one persistent kernel per call")
     if any(calls[k] for k in ("sixtap_mc", "wavefront_decode",
                               "predict_mb_tiles", "intra_frame")):
         raise SystemExit("the encode path launched a decode kernel")
@@ -1428,6 +1474,54 @@ def state_round_trip(payloads, width, height, k=3):
     return d.hexdigest()
 
 
+def persistent_paths(card, payloads, want, width, height):
+    """The single-frame path (counters to 0 just before, read just after),
+    then the keyframe_encode, inter_encode and fast_encode phases; returns
+    their four result lines."""
+    zero_counts()
+    sf_ok = single_frame_decode(digest=True) == want
+    sf_calls, sf_kernels = read_counts()
+    rt_ok = state_round_trip(payloads, width, height) == want
+    sf_passes = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single_frame_decode(digest=False)
+        sf_passes.append(time.perf_counter() - t0)
+    sf_best = min(sf_passes[1:])
+    tracing.enable(True)
+    tracing.snapshot()
+    single_frame_decode(digest=False)
+    tracing.enable(False)
+    sf_split = {k: v["seconds"] * 1e3 / len(payloads)
+                for k, v in tracing.snapshot().items()}
+    single = dict(
+        card=card, frames=len(payloads), sha1_ok=sf_ok,
+        state_round_trip_sha1_ok=rt_ok, launches=sf_calls,
+        kernel_launches=sf_kernels, frames_per_s=len(payloads) / sf_best,
+        pass_s=sf_passes, ms_per_frame={
+            "parse": sf_split.get("decode.parse"),
+            "reconstruct": sf_split.get("decode.reconstruct")})
+    say("single_frame", **single)
+    say("single_frame_device_profile", **device_profile(
+        lambda: single_frame_decode(digest=False)))
+    if not (sf_ok and rt_ok):
+        raise SystemExit("single-frame decode differs from the manifest SHA-1")
+    if min(sf_calls[k] for k in ("predict_mb_tiles", "intra_frame",
+                                 "loop_filter")) <= 0:
+        raise SystemExit("the single-frame path did not launch K3, K4 and K5")
+    if sf_calls["sixtap_mc"] or sf_calls["wavefront_decode"]:
+        raise SystemExit("the single-frame path launched a GOP kernel")
+    if sf_kernels["loop_filter"] != sf_calls["loop_filter"]:
+        raise SystemExit("K5 did not launch one persistent kernel per call")
+
+    kf = keyframe_encode_phase(card, width, height)
+    inter = inter_encode_phase(card, width, height)
+    fast = fast_encode_phase(card, width, height,
+                             inter["speed"]["rt_qi48"]["ms_per_interframe"])
+    return single, kf, inter, fast
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device")
@@ -1475,7 +1569,11 @@ def main():
         k1_case("frame1 interframe", kept["wave_inter"]),
         k1_case("frame0 key frame", kept["wave_key"]),
     ]
-    del kept
+    # K5 at G=16 on the GOP clip's unfiltered interframe planes (K4's)
+    wi = kept["wave_inter"]
+    k5_gop = k5_case("720p G=16 GOP frame1 interframe",
+                     intra_cuda.intra_frame(*wi[:11]) + (wi[11],), 10)
+    del kept, wi
 
     # the single-frame kernels on what the Decoder hands them at 720p
     sf = single_frame_kernel_inputs(payloads, ivf.width, ivf.height)
@@ -1487,8 +1585,17 @@ def main():
           k3_case("synthetic extreme MVs chroma", *one(*k2_synthetic(8, 24, 1)))]
     k4 = [k4_case("frame1 interframe", sf[("intra_frame", 1)][0]),
           k4_case("frame0 key frame", sf[("intra_frame", 0)][0])]
-    k5 = [k5_case("frame1 interframe", sf[("loop_filter", 1)][0]),
-          k5_case("frame0 key frame", sf[("loop_filter", 0)][0])]
+    k5 = [k5_case("frame1 interframe", sf[("loop_filter", 1)][0], 10),
+          k5_case("frame0 key frame", sf[("loop_filter", 0)][0], 10),
+          k5_gop]
+    # more (row, frame) blocks than the card holds at once: frame 1
+    # broadcast over enough levels
+    res5 = lf_cuda.resident(DEV)
+    g5 = over_residency_rows(res5, 1) // (ivf.height // 16) + 1
+    say("kernels", kernel="loop_filter", resident_blocks=res5,
+        over_residency_blocks=g5 * (ivf.height // 16))
+    k5.append(k5_case("720p G=%d over-residency frame1 broadcast" % g5,
+                      k5_tiled(sf[("loop_filter", 1)][0], g5)))
     del sf, mc
 
     # K7 on decoded frames: one-pass at two quantizers, two-pass under the
@@ -1501,18 +1608,33 @@ def main():
     tc_after = torch.from_numpy(token_costs_pm(
         first.state.probability_tables.coeff_probs)).to(DEV)
     small0 = decoded_frames(SMALL_CLIP, (0,))[0]
-    k7 = [k7_case("720p frame0 qi24", kf_args(big[0], 24)),
-          k7_case("720p frame3 qi24", kf_args(big[3], 24)),
-          k7_case("720p frame0 qi64", kf_args(big[0], 64)),
-          k7_case("720p frame3 qi64", kf_args(big[3], 64)),
+    k7 = [k7_case("720p frame0 qi24", kf_args(big[0], 24), 10),
+          k7_case("720p frame3 qi24", kf_args(big[3], 24), 10),
+          k7_case("720p frame0 qi64", kf_args(big[0], 64), 10),
+          k7_case("720p frame3 qi64", kf_args(big[3], 64), 10),
           k7_case("720p frame0 two-pass qi32 default tables",
-                  kf_args(big[0], 32, tc_default)),
+                  kf_args(big[0], 32, tc_default), 10),
           k7_case("720p frame3 two-pass qi32 tables after one key frame",
-                  kf_args(big[3], 32, tc_after)),
+                  kf_args(big[3], 32, tc_after), 10),
           k7_case("176x144 frame0 qi48", kf_args(small0, 48)),
           k7_case("176x144 frame0 two-pass qi48 default tables",
                   kf_args(small0, 48, tc_default))]
-    del big, first, small0
+    # K5 on the encoders' loop-filter search call (8 levels, one frame)
+    k5.append(k5_case("720p key frame qi24 search, %d levels broadcast"
+                      % LF_CHUNK, k5_search_inputs(big[0], 24), 10))
+    # more row blocks than the card holds at once: a narrow, tall frame
+    # (one-pass: the two-pass form runs the same schedule, and its plain
+    # version would take minutes here)
+    res7 = enc_intra_cuda.resident(DEV)
+    rows7 = over_residency_rows(res7, 1)
+    say("kernels", kernel="encode_kf_frame", resident_blocks=res7,
+        resident_blocks_two_pass=enc_intra_cuda.resident(DEV, True),
+        over_residency_blocks=rows7)
+    tall = [torch.from_numpy(p).to(DEV)
+            for p in extreme_motion_planes(47, 176, 16 * rows7, 40)[1]]
+    k7.append(k7_case("176x%d over-residency qi48" % (16 * rows7),
+                      tuple(tall) + tuple(kf_args(small0, 48)[3:])))
+    del big, first, small0, tall
 
     # K8: 176x144 (frame 1 of the small clip after frame 0 as a key frame)
     # in best, rt and two-pass; 720p frame 1 one-pass best; the fused pair
@@ -1609,59 +1731,28 @@ def main():
     say("device_profile", **device_profile(
         lambda: decode_all(payloads, ivf.width, ivf.height, digest=False)))
 
-    # single-frame path: counters to 0 just before, read just after
-    zero_counts()
-    sf_ok = single_frame_decode(digest=True) == want
-    sf_calls, sf_kernels = read_counts()
-    rt_ok = state_round_trip(payloads, ivf.width, ivf.height) == want
-    sf_passes = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        single_frame_decode(digest=False)
-        sf_passes.append(time.perf_counter() - t0)
-    sf_best = min(sf_passes[1:])
-    tracing.enable(True)
-    tracing.snapshot()
-    single_frame_decode(digest=False)
-    tracing.enable(False)
-    sf_split = {k: v["seconds"] * 1e3 / len(payloads)
-                for k, v in tracing.snapshot().items()}
-    single = dict(
-        card=card, frames=len(payloads), sha1_ok=sf_ok,
-        state_round_trip_sha1_ok=rt_ok, launches=sf_calls,
-        kernel_launches=sf_kernels, frames_per_s=len(payloads) / sf_best,
-        pass_s=sf_passes, ms_per_frame={
-            "parse": sf_split.get("decode.parse"),
-            "reconstruct": sf_split.get("decode.reconstruct")})
-    say("single_frame", **single)
-    say("single_frame_device_profile", **device_profile(
-        lambda: single_frame_decode(digest=False)))
-    if not (sf_ok and rt_ok):
-        raise SystemExit("single-frame decode differs from the manifest SHA-1")
-    if min(sf_calls[k] for k in ("predict_mb_tiles", "intra_frame",
-                                 "loop_filter")) <= 0:
-        raise SystemExit("the single-frame path did not launch K3, K4 and K5")
-    if sf_calls["sixtap_mc"] or sf_calls["wavefront_decode"]:
-        raise SystemExit("the single-frame path launched a GOP kernel")
-
-    kf = keyframe_encode_phase(card, ivf.width, ivf.height)
-    # every K8 and K9 call of the encode phases: one persistent launch
-    per_call, undo = record_launches({"encode_inter_frame": enc_inter_cuda,
+    # every K5, K7, K8 and K9 call of the single-frame and encode paths:
+    # one persistent launch
+    per_call, undo = record_launches({"loop_filter": lf_cuda,
+                                      "encode_kf_frame": enc_intra_cuda,
+                                      "encode_inter_frame": enc_inter_cuda,
                                       "decide_inter_frame": enc_decide_cuda})
     try:
-        inter = inter_encode_phase(card, ivf.width, ivf.height)
-        fast = fast_encode_phase(
-            card, ivf.width, ivf.height,
-            inter["speed"]["rt_qi48"]["ms_per_interframe"])
+        single, kf, inter, fast = persistent_paths(card, payloads, want,
+                                                   ivf.width, ivf.height)
     finally:
         undo()
     persistent = {k: {"calls": len(v), "launches_per_call": sorted(set(v))}
                   for k, v in per_call.items()}
     say("persistent_launches", **persistent)
     if any(not v or set(v) != {1} for v in per_call.values()):
-        raise SystemExit("a K8 or K9 call of the encode phases issued other "
-                         "than one kernel launch")
+        raise SystemExit("a K5, K7, K8 or K9 call of the single-frame and "
+                         "encode paths issued other than one kernel launch")
+    sf_calls = single["launches"]
+    # each kernel's calls on every path it runs on
+    calls_on_paths = {k: sum(line["launches"][k]
+                             for line in (single, kf, inter, fast))
+                      for k in ("loop_filter", "encode_kf_frame")}
 
     def entry(name, source, replaces, launches, primary, all_cases):
         return {"name": name, "route": "cuda", "source": source,
@@ -1688,11 +1779,11 @@ def main():
               sf_calls["intra_frame"], k4[0], k4),
         entry("loop_filter", "alfalfa_tpu_torch/csrc/wavefront.cu",
               "alfalfa_tpu/ops/lf_pallas.py:148",
-              sf_calls["loop_filter"], k5[0], k5),
+              calls_on_paths["loop_filter"], k5[0], k5),
         entry("encode_kf_frame", "alfalfa_tpu_torch/csrc/enc_intra.cu",
               "alfalfa_tpu/ops/enc_intra_pallas.py:555 (with H1 "
               "enc_transforms_pallas.py and H2 trellis_pallas.py:322 inside)",
-              kf["launches"]["encode_kf_frame"], k7[0], k7),
+              calls_on_paths["encode_kf_frame"], k7[0], k7),
         entry("encode_inter_frame", "alfalfa_tpu_torch/csrc/enc_inter.cu",
               "alfalfa_tpu/ops/enc_inter_pallas.py:1003 (with H1 "
               "enc_transforms_pallas.py and H2 trellis_pallas.py:322 inside)",

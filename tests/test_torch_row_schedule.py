@@ -1,11 +1,12 @@
-"""The persistent row walk of K8 and K9 on the CPU, no JAX: the plain
-versions driven one macroblock at a time in orders that row walkers under
-the progress-flag rule of csrc/row_sched.cuh could produce, with the very
-lags the wrappers pass to the card (``enc_inter_cuda.ROW_LAG``,
+"""The persistent row walks of K5, K7, K8 and K9 on the CPU, no JAX: the
+plain versions driven one macroblock at a time in orders that row walkers
+under the progress-flag rule of csrc/row_sched.cuh could produce, with the
+very lags the wrappers pass to the card (``lf_cuda.ROW_LAG``,
+``enc_intra_cuda.ROW_LAG``, ``enc_inter_cuda.ROW_LAG``,
 ``enc_decide_cuda.ROW_LAG``), are ``torch.equal`` to the anti-diagonal
-order; one lag less gives a different frame on a scene cut, so the rule
-is tight and the test can fail.  And the decision chain K8 and K9 share
-is defined once under csrc/.
+order; one lag less gives a different result, so each rule is tight and
+the test can fail.  And the decision chain K8 and K9 share, and the loop
+filter K1 and K5 share, are each defined once under csrc/.
 """
 import pathlib
 import re
@@ -17,13 +18,20 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)    # many tiny ops: threads only add contention
 
+from alfalfa_tpu_torch.bitstream import tables as T
 from alfalfa_tpu_torch.bitstream.header import QuantIndices
+from alfalfa_tpu_torch.decoder.lf_params import loopfilter_params
 from alfalfa_tpu_torch.encoder import Encoder
 from alfalfa_tpu_torch.encoder import encode_inter as EI
 from alfalfa_tpu_torch.encoder import encode_inter_fast as EF
+from alfalfa_tpu_torch.encoder import encoder as ENC
+from alfalfa_tpu_torch.encoder.costs import rd_multipliers
+from alfalfa_tpu_torch.encoder.encode_intra import QUANT_KEYS
+from alfalfa_tpu_torch.encoder.trellis import token_costs_pm
 from alfalfa_tpu_torch.ops import enc_batch, enc_decide, enc_decide_cuda, \
-    enc_inter, enc_inter_cuda
-from alfalfa_tpu_torch.ops.wavefront import diagonals, row_order, tile
+    enc_inter, enc_inter_cuda, enc_intra, enc_intra_cuda, lf_cuda
+from alfalfa_tpu_torch.ops.wavefront import (diagonals, loop_filter_plain,
+                                             row_order, tile)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / "tests" / "fixtures"))
@@ -109,11 +117,15 @@ def test_row_order_obeys_the_flag_rule(lag):
 
 
 def test_wrappers_pass_the_lags_of_the_reads():
-    """K8 reads up to its above-right neighbour (diagonals 2r + c), K9 its
-    left, above and above-left (r + c): the lags the kernels run with are
-    those of the diagonals the plain versions walk by default."""
+    """K5, K7 and K8 reach their above-right neighbour (diagonals 2r + c:
+    K7's and K8's B_PRED reads its pixels, K5's top edge must find the
+    pixels its left edge writes), K9 its left, above and above-left
+    (r + c): the lags the kernels run with are those of the diagonals the
+    plain versions walk by default."""
     assert enc_inter_cuda.ROW_LAG == 2 and enc_decide_cuda.ROW_LAG == 1
-    for k, lag in ((2, enc_inter_cuda.ROW_LAG), (1, enc_decide_cuda.ROW_LAG)):
+    assert enc_intra_cuda.ROW_LAG == 2 and lf_cuda.ROW_LAG == 2
+    for k, lag in ((2, enc_inter_cuda.ROW_LAG), (1, enc_decide_cuda.ROW_LAG),
+                   (2, enc_intra_cuda.ROW_LAG), (2, lf_cuda.ROW_LAG)):
         # every macroblock of diagonal d waits only on earlier diagonals
         for d, (rs, cs) in enumerate(diagonals(6, 9, k)):
             for r, c in zip(rs, cs):
@@ -187,6 +199,108 @@ def test_k9_lag_zero_breaks_the_census():
                for seed in SEEDS)
 
 
+# --------------------------------------- the plain K7 in row-walk orders
+
+def _k7_args(w, h, qi, trellis):
+    """K7's arguments for frame 0 of a synthetic clip at y_ac_qi ``qi``,
+    with the default token costs for the trellis."""
+    y, u, v = (torch.from_numpy(np.ascontiguousarray(p))
+               for p in gen_clip(w, h, 1, seed=17)[0])
+    q = QuantIndices(y_ac_qi=qi).quantizer()
+    rm, dm = rd_multipliers(int(q["y_ac"]))
+    tc = torch.from_numpy(token_costs_pm(T.DEFAULT_COEFF_PROBS)) \
+        if trellis else None
+    return y, u, v, [int(q[k]) for k in QUANT_KEYS], rm, dm, tc
+
+
+def _k7_in_order(args, order):
+    return enc_intra.encode_kf_frame_plain(*args, order=order)
+
+
+@pytest.mark.parametrize("trellis", [False, True], ids=["one-pass", "trellis"])
+def test_k7_row_walk_equals_diagonals(trellis):
+    """80x48 (3 x 5 macroblocks), one-pass and two-pass (the trellis under
+    the default token costs), three row-walk orders each."""
+    args = _k7_args(80, 48, 24, trellis)
+    want = _k7_in_order(args, None)
+    assert (want[1][..., 0] == enc_intra.B_PRED).any()
+    for seed in SEEDS:
+        got = _k7_in_order(args, row_order(3, 5, enc_intra_cuda.ROW_LAG, seed))
+        assert _equal(got, want), seed
+
+
+@pytest.mark.parametrize("trellis", [False, True], ids=["one-pass", "trellis"])
+def test_k7_lag_one_breaks_b_pred(trellis):
+    """The negative control: with lag 1 a macroblock may run before its
+    above-right neighbour, whose pixels its B_PRED candidate reads; some
+    order gives another frame."""
+    args = _k7_args(80, 48, 24, trellis)
+    want = _k7_in_order(args, None)
+    assert any(not _equal(_k7_in_order(args, row_order(3, 5, 1, seed)), want)
+               for seed in SEEDS)
+
+
+# --------------------------------------- the plain K5 in row-walk orders
+
+def _k5_args(key_frame, levels):
+    """K5's arguments at 80x48 as the encoder's loop-filter search hands
+    them over (its unfiltered reconstruction, broadcast over the levels,
+    and its skip map) for a key frame or the interframe after it, with the
+    limits of ``levels``."""
+    clip = gen_clip(80, 48, 2, seed=29)
+    enc = Encoder(80, 48, device="cpu")
+    seen = []
+    saved = ENC.loop_filter
+
+    def record(y, u, v, lf):
+        seen.append((y, u, v, lf))
+        return saved(y, u, v, lf)
+
+    ENC.loop_filter = record
+    try:
+        enc.encode_with_quantizer(clip[0], 24, key_frame=True)
+        if not key_frame:
+            seen.clear()
+            enc.encode_with_quantizer(clip[1], 24)
+    finally:
+        ENC.loop_filter = saved
+    y, u, v, lf = seen[0]
+    G = len(levels)
+    R, C = lf[0].shape[1:]
+    p = loopfilter_params(np.asarray(levels)[:, None, None]
+                          + np.zeros((1, R, C), int), 0, key_frame)
+    lfp = tuple(torch.from_numpy(p[k]) for k in
+                ("level", "interior", "mb_limit", "sb_limit", "hev")) \
+        + (lf[5][:1].expand(G, R, C),)
+    return tuple(t[:1].expand((G,) + t.shape[1:]) for t in (y, u, v)) + (lfp,)
+
+
+@pytest.mark.parametrize("frame", ["key", "inter"])
+def test_k5_row_walk_equals_diagonals(frame):
+    """80x48 (3 x 5 macroblocks): a key frame at one level, and an
+    interframe at G = 2 levels, three row-walk orders each."""
+    args = _k5_args(frame == "key", [40] if frame == "key" else [20, 63])
+    want = loop_filter_plain(*args)
+    assert not torch.equal(want[0], args[0])      # the filter changed pixels
+    for seed in SEEDS:
+        got = loop_filter_plain(*args, order=row_order(3, 5, lf_cuda.ROW_LAG,
+                                                       seed))
+        assert _equal(got, want), seed
+
+
+def test_k5_lag_one_breaks_the_filter():
+    """The negative control: with lag 1 a macroblock's top edge may be
+    filtered before the left edge of its above-right neighbour, which
+    writes pixels of the macroblock above that the top edge reads; some
+    order gives other planes."""
+    args = _k5_args(True, [63])
+    want = loop_filter_plain(*args)
+    assert any(not _equal(loop_filter_plain(*args,
+                                            order=row_order(3, 5, 1, seed)),
+                          want)
+               for seed in SEEDS)
+
+
 # -------------------------------------------- one source for the chain
 
 CHAIN = ("clamp_mv", "luma_taps", "sixtap_pred", "warp_sum", "census_load",
@@ -205,3 +319,21 @@ def test_decision_chain_defined_once(name):
     assert files == ["enc_inter_chain.cuh"]
     for kernel in ("enc_inter.cu", "enc_decide.cu"):
         assert '#include "enc_inter_chain.cuh"' in (csrc / kernel).read_text()
+
+
+@pytest.mark.parametrize("name", ["filter_edge", "lf_line",
+                                  "lf_filter_window"])
+def test_loop_filter_defined_once(name):
+    """The per-macroblock loop filter of K1's diagonal phase and K5's row
+    walk is defined once, in csrc/wavefront_device.cuh, and both kernels
+    call lf_filter_window."""
+    csrc = REPO / "alfalfa_tpu_torch" / "csrc"
+    pat = re.compile(r"__device__[^;{(]*\b%s\s*\(" % name)
+    files = [p.name for p in sorted(csrc.iterdir())
+             if p.suffix in (".cu", ".cuh") and pat.search(p.read_text())]
+    assert files == ["wavefront_device.cuh"]
+    src = (csrc / "wavefront_device.cuh").read_text()
+    for kernel in ("lf_diag_kernel", "lf_row_kernel"):
+        body = src[src.index(" %s(" % kernel):]
+        body = body[:body.index("\n}\n")]
+        assert "lf_filter_window(" in body, kernel
