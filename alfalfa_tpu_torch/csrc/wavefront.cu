@@ -20,17 +20,13 @@
 // gather or transpose cheaply.  Here the planes live in global memory (L2
 // holds them at 720p G=16) and a block addresses its neighbours directly.
 //
-// Design of K1 and K4 (the simple right form): phases are separated in
-// time instead of lagged.  One launch copies the inter-predicted tiles into
-// the planes; then one launch per diagonal predicts the intra macroblocks
-// of that diagonal (grid: MBs of the diagonal x G, 256 threads, B_PRED's
-// 16 sub-blocks as a serial chain in warp 0); K1, when the whole frame is
-// reconstructed, filters it with one launch per diagonal (one warp per
-// macroblock: lanes 0-15 luma rows/columns, 16-23 U, 24-31 V).  Stream
-// order between launches is the only synchronisation, so nothing can wait
-// on an unscheduled block.  Launches per frame: 1 + 2 * (2*(R-1) + C) for
-// K1, 1 + (2*(R-1) + C) for K4.  K4 and K5 take the dense (G, R, C, ...)
-// tiles and (G, H, W) planes that K1 takes, where the TPU kernels took
+// Design of K4 (the simple right form): one launch copies the
+// inter-predicted tiles into the planes; then one launch per diagonal
+// predicts the intra macroblocks of that diagonal (grid: MBs of the
+// diagonal x G, 256 threads, B_PRED's 16 sub-blocks as a serial chain in
+// warp 0).  Stream order between launches is the only synchronisation.
+// Launches per frame: 1 + (2*(R-1) + C).  K1, K4 and K5 take dense
+// (G, R, C, ...) tiles and (G, H, W) planes, where the TPU kernels took
 // skewed (n_diags, R_pad, P) slabs: the skew is a layout of that machine,
 // not of the function.
 //
@@ -50,13 +46,39 @@
 // (a batch stride of 0).  The per-macroblock filter is lf_filter_window,
 // K1's.
 //
+// Design of K1: K5's walk with the reconstruction folded in, one launch
+// per call, persistent.  A warp takes a (row, frame) ticket, the frame
+// inner, and walks its row; each macroblock (r, c) is reconstructed, then
+// filtered, then c + 1 is published.  One counter per (frame, row) at lag
+// 2 (ROW_LAG in ops/wavefront_cuda.py) serves both rules: (r, c) waits for
+// row r-1 to have published min(c + 2, C), so (r-1, c+1) is reconstructed
+// (rule 1) and filtered (rule 2).  Two sets of pixels: the filtered planes
+// the call returns, and the unfiltered bottom pixel row of every
+// macroblock (a sixteenth of the planes), which is all of rule 1 that
+// crosses rows: the left column comes from the previous macroblock of the
+// same walk, kept in a register per lane.  So no unfiltered plane is kept
+// whole, only the pixels another block reads.  An inter macroblock (its
+// rows are its stage-B tile, read a macroblock ahead: K4's untile launch
+// folded into the walk) is in place, its bottom row kept and its vertical
+// edges filtered before the wait.  An intra one is predicted after it,
+// from L2 loads of row r-1's bottom rows and from its residual, which the
+// warp copied into shared memory a macroblock ahead (cp.async): no load
+// waits behind the acquire but those of pixels the row above wrote.  A
+// B_PRED macroblock's 16 sub-blocks run on the warp as K7's do: 10 steps
+// along the diagonals 2 sr + sc, two sub-blocks a step on the half-warps,
+// where K4's kernel chains 16 on one half-warp.  The filter is K5's step
+// (lf_filter_window, the left halo kept in shared memory, the halo above
+// from the output through L2).  A block is one warp: at 720p, G=16, the
+// card holds all 720 (row, frame) warps at once.
+//
 // Bound: on paper memory (tiles and residuals in, planes out, about
 // 6 bytes per luma pixel; K5: planes in and out); in practice the critical
-// path: one dependent launch per diagonal and phase for K1 and K4, each a
-// small grid, with the B_PRED chain of 16 dependent steps inside the
-// intra ones; 2*(R-1) + C macroblocks one after another for K5, each a
-// wait on the row above, an L2 load, the horizontal edges and the stores
-// (the vertical edges overlap the wait).
+// path: one dependent launch per diagonal for K4, each a small grid, with
+// the B_PRED chain of 16 dependent steps inside the intra ones; 2*(R-1) +
+// C macroblocks one after another for K5 and K1, each a wait on the row
+// above, an L2 load, the horizontal edges and the stores (an inter
+// macroblock's vertical edges overlap the wait), and in K1 an intra
+// macroblock's prediction (B_PRED: 10 dependent steps).
 
 #include "wavefront_device.cuh"
 
@@ -74,9 +96,9 @@ static WaveArgs wave_args(void* Y, void* U, void* V, const void* ty,
   return a;
 }
 
-// One launch per diagonal of one phase (0 = intra prediction, 1 = loop
-// filter), in diagonal order on ``st``.  Returns the launches issued.
-static int enqueue_diagonals(const WaveArgs& a, int phase, cudaStream_t st) {
+// One intra_diag_kernel launch per diagonal, in diagonal order on ``st``.
+// Returns the launches issued.
+static int enqueue_diagonals(const WaveArgs& a, cudaStream_t st) {
   int issued = 0;
   const int nd = 2 * (a.R - 1) + a.C;
   for (int d = 0; d < nd; ++d) {
@@ -85,8 +107,7 @@ static int enqueue_diagonals(const WaveArgs& a, int phase, cudaStream_t st) {
     const int r_hi = d / 2 < a.R - 1 ? d / 2 : a.R - 1;
     const int n = r_hi - r_lo + 1;
     if (n <= 0) continue;
-    if (phase == 0) intra_diag_kernel<<<dim3(n, a.G), 256, 0, st>>>(a, d, r_lo);
-    else lf_diag_kernel<<<dim3(n, a.G), 32, 0, st>>>(a, d, r_lo);
+    intra_diag_kernel<<<dim3(n, a.G), 256, 0, st>>>(a, d, r_lo);
     ++issued;
   }
   return issued;
@@ -97,20 +118,41 @@ static int enqueue_diagonals(const WaveArgs& a, int phase, cudaStream_t st) {
 // cudaGetLastError() after the last one (launch errors are sticky until
 // read).
 
-// K1: untile, intra prediction, loop filter (planes written, not read).
+// K1: intra prediction and loop filter of G frames, one persistent launch
+// of G * R warps.  The filtered planes are written whole; ey / eu / ev
+// ((G,R,16C), (G,R,8C)) receive every macroblock's unfiltered bottom pixel
+// row; mbp words 0-9 are read; ``sched`` is 1 + G * R zeroed ints (the
+// ticket, then the rows' progress), ``lag`` the wait rule's lag (2).
 extern "C" int wavefront_decode_launch(
-    void* Y, void* U, void* V, const void* ty, const void* tu, const void* tv,
-    const void* ry, const void* ru, const void* rv, const void* mbp,
-    const void* bmode, int G, int R, int C, void* stream, int* n_launched) {
-  const WaveArgs a = wave_args(Y, U, V, ty, tu, tv, ry, ru, rv, mbp, bmode,
-                               G, R, C);
-  cudaStream_t st = (cudaStream_t)stream;
-  untile_kernel<<<dim3(C, R, G), 256, 0, st>>>(a);
-  int issued = 1;
-  issued += enqueue_diagonals(a, 0, st);
-  issued += enqueue_diagonals(a, 1, st);
-  *n_launched = issued;
+    void* Y, void* U, void* V, void* ey, void* eu, void* ev, const void* ty,
+    const void* tu, const void* tv, const void* ry, const void* ru,
+    const void* rv, const void* mbp, const void* bmode, int G, int R, int C,
+    void* sched, int lag, void* stream, int* n_launched) {
+  WaveRowArgs a;
+  a.Y = (uint8_t*)Y; a.U = (uint8_t*)U; a.V = (uint8_t*)V;
+  a.ey = (uint8_t*)ey; a.eu = (uint8_t*)eu; a.ev = (uint8_t*)ev;
+  a.ty = (const uint8_t*)ty; a.tu = (const uint8_t*)tu; a.tv = (const uint8_t*)tv;
+  a.ry = (const int16_t*)ry; a.ru = (const int16_t*)ru; a.rv = (const int16_t*)rv;
+  a.mbp = (const int16_t*)mbp;
+  a.bmode = (const uint8_t*)bmode;
+  a.G = G; a.R = R; a.C = C;
+  a.rs.ticket = (int*)sched;
+  a.rs.progress = (int*)sched + 1;
+  a.rs.lag = lag;
+  wave_row_kernel<<<G * R, 32, 0, (cudaStream_t)stream>>>(a);
+  *n_launched = 1;
   return (int)cudaGetLastError();
+}
+
+// Blocks of K1's kernel the card ``device`` holds at once (0 on an error).
+extern "C" int wavefront_decode_resident(int device) {
+  int per_sm = 0, sms = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wave_row_kernel,
+                                                    32, 0) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess)
+    return 0;
+  return per_sm * sms;
 }
 
 // K4: untile and intra prediction; the planes come out unfiltered.
@@ -122,7 +164,7 @@ extern "C" int intra_frame_launch(
                                G, R, C);
   cudaStream_t st = (cudaStream_t)stream;
   untile_kernel<<<dim3(C, R, G), 256, 0, st>>>(a);
-  *n_launched = 1 + enqueue_diagonals(a, 0, st);
+  *n_launched = 1 + enqueue_diagonals(a, st);
   return (int)cudaGetLastError();
 }
 

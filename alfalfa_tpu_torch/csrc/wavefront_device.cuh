@@ -1,11 +1,11 @@
 // Device code of the decode wavefront, shared by the three C entries of
-// wavefront.cu: K1 wavefront_decode_launch (GOP batch: untile, intra, loop
-// filter), K4 intra_frame_launch (untile, intra) and K5 loop_filter_launch
-// (loop filter alone).  One copy of the math: untile_kernel,
-// intra_diag_kernel, lf_diag_kernel (K1's filter phase) and lf_row_kernel
-// (K5) with their helpers; the two filter kernels share lf_filter_window.
-// wavefront.cu's header says what these kernels replace and how they are
-// scheduled.
+// wavefront.cu: K1 wavefront_decode_launch (GOP batch: intra prediction and
+// loop filter in one persistent walk), K4 intra_frame_launch (untile,
+// intra) and K5 loop_filter_launch (loop filter alone).  One copy of the
+// math: untile_kernel and intra_diag_kernel (K4), lf_row_kernel (K5) and
+// wave_row_kernel (K1) with their helpers; the two filter kernels share
+// lf_filter_window.  wavefront.cu's header says what these kernels replace
+// and how they are scheduled.
 
 #pragma once
 
@@ -215,36 +215,6 @@ __device__ void filter_edge(int* q, int st, bool mb_edge, int limit, int blimit,
   q[5 * st] = sq1 + 128;
 }
 
-// Window (S+4)^2 of one plane: 4-pixel halo above and left of the MB.
-template <int S>
-__device__ void lf_load(int* win, const uint8_t* P, int Wp, int y0, int x0,
-                        bool do_left, bool do_top, int lane, int nlanes) {
-  constexpr int WS = S + 4;
-  for (int i = lane; i < WS * WS; i += nlanes) {
-    const int wy = i / WS, wx = i % WS;
-    int v = 0;
-    const bool in_left = wx < 4, in_top = wy < 4;
-    if ((!in_left && !in_top) || (in_left && !in_top && do_left) ||
-        (in_top && !in_left && do_top))
-      v = P[(size_t)(y0 - 4 + wy) * Wp + x0 - 4 + wx];
-    win[i] = v;
-  }
-}
-
-template <int S>
-__device__ void lf_store(const int* win, uint8_t* P, int Wp, int y0, int x0,
-                         bool do_left, bool do_top, int lane, int nlanes) {
-  constexpr int WS = S + 4;
-  for (int i = lane; i < WS * WS; i += nlanes) {
-    const int wy = i / WS, wx = i % WS;
-    const bool own = wy >= 4 && wx >= 4;
-    const bool left = wy >= 4 && wx >= 1 && wx < 4 && do_left;
-    const bool top = wx >= 4 && wy >= 1 && wy < 4 && do_top;
-    if (own || left || top)
-      P[(size_t)(y0 - 4 + wy) * Wp + x0 - 4 + wx] = (uint8_t)win[i];
-  }
-}
-
 template <int S>
 __device__ void lf_line(int* line, int st, bool do_mb, bool do_sb, int interior,
                         int mb_lim, int sb_lim, int hev_t) {
@@ -294,32 +264,74 @@ __device__ __forceinline__ void lf_filter_window(int* s_y, int* s_u, int* s_v,
   __syncwarp();
 }
 
-// One warp per macroblock of diagonal d (K1's filter phase).
-__global__ void lf_diag_kernel(WaveArgs a, int d, int r_lo) {
-  const int r = r_lo + blockIdx.x, c = d - 2 * r, g = blockIdx.y;
-  const int mb = (g * a.R + r) * a.C + c;
-  const int16_t* p = a.mbp + (size_t)mb * NP;
-  if (p[4] == 0) return;
-  const int interior = p[5], mb_lim = p[6], sb_lim = p[7], hev_t = p[8];
-  const bool do_sb = p[9] == 0, do_left = c > 0, do_top = r > 0;
-  const int lane = threadIdx.x;
-  const int W = a.C * 16, H = a.R * 16, Wc = W / 2, Hc = H / 2;
-  uint8_t* Yp = a.Y + (size_t)g * H * W;
-  uint8_t* Up = a.U + (size_t)g * Hc * Wc;
-  uint8_t* Vp = a.V + (size_t)g * Hc * Wc;
+// ------------------------------------ the row walkers' macroblock step
 
-  __shared__ int s_y[20 * 20];
-  __shared__ int s_u[12 * 12];
-  __shared__ int s_v[12 * 12];
-  lf_load<16>(s_y, Yp, W, r * 16, c * 16, do_left, do_top, lane, 32);
-  lf_load<8>(s_u, Up, Wc, r * 8, c * 8, do_left, do_top, lane, 32);
-  lf_load<8>(s_v, Vp, Wc, r * 8, c * 8, do_left, do_top, lane, 32);
-  __syncwarp();
-  lf_filter_window(s_y, s_u, s_v, lane, do_left, do_top, do_sb, interior,
-                   mb_lim, sb_lim, hev_t);
-  lf_store<16>(s_y, Yp, W, r * 16, c * 16, do_left, do_top, lane, 32);
-  lf_store<8>(s_u, Up, Wc, r * 8, c * 8, do_left, do_top, lane, 32);
-  lf_store<8>(s_v, Vp, Wc, r * 8, c * 8, do_left, do_top, lane, 32);
+// Byte k of a row held four to a word.
+__device__ __forceinline__ int row_byte(const uint32_t* w, int k) {
+  return (w[k >> 2] >> (8 * (k & 3))) & 255;
+}
+
+// A row of a macroblock's halo above (16 luma or 8 chroma pixels, 4 a
+// word) from the filtered output at ``src``, through L2: the row above's
+// walker wrote it during the launch.
+__device__ __forceinline__ void lf_halo_load(uint32_t (&h)[4],
+                                             const uint8_t* src, bool luma) {
+  if (luma) {
+    const uint4 v = __ldcg(reinterpret_cast<const uint4*>(src));
+    h[0] = v.x; h[1] = v.y; h[2] = v.z; h[3] = v.w;
+  } else {
+    const uint2 v = __ldcg(reinterpret_cast<const uint2*>(src));
+    h[0] = v.x; h[1] = v.y; h[2] = h[3] = 0;
+  }
+}
+
+// The halo row ``h`` (``n`` pixels) into its window row ``dst``.
+__device__ __forceinline__ void lf_halo_put(int* dst, const uint32_t (&h)[4],
+                                            int n) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    if (k < n) dst[k] = row_byte(h, k);
+}
+
+// The end of a macroblock's filter step in lf_row_kernel and
+// wave_row_kernel: this lane's window row ``own`` (``S`` pixels, 16 luma
+// or 8 chroma) out at ``dst`` and, with ``do_left``, the left neighbour's
+// last 3 pixels before it; with ``halo_out`` (the top edge filtered, lanes
+// 1-3, 5-7 and 9-11) the halo row ``hsrc`` (``HS`` pixels) out at ``hd``,
+// one of the last 3 rows of the macroblock above; then the macroblock's
+// last 4 columns kept as the next one's left halo.
+__device__ __forceinline__ void lf_mb_out(int* own, int S, bool luma,
+                                          uint8_t* dst, bool do_left,
+                                          bool halo_out, const int* hsrc,
+                                          int HS, uint8_t* hd) {
+  uint32_t px[4];
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    uint32_t v = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (4 * w + k < S) v |= (uint32_t)own[4 * w + k] << (8 * k);
+    px[w] = v;
+  }
+  if (luma) *reinterpret_cast<uint4*>(dst) = make_uint4(px[0], px[1], px[2], px[3]);
+  else *reinterpret_cast<uint2*>(dst) = make_uint2(px[0], px[1]);
+  if (do_left)
+    for (int k = 1; k < 4; ++k) dst[k - 4] = (uint8_t)own[k - 4];
+  if (halo_out) {
+    uint32_t h[4];
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      uint32_t v = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (4 * w + k < HS) v |= (uint32_t)hsrc[4 * w + k] << (8 * k);
+      h[w] = v;
+    }
+    if (HS == 16) *reinterpret_cast<uint4*>(hd) = make_uint4(h[0], h[1], h[2], h[3]);
+    else *reinterpret_cast<uint2*>(hd) = make_uint2(h[0], h[1]);
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) own[k - 4] = own[S - 4 + k];
 }
 
 // ------------------------------------------------- K5: the persistent form
@@ -410,59 +422,300 @@ __global__ void __launch_bounds__(32) lf_row_kernel(LfRowArgs a) {
                        p[2], p[3], p[4], true, false);
     if (lane == 0 && r > 0) row_wait(prog - 1, min(c + lag, C));
     __syncwarp();
+    int* hdst = hwin + hrow * (HS + 4) + 4;  // lanes 0-11: a halo row
+    uint8_t* habove = hplane + (size_t)(r * HS - 4 + hrow) * hW + c * HS;
     if (do_top && lane < 12) {
-      const uint8_t* src = hplane + (size_t)(r * HS - 4 + hrow) * hW + c * HS;
       uint32_t h[4];
-      if (hp == 0) {
-        const uint4 v = __ldcg(reinterpret_cast<const uint4*>(src));
-        h[0] = v.x; h[1] = v.y; h[2] = v.z; h[3] = v.w;
-      } else {
-        const uint2 v = __ldcg(reinterpret_cast<const uint2*>(src));
-        h[0] = v.x; h[1] = v.y; h[2] = h[3] = 0;
-      }
-      int* dst = hwin + hrow * (HS + 4) + 4;
-#pragma unroll
-      for (int k = 0; k < 16; ++k)
-        if (k < HS) dst[k] = (h[k >> 2] >> (8 * (k & 3))) & 255;
+      lf_halo_load(h, habove, hp == 0);
+      lf_halo_put(hdst, h, HS);
     }
     __syncwarp();
     if (on)
       lf_filter_window(s_y, s_u, s_v, lane, do_left, do_top, p[5] == 0, p[1],
                        p[2], p[3], p[4], false, true);
-    // this lane's row: the macroblock's pixels, and with the left edge
-    // filtered the left neighbour's last 3
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      uint32_t v = 0;
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (4 * w + k < S) v |= (uint32_t)own[4 * w + k] << (8 * k);
-      px[w] = v;
+    lf_mb_out(own, S, luma, out + (size_t)y * Wp + x0, do_left,
+              do_top && lane < 12 && hrow > 0, hdst, HS, habove);
+    __syncwarp();                       // every output of (r, c) written
+    if (lane == 0) row_publish(prog, c + 1);
+  }
+}
+
+// ------------------------------------------------- K1: the persistent form
+
+struct WaveRowArgs {
+  uint8_t *Y, *U, *V;           // filtered planes (G,16R,16C), (G,8R,8C)
+  uint8_t *ey, *eu, *ev;        // the unfiltered bottom pixel row of each
+                                // macroblock: (G,R,16C), (G,R,8C)
+  const uint8_t *ty, *tu, *tv;  // stage-B tiles (G,R,C,S,S)
+  const int16_t *ry, *ru, *rv;  // residual tiles (G,R,C,S,S)
+  const int16_t* mbp;           // (G,R,C,NP), words 0-9
+  const uint8_t* bmode;         // (G,R,C,16)
+  int G, R, C;
+  RowSched rs;                  // progress (G, R)
+};
+
+// The 16 sub-blocks of a B_PRED macroblock on the warp, in 10 steps along
+// the diagonals 2 sr + sc, two sub-blocks a step on the half-warps (a
+// step with one: the second half repeats the first's without writing), as
+// K7's B_PRED candidate (enc_mb_device.cuh) with the b-modes given: a
+// sub-block reads its left, above, above-left and above-right neighbours,
+// all on earlier diagonals.  ``t``: row 0 the macroblock's above-left,
+// above x16 and above-right x4, column 0 its left, cell (1+y, 1+x) pixel
+// (y, x), written here; ``res``: the luma residual, raster (added where
+// ``nz``); ``bm``: the b-modes.
+__device__ __forceinline__ void bpred_chain(int (&t)[17][21], int (&e)[2][13],
+                                            const int16_t* res, bool nz,
+                                            const int* bm, int lane) {
+  const int h = lane >> 4, p = lane & 15, ly = p >> 2, lx = p & 3;
+  for (int d = 0; d < 10; ++d) {
+    // half h takes the (h+1)-th sub-block of diagonal d, in order of rows
+    const int first = d < 3 ? 0 : (d - 2) >> 1;
+    const bool active = first + h <= 3 && d - 2 * (first + h) >= 0;
+    const int sr = active ? first + h : first, sc = d - 2 * sr;
+    const int by = sr * 4, bx = sc * 4;
+    // bpred_pixel's E: the left column bottom-up, above-left, above and
+    // above-right; the right-most sub-block takes its above-right from
+    // the row above the macroblock in every sub-block row
+    int* E = e[h];
+    if (p < 4) E[p] = t[by + 4 - p][bx];
+    else if (p < 9) E[p] = t[by][bx + p - 4];
+    else if (p < 13) E[p] = t[sc == 3 ? 0 : by][bx + p - 4];
+    const int mode = bm[sr * 4 + sc];
+    const int r = nz ? res[(by + ly) * 16 + bx + lx] : 0;
+    __syncwarp();
+    const int pred = bpred_pixel(mode, E, ly, lx);
+    if (active) t[by + 1 + ly][bx + 1 + lx] = clampi(pred + r, 0, 255);
+    __syncwarp();
+  }
+}
+
+// One warp per (row, frame) ticket, the frame inner: the row's macroblocks
+// left to right, each reconstructed and then filtered before the next.
+// Lane ``lane`` owns one pixel row of the macroblock (lanes 0-15 luma
+// rows, 16-23 U rows, 24-31 V rows), reconstructed into the windows
+// lf_filter_window filters, as in lf_row_kernel.  An inter macroblock's
+// rows are its stage-B tile (read a macroblock ahead); they are in place,
+// and its vertical edges filtered, before the wait on row r-1.  An intra
+// macroblock is predicted after the wait from unfiltered neighbours: the
+// left column is the previous macroblock's last one, kept in a register
+// per lane; the row above (with above-left and above-right) is row r-1's
+// unfiltered bottom rows, written during the launch (L2 loads); its
+// residual was copied into shared memory a macroblock ahead (cp.async).
+// Each macroblock writes its own unfiltered bottom rows for row r+1.  The
+// filter is lf_row_kernel's: the left halo kept in shared memory, the
+// halo above from the output through L2.
+__global__ void __launch_bounds__(32) wave_row_kernel(WaveRowArgs a) {
+  const int lane = threadIdx.x;
+  __shared__ int s_y[20 * 20], s_u[12 * 12], s_v[12 * 12];
+  __shared__ int s_t[17][21];  // a B_PRED macroblock's working tile
+  __shared__ int s_e[2][13];   // the edges of the half-warps' sub-blocks
+  __shared__ int s_bm[16];     // its b-modes
+  // the residual tiles (luma raster, then U, V), by macroblock parity
+  __shared__ __align__(16) int16_t s_res[2][384];
+  __shared__ int s_ticket;
+  if (lane == 0) s_ticket = atomicAdd(a.rs.ticket, 1);
+  __syncwarp();
+  const int G = a.G, R = a.R, C = a.C;
+  const int r = s_ticket / G, g = s_ticket % G;
+  const int W = C * 16, H = R * 16, Wc = W / 2, Hc = H / 2;
+  const bool luma = lane < 16, is_u = lane >= 16 && lane < 24;
+  const int S = luma ? 16 : 8, WS = S + 4, Wp = luma ? W : Wc;
+  const int row = luma ? lane : lane & 7;
+  int* win = luma ? s_y : is_u ? s_u : s_v;
+  uint8_t* out = luma ? a.Y + (size_t)g * H * W
+                      : (is_u ? a.U : a.V) + (size_t)g * Hc * Wc;
+  // this plane's unfiltered bottom rows of frame g: row r's is written
+  // here, row r-1's read
+  uint8_t* edge = (luma ? a.ey : is_u ? a.eu : a.ev) + (size_t)g * R * Wp;
+  const size_t mb0 = (size_t)(g * R + r) * C;  // the row's first macroblock
+  const uint8_t* tile = (luma ? a.ty : is_u ? a.tu : a.tv) + mb0 * S * S + row * S;
+  const int16_t* resid = (luma ? a.ry : is_u ? a.ru : a.rv) + mb0 * S * S + row * S;
+  const int res_at = luma ? row * 16 : (is_u ? 256 : 320) + row * 8;
+  // the halo above: lanes 0-3 luma rows, 4-7 U rows, 8-11 V rows
+  const int hp = lane >> 2, hrow = lane & 3, HS = hp ? 8 : 16;
+  int* hwin = hp == 0 ? s_y : hp == 1 ? s_u : s_v;
+  uint8_t* hplane = hp == 0 ? a.Y + (size_t)g * H * W
+                    : (hp == 1 ? a.U : a.V) + (size_t)g * Hc * Wc;
+  const int hW = hp ? Wc : W;
+  int* prog = a.rs.progress + g * R + r;
+  const int lag = a.rs.lag;
+  const int y = r * S + row;             // this lane's plane row
+  const int16_t* mbp = a.mbp + mb0 * NP;
+  const bool hrow_mb = r > 0;
+  int lu = 129;  // this lane's unfiltered pixel left of the macroblock
+
+  // the next macroblock's tile row of this lane (4 pixels a word) and its
+  // words 0-9 (two int16 a word), loaded a macroblock ahead; its residual
+  // row copied into s_res
+  uint32_t nx[4], nw[5];
+  auto fetch = [&](int c) {
+    const uint8_t* src = tile + (size_t)c * S * S;
+    if (luma) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
+      nx[0] = v.x; nx[1] = v.y; nx[2] = v.z; nx[3] = v.w;
+    } else {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(src));
+      nx[0] = v.x; nx[1] = v.y; nx[2] = nx[3] = 0;
     }
-    uint8_t* dst = out + (size_t)y * Wp + x0;
-    if (luma) *reinterpret_cast<uint4*>(dst) = make_uint4(px[0], px[1], px[2], px[3]);
-    else *reinterpret_cast<uint2*>(dst) = make_uint2(px[0], px[1]);
-    if (do_left)
-      for (int k = 1; k < 4; ++k) dst[k - 4] = (uint8_t)own[k - 4];
-    // with the top edge filtered, the last 3 rows of the macroblock above
-    if (do_top && lane < 12 && hrow > 0) {
-      const int* srcw = hwin + hrow * (HS + 4) + 4;
-      uint32_t h[4];
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(mbp + (size_t)c * NP);
+#pragma unroll
+    for (int k = 0; k < 5; ++k) nw[k] = __ldg(w + k);
+    const int16_t* rs = resid + (size_t)c * S * S;
+    int16_t* rd = s_res[c & 1] + res_at;
+    cp_async<16>(rd, rs);
+    if (luma) cp_async<16>(rd + 8, rs + 8);
+  };
+  fetch(0);
+  cp_async_commit();
+  for (int c = 0; c < C; ++c) {
+    const int x0 = c * S;
+    uint32_t px[4] = {nx[0], nx[1], nx[2], nx[3]};
+    int16_t p[10];  // words 0-9
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      p[2 * k] = (int16_t)nw[k];
+      p[2 * k + 1] = (int16_t)(nw[k] >> 16);
+    }
+    // s_res[(c + 1) & 1] was macroblock c-1's: every lane is past it, and
+    // its copy has landed (a group, empty at the end, each macroblock)
+    cp_async_wait<1>();
+    if (c + 1 < C) fetch(c + 1);
+    cp_async_commit();
+    const bool intra = p[3] != 0, nz = p[2] != 0;
+    const bool bpred = intra && p[0] == B_PRED;
+    const bool on = p[4] != 0;
+    const bool do_left = on && c > 0, do_top = on && r > 0;
+    const bool do_sb = p[9] == 0;
+    int* own = win + (4 + row) * WS + 4;
+    uint8_t* ebelow = edge + (size_t)r * Wp + x0;  // row r's, for row r+1
+
+    int bm = 0;    // lanes 0-15: a B_PRED macroblock's b-mode ``lane``
+    if (!intra) {
+      // the tile row is the reconstruction: in place, kept for row r+1,
+      // and the vertical edges (its own row and the kept left halo) before
+      // the wait: they read nothing of row r-1
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+        if (k < S) own[k] = row_byte(px, k);
+      if (row == S - 1) {
+        if (luma) *reinterpret_cast<uint4*>(ebelow) = make_uint4(px[0], px[1], px[2], px[3]);
+        else *reinterpret_cast<uint2*>(ebelow) = make_uint2(px[0], px[1]);
+      }
+      lu = (luma ? px[3] : px[1]) >> 24;
+      if (on)
+        lf_filter_window(s_y, s_u, s_v, lane, do_left, do_top, do_sb, p[5],
+                         p[6], p[7], p[8], true, false);
+    } else if (bpred && lane < 16) {
+      bm = __ldg(a.bmode + (mb0 + c) * 16 + lane);
+    }
+    if (lane == 0 && r > 0) row_wait(prog - 1, min(c + lag, C));
+    __syncwarp();
+    // after the acquire: what row r-1 wrote during the launch, from L2
+    int* hdst = hwin + hrow * (HS + 4) + 4;  // lanes 0-11: a halo row
+    uint8_t* habove = hplane + (size_t)(r * HS - 4 + hrow) * hW + c * HS;
+    uint32_t h[4];
+    if (do_top && lane < 12) lf_halo_load(h, habove, hp == 0);
+    uint32_t A[4] = {0x7f7f7f7fu, 0x7f7f7f7fu, 0x7f7f7f7fu, 0x7f7f7f7fu};
+    int corner = 127, ar = 0x7f7f7f7f;  // above-left; above-right x4 (luma)
+    if (intra && hrow_mb) {
+      // the unfiltered row above: above x S, above-left, above-right
+      const uint8_t* ab = edge + (size_t)(r - 1) * Wp + x0;
+      if (luma) {
+        const uint4 v = __ldcg(reinterpret_cast<const uint4*>(ab));
+        A[0] = v.x; A[1] = v.y; A[2] = v.z; A[3] = v.w;
+      } else {
+        const uint2 v = __ldcg(reinterpret_cast<const uint2*>(ab));
+        A[0] = v.x; A[1] = v.y;
+      }
+      corner = c > 0 ? __ldcg(ab - 1) : 129;
+      // the last column repeats the above row's last pixel
+      if (bpred && lane == 0)
+        ar = c == C - 1 ? 0x01010101 * (A[3] >> 24)
+                        : __ldcg(reinterpret_cast<const int*>(ab + 16));
+    }
+    if (do_top && lane < 12) lf_halo_put(hdst, h, HS);
+    if (intra) {
+      // this macroblock's residual in s_res: this lane's copy landed (the
+      // B_PRED chain reads the others' after the barrier below)
+      cp_async_wait<1>();
+      const int16_t* res = s_res[c & 1];
+      // whole-block prediction of this lane's row (chroma always, luma
+      // unless B_PRED): the DC from the row above and the lanes' left
+      // pixels; the four modes computed and one selected (luma and chroma
+      // lanes take different modes)
+      const int left = c > 0 ? lu : 129;
+      int sa = 0;
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+        if (k < S) sa += row_byte(A, k);
+      int sl = left;
+      sl += __shfl_xor_sync(0xffffffffu, sl, 1);
+      sl += __shfl_xor_sync(0xffffffffu, sl, 2);
+      sl += __shfl_xor_sync(0xffffffffu, sl, 4);
+      const int s8 = __shfl_xor_sync(0xffffffffu, sl, 8);
+      if (luma) sl += s8;  // 16 luma rows; U and V 8 each
+      const int dc = dc_value(sa, sl, hrow_mb, c > 0, luma ? 4 : 3);
+      if (!luma || !bpred) {
+        const int mode = clampi(luma ? p[0] : p[1], 0, 3);
+        const uint4 rv = *reinterpret_cast<const uint4*>(res + res_at);
+        const uint4 rw = luma ? *reinterpret_cast<const uint4*>(res + res_at + 8)
+                              : make_uint4(0, 0, 0, 0);
+        const uint32_t rr[8] = {rv.x, rv.y, rv.z, rv.w, rw.x, rw.y, rw.z, rw.w};
+#pragma unroll
+        for (int k = 0; k < 16; ++k)
+          if (k < S) {
+            const int above = row_byte(A, k);
+            const int pred = mode == 0 ? dc : mode == 1 ? above
+                             : mode == 2 ? left
+                             : clampi(left + above - corner, 0, 255);
+            const int rk = nz ? (int16_t)(rr[k >> 1] >> (16 * (k & 1))) : 0;
+            own[k] = clampi(pred + rk, 0, 255);
+          }
+      } else {
+        s_t[1 + row][0] = left;
+        s_bm[lane] = bm;
+        if (lane == 0) {
+          s_t[0][0] = corner;
+#pragma unroll
+          for (int k = 0; k < 16; ++k) s_t[0][1 + k] = row_byte(A, k);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) s_t[0][17 + k] = (ar >> (8 * k)) & 255;
+        }
+      }
+      if (bpred) {
+        __syncwarp();
+        bpred_chain(s_t, s_e, res, nz, s_bm, lane);
+        if (luma) {
+#pragma unroll
+          for (int k = 0; k < 16; ++k) own[k] = s_t[1 + row][1 + k];
+        }
+      }
+      // the unfiltered row, kept for row r+1 and the next macroblock
+      uint32_t u[4];
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
         uint32_t v = 0;
 #pragma unroll
         for (int k = 0; k < 4; ++k)
-          if (4 * w + k < HS) v |= (uint32_t)srcw[4 * w + k] << (8 * k);
-        h[w] = v;
+          if (4 * w + k < S) v |= (uint32_t)own[4 * w + k] << (8 * k);
+        u[w] = v;
       }
-      uint8_t* hd = hplane + (size_t)(r * HS - 4 + hrow) * hW + c * HS;
-      if (hp == 0) *reinterpret_cast<uint4*>(hd) = make_uint4(h[0], h[1], h[2], h[3]);
-      else *reinterpret_cast<uint2*>(hd) = make_uint2(h[0], h[1]);
+      if (row == S - 1) {
+        if (luma) *reinterpret_cast<uint4*>(ebelow) = make_uint4(u[0], u[1], u[2], u[3]);
+        else *reinterpret_cast<uint2*>(ebelow) = make_uint2(u[0], u[1]);
+      }
+      lu = (luma ? u[3] : u[1]) >> 24;
+      __syncwarp();
+      if (on)
+        lf_filter_window(s_y, s_u, s_v, lane, do_left, do_top, do_sb, p[5],
+                         p[6], p[7], p[8], true, false);
     }
-    // the next macroblock's left halo: this one's last 4 columns, kept
-#pragma unroll
-    for (int k = 0; k < 4; ++k) own[k - 4] = own[S - 4 + k];
+    __syncwarp();
+    if (on)
+      lf_filter_window(s_y, s_u, s_v, lane, do_left, do_top, do_sb, p[5],
+                       p[6], p[7], p[8], false, true);
+    lf_mb_out(own, S, luma, out + (size_t)y * Wp + x0, do_left,
+              do_top && lane < 12 && hrow > 0, hdst, HS, habove);
     __syncwarp();                       // every output of (r, c) written
     if (lane == 0) row_publish(prog, c + 1);
   }

@@ -66,7 +66,8 @@ def _fixup_diag(st, r, c, q, rm, dm, mbc):
         [wm, uvm, (coeffs != 0).flatten(1).any(dim=1).to(torch.int64)], 1)
 
 
-def intra_fixup_frame_plain(oy, ou, ov, md, y, u, v, scalars, mbc):
+def intra_fixup_frame_plain(oy, ou, ov, md, y, u, v, scalars, mbc,
+                            order=None):
     """Plain version of ops.enc_intra_fixup_cuda.intra_fixup_frame (same
     contract, any device).
 
@@ -80,7 +81,12 @@ def intra_fixup_frame_plain(oy, ou, ov, md, y, u, v, scalars, mbc):
     Returns coeffs (Q, R, C, 25, 16) int16 (zero at inter macroblocks),
     modes (Q, R, C, FIXUP_WORDS) int32 [whole mode, chroma mode, any
     nonzero coefficient] (zero at inter macroblocks), and the final
-    unfiltered (Q, 16R, 16C), (Q, 8R, 8C), (Q, 8R, 8C) uint8 planes."""
+    unfiltered (Q, 16R, 16C), (Q, 8R, 8C), (Q, 8R, 8C) uint8 planes.
+
+    The macroblocks go in ``order`` (default the anti-diagonals d = r + c;
+    any list of (rows, cols) in which every macroblock comes after its
+    left, above and above-left neighbours, such as
+    ops.wavefront.row_order's at lag 1)."""
     dev = oy.device
     R, C = oy.shape[0] // 16, oy.shape[1] // 16
     mbc = mbc.to(dev, torch.int64)
@@ -96,7 +102,7 @@ def intra_fixup_frame_plain(oy, ou, ov, md, y, u, v, scalars, mbc):
                                   device=dev))
         intra_mb = md[qn, :, :, 0] == 0
         q = tuple(int(x) for x in sc[:6])
-        for rs, cs in diagonals(R, C, 1):
+        for rs, cs in diagonals(R, C, 1) if order is None else order:
             r, c = torch.tensor(rs, device=dev), torch.tensor(cs, device=dev)
             keep = intra_mb[r, c]
             if bool(keep.any()):

@@ -1,9 +1,10 @@
 """``intra_fixup_frame``: the whole-mode intra encode of the macroblocks
 that K9 left intra in a fast rt interframe, on the card, at one or several
-quantizers, as the hand-written CUDA kernel ``enc_fixup_diag_kernel`` of
-csrc/enc_intra_fixup.cu (entry ``intra_fixup_frame_launch``: one launch
-per macroblock diagonal r + c, R + C - 1 per call, the quantizers on the
-grid's second axis; inter macroblocks' blocks return at once).
+quantizers, as the hand-written CUDA kernel ``enc_fixup_row_kernel`` of
+csrc/enc_intra_fixup.cu (entry ``intra_fixup_frame_launch``): one launch
+per call, persistent, a block per (row, quantizer) that copies its row's
+inter macroblocks and then walks its intra ones, waiting for the row above
+to publish ``ROW_LAG`` macroblocks beyond the column (csrc/row_sched.cuh).
 
 Replaces the TPU kernel alfalfa_tpu/ops/enc_intra_fixup_pallas.py:
 intra_fixup_frame, with H1 (csrc/enc_transforms.cuh) inside; the source
@@ -17,7 +18,8 @@ import functools
 
 import torch
 
-from alfalfa_tpu_torch._build import c_entry, check_tensor, launch
+from alfalfa_tpu_torch._build import (c_entry, check_aligned, check_tensor,
+                                     launch, resident_blocks)
 from alfalfa_tpu_torch.ops.enc_decide import DECIDE_WORDS
 from alfalfa_tpu_torch.ops.enc_inter import N_SCALARS
 from alfalfa_tpu_torch.ops.enc_intra_fixup import (FIXUP_WORDS,
@@ -27,10 +29,27 @@ launches = 0        # op launches so far (not plain-version calls)
 kernel_launches = 0  # ``<<<>>>`` launches the C entry reported issuing
 
 
+# Intra macroblock (r, c) waits until row r - 1 has published
+# min(c + ROW_LAG, C) macroblocks: it reads its left, above and above-left
+# neighbours (d = r + c).
+ROW_LAG = 1
+
+# the C entry's arguments before the stream: originals, decisions, planes
+# in, planes out, coefficients, modes, scalars, mode costs; Q, R, C; the
+# schedule
+ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
+            + [ctypes.c_void_p, ctypes.c_int])
+
+
 @functools.cache
 def _entry():
-    return c_entry("enc_intra_fixup", "intra_fixup_frame_launch",
-                   [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3)
+    return c_entry("enc_intra_fixup", "intra_fixup_frame_launch", ARGTYPES)
+
+
+def resident(device):
+    """Blocks of the kernel the card ``device`` holds at once."""
+    return resident_blocks("enc_intra_fixup", "intra_fixup_frame_resident",
+                           device)
 
 
 def intra_fixup_frame(oy, ou, ov, md, y, u, v, scalars, mbc):
@@ -67,15 +86,22 @@ def intra_fixup_frame(oy, ou, ov, md, y, u, v, scalars, mbc):
     check_tensor("md", md, torch.int32, (Q, R, C, DECIDE_WORDS), dev)
     check_tensor("scalars", scalars, torch.int32, (Q, N_SCALARS), dev)
     check_tensor("mbc", mbc, torch.int32, (5,), dev)
-    # intra macroblocks are encoded in place in the copies: inter ones are
-    # final already
-    Y, U, V = y.clone(), u.clone(), v.clone()
-    coeffs = torch.zeros((Q, R, C, 25, 16), dtype=torch.int16, device=dev)
-    modes = torch.zeros((Q, R, C, FIXUP_WORDS), dtype=torch.int32,
+    # the originals are staged, and the inter macroblocks copied, in 8- and
+    # 16-byte words
+    check_aligned(oy=(oy, 16), ou=(ou, 8), ov=(ov, 8), y=(y, 16), u=(u, 8),
+                  v=(v, 8))
+    # written whole by the kernel: inter macroblocks copied (coefficients
+    # and modes zero), intra ones encoded
+    Y, U, V = (torch.empty_like(t) for t in (y, u, v))
+    coeffs = torch.empty((Q, R, C, 25, 16), dtype=torch.int16, device=dev)
+    modes = torch.empty((Q, R, C, FIXUP_WORDS), dtype=torch.int32,
                         device=dev)
+    # the ticket, then each (quantizer, row)'s progress (zeroed: one memset)
+    sched = torch.zeros(1 + Q * R, dtype=torch.int32, device=dev)
     issued = launch(_entry(), "intra_fixup_frame", dev,
-                    *(t.data_ptr() for t in (oy, ou, ov, md, Y, U, V, coeffs,
-                                             modes, scalars, mbc)), Q, R, C)
+                    *(t.data_ptr() for t in (oy, ou, ov, md, y, u, v, Y, U, V,
+                                             coeffs, modes, scalars, mbc)),
+                    Q, R, C, sched.data_ptr(), ROW_LAG)
     launches += 1
     kernel_launches += issued
     return coeffs, modes, Y, U, V

@@ -200,9 +200,32 @@ def loop_filter_plain(y, u, v, lf_params, order=None):
 
 
 def wavefront_decode_plain(y, u, v, res_y, res_u, res_v, ymode, uvmode,
-                           bmode, has_nonzero, intra_mask, lf_params):
+                           bmode, has_nonzero, intra_mask, lf_params,
+                           order=None):
     """Plain version of ops.wavefront_cuda.wavefront_decode (same
-    contract, any device): intra_frame_plain, then loop_filter_plain."""
-    return loop_filter_plain(
-        *intra_frame_plain(y, u, v, res_y, res_u, res_v, ymode, uvmode,
-                           bmode, has_nonzero, intra_mask), lf_params)
+    contract, any device).  By default intra_frame_plain, then
+    loop_filter_plain.  With ``order`` (a list of (rows, cols) in which
+    every macroblock comes after those whose pixels it reads or writes,
+    such as row_order's), the kernel's two planes: each macroblock in
+    turn is predicted from the unfiltered tiles, copied into the filtered
+    ones and filtered there."""
+    if order is None:
+        return loop_filter_plain(
+            *intra_frame_plain(y, u, v, res_y, res_u, res_v, ymode, uvmode,
+                               bmode, has_nonzero, intra_mask), lf_params)
+    G, R, C = ymode.shape
+    Ty, Tu, Tv = (t.to(torch.int32) for t in (y, u, v))     # fresh copies
+    # U and V filter alike: one batch of 2G chroma tiles
+    Fy, Fuv = Ty.clone(), torch.cat([Tu, Tv])
+    lf_uv = tuple(torch.cat([x, x]) for x in lf_params)
+    for rs, cs in order:
+        _intra_diag(Ty, Tu, Tv, rs, cs, res_y, res_u, res_v, ymode, uvmode,
+                    bmode, has_nonzero, intra_mask, R, C)
+        r = torch.tensor(rs, device=y.device)
+        c = torch.tensor(cs, device=y.device)
+        Fy[:, r, c] = Ty[:, r, c]
+        Fuv[:, r, c] = torch.cat([Tu[:, r, c], Tv[:, r, c]])
+        _lf_diag(((Fy, 16),), rs, cs, lf_params)
+        _lf_diag(((Fuv, 8),), rs, cs, lf_uv)
+    U, V = untile(Fuv).chunk(2)
+    return untile(Fy), U, V

@@ -1,22 +1,23 @@
 """``wavefront_decode``: intra prediction and loop filter of G frames in
-lockstep, as the hand-written CUDA kernels of csrc/wavefront.cu.
+lockstep, as the hand-written CUDA kernel ``wave_row_kernel`` of
+csrc/wavefront.cu (entry ``wavefront_decode_launch``): one launch per call,
+persistent, a warp per (row, frame) walking its row, reconstructing and
+then filtering each macroblock, and waiting for the same frame's row above
+to publish ``ROW_LAG`` macroblocks beyond its column (csrc/row_sched.cuh).
 
 Replaces the TPU kernel alfalfa_tpu/ops/wavefront_pm.py:
 wavefront_frame_batch_pm; the source note in the .cu file says what was
 kept, what bounds it and what the design does about it.  Its plain version
 is ops.wavefront.wavefront_decode_plain: ``wavefront_decode`` takes it for
-CPU tensors only.  A CUDA tensor launches the kernels or raises.
-
-One call enqueues its kernel launches from C (one per diagonal and phase,
-plus one) and counts as one launch of the op; ``kernel_launches`` sums the
-number the C entry reports having issued.
+CPU tensors only.  A CUDA tensor launches the kernel or raises.
 """
 import ctypes
 import functools
 
 import torch
 
-from alfalfa_tpu_torch._build import c_entry, check_map, check_tensor, launch
+from alfalfa_tpu_torch._build import (c_entry, check_aligned, check_map,
+                                     check_tensor, launch, resident_blocks)
 from alfalfa_tpu_torch.ops.wavefront import wavefront_decode_plain
 
 launches = 0        # op launches so far (not plain-version calls)
@@ -24,14 +25,29 @@ kernel_launches = 0  # ``<<<>>>`` launches the C entry reported issuing
 
 NP = 12             # int16 words per macroblock, see csrc/wavefront_device.cuh
 
-# the argument types shared by wavefront_decode_launch and intra_frame_launch:
-# planes out, tiles, residuals, words, bmode; G, R, C
+# Macroblock (r, c) waits until row r - 1 has published min(c + ROW_LAG, C)
+# macroblocks: its intra prediction reads the unfiltered pixels of
+# (r-1, c+1), and its top edge the pixels of (r-1, c) that (r-1, c+1)'s
+# left edge writes (d = 2r + c).
+ROW_LAG = 2
+
+# intra_frame_launch's arguments (ops/intra_cuda.py): planes out, tiles,
+# residuals, words, bmode; G, R, C
 WAVE_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+# wavefront_decode_launch's: planes out, the unfiltered bottom rows, tiles,
+# residuals, words, bmode; G, R, C; the schedule
+ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
+            + [ctypes.c_void_p, ctypes.c_int])
 
 
 @functools.cache
 def _entry():
-    return c_entry("wavefront", "wavefront_decode_launch", WAVE_ARGTYPES)
+    return c_entry("wavefront", "wavefront_decode_launch", ARGTYPES)
+
+
+def resident(device):
+    """Blocks (warps) of the kernel the card ``device`` holds at once."""
+    return resident_blocks("wavefront", "wavefront_decode_resident", device)
 
 
 def pack_mb_params(ymode=None, uvmode=None, has_nonzero=None, intra_mask=None,
@@ -95,13 +111,24 @@ def wavefront_decode(y, u, v, res_y, res_u, res_v, ymode, uvmode, bmode,
             "intra_mask": intra_mask}
     maps.update(("lf_params[%d]" % i, t) for i, t in enumerate(lf_params))
     check_wave_inputs(dev, G, R, C, y, u, v, res_y, res_u, res_v, bmode, maps)
+    # the kernel reads tile and residual rows and the b-modes in 8- and
+    # 16-byte words
+    check_aligned(y=(y, 16), u=(u, 8), v=(v, 8), res_y=(res_y, 16),
+                  res_u=(res_u, 16), res_v=(res_v, 16), bmode=(bmode, 16))
     mbp = pack_mb_params(ymode, uvmode, has_nonzero, intra_mask, lf_params)
     Y, U, V = empty_planes(G, R, C, dev)
+    # every macroblock's unfiltered bottom pixel row, written and read
+    # during the launch: the row below predicts from them
+    ey = torch.empty((G, R, C * 16), dtype=torch.uint8, device=dev)
+    eu, ev = (torch.empty((G, R, C * 8), dtype=torch.uint8, device=dev)
+              for _ in range(2))
+    # the ticket, then each (frame, row)'s progress (zeroed: one memset)
+    sched = torch.zeros(1 + G * R, dtype=torch.int32, device=dev)
     issued = launch(_entry(), "wavefront_decode", dev,
-                    Y.data_ptr(), U.data_ptr(), V.data_ptr(),
-                    y.data_ptr(), u.data_ptr(), v.data_ptr(),
-                    res_y.data_ptr(), res_u.data_ptr(), res_v.data_ptr(),
-                    mbp.data_ptr(), bmode.data_ptr(), G, R, C)
+                    *(t.data_ptr() for t in (Y, U, V, ey, eu, ev, y, u, v,
+                                             res_y, res_u, res_v, mbp,
+                                             bmode)),
+                    G, R, C, sched.data_ptr(), ROW_LAG)
     launches += 1
     kernel_launches += issued
     return Y, U, V

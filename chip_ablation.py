@@ -3,11 +3,14 @@
 
     python3 chip_ablation.py                  # from the repo root
     python3 chip_ablation.py --parent DIR     # also: K7's clocked phases on
-                                              # DIR's sources, K9's, K10's,
-                                              # K1's and K4's machine code
-                                              # against DIR's, and K10, K4,
-                                              # K1 and K8 timed against
+                                              # DIR's sources, the machine
+                                              # code of K4, K5, K7, K8 and
+                                              # K9 against DIR's, and K10,
+                                              # K4, K5, K1 and K8 timed against
                                               # DIR's in alternation
+    python3 chip_ablation.py --kernels k1,sass,pairs --parent DIR
+                                              # K1's and K10's steps undone,
+                                              # the machine code, the pairs
     python3 chip_ablation.py --kernels k7     # K7's clocked phases only
 
 Writes variants of alfalfa_tpu_torch/csrc/ into build/ablation/<variant>/,
@@ -23,9 +26,14 @@ K7's "clocked" variant adds thread 0's clock64() per phase and prints
 cycles a macroblock.  K8 and K9 (kernels k8): K8 (encode_inter_frame) best
 and rt at qi 48, the rt pair, seeded extreme motion, K9
 (decide_inter_frame) one quantizer and the pair; its "clocked" variant
-prints K8's phases.  The pairs (kernels pairs, with --parent): each case
-of K10, K4, K1 and K8 timed from DIR's library and from this checkout's,
-alternating which goes first, 12 readings a side.  Prints JSON lines;
+prints K8's phases.  K1 and K10 (kernels k1): K1 (wavefront_decode) on
+the GOP decoder's 720p G=16 interframe and key frame, K10
+(intra_fixup_frame) on the fast path's 720p frame 1, pair and scene cut and
+176x144.  The pairs (kernels pairs, with --parent): each case of K10, K4,
+K5, K1 and K8 timed from DIR's library and from this checkout's, alternating
+which goes first, 12 readings a side (DIR's K1 and K10 through their
+parent's wrappers, which the entries' arguments of this checkout no longer
+fit).  Prints JSON lines;
 exits non-zero without a CUDA device or if a variant does not build or its
 output differs.
 
@@ -400,13 +408,11 @@ def entry(name, src):
     return f
 
 
-# the kernels a redesign of K5 and K7 leaves alone: K9's library, K1's and
-# K4's diagonal kernels in the library they share with K5, and K10, which
-# shares K7's steps
-SAME_SASS = {"enc_decide": None,
-             "wavefront": ("untile_kernel", "intra_diag_kernel",
-                           "lf_diag_kernel"),
-             "enc_intra_fixup": None}
+# the kernels a redesign of K1 and K10 leaves alone: K4's and K5's in the
+# library they share with K1, and K7's, K8's and K9's libraries
+SAME_SASS = {"wavefront": ("untile_kernel", "intra_diag_kernel",
+                           "lf_row_kernel"),
+             "enc_intra": None, "enc_inter": None, "enc_decide": None}
 
 
 def sass_functions(so, cuobjdump):
@@ -562,6 +568,21 @@ def device_tables(s):
     return rep(s, "  t.mbc = tab_mbc;\n  t.bcost = tab_bcost;\n", "")
 
 
+def in_kernel(head, edit):
+    """``edit`` applied to the body of the kernel whose definition starts
+    with ``head`` alone (K1's and K5's kernels have lines of the same
+    text)."""
+    def edited(s):
+        i = s.index(head)
+        j = s.index("\n}\n", i) + 3
+        return s[:i] + edit(s[i:j]) + s[j:]
+    return edited
+
+
+def in_k5(edit):
+    return in_kernel("lf_row_kernel(LfRowArgs a) {", edit)
+
+
 def k5_no_prefetch(s):
     """K5 loads a macroblock's input row and limits when it reaches it, not
     one macroblock ahead."""
@@ -670,27 +691,6 @@ __global__ void __launch_bounds__(256) abl_kf_diag(EncArgs a, int d,
   *n_launched = issued;""")
 
 
-def diagonal_k5(s):
-    """K5 as the parent launched it: the input copied into the output on
-    the stream (a frame a copy where it is broadcast), then one launch per
-    diagonal filtering it in place."""
-    return rep(s, """  lf_row_kernel<<<G * R, 32, 0, (cudaStream_t)stream>>>(a);
-  *n_launched = 1;""", """  cudaStream_t st = (cudaStream_t)stream;
-  const size_t ny = (size_t)R * 16 * C * 16, nc = ny / 4;
-  for (int g = 0; g < (in_batch ? 1 : G); ++g) {
-    const size_t k = in_batch ? G : 1;
-    cudaMemcpyAsync((uint8_t*)Y + g * ny, y_in, k * ny,
-                    cudaMemcpyDeviceToDevice, st);
-    cudaMemcpyAsync((uint8_t*)U + g * nc, u_in, k * nc,
-                    cudaMemcpyDeviceToDevice, st);
-    cudaMemcpyAsync((uint8_t*)V + g * nc, v_in, k * nc,
-                    cudaMemcpyDeviceToDevice, st);
-  }
-  *n_launched = enqueue_diagonals(
-      wave_args(Y, U, V, nullptr, nullptr, nullptr, nullptr, nullptr,
-                nullptr, mbp, nullptr, G, R, C), 1, st);""")
-
-
 def k5_whole_wait(s):
     """K5 waits on the row above before a macroblock's vertical edges too,
     not only before its horizontal ones."""
@@ -708,20 +708,6 @@ def k5_whole_wait(s):
     return s
 
 
-def halo_reloaded(s):
-    """K5's left halo loaded again from the output (the lane's own row,
-    stored at the previous macroblock) instead of kept in shared memory."""
-    s = rep(s, """#pragma unroll
-    for (int k = 0; k < 4; ++k) own[k - 4] = own[S - 4 + k];
-""", "")
-    return rep(s, """    // the vertical edges (each lane its own row and the kept left halo)
-""", """    if (do_left)
-      for (int k = 0; k < 4; ++k)
-        own[k - 4] = out[(size_t)y * Wp + x0 - 4 + k];
-    // the vertical edges (each lane its own row and the kept left halo)
-""")
-
-
 # variant: {file: edit}, built from SOURCES_K7
 VARIANTS_K7 = {
     "kept": {},
@@ -733,12 +719,221 @@ VARIANTS_K7 = {
     "device_tables": {"enc_intra.cu": device_tables},
     "serial_walks": {"enc_mb_device.cuh": serial_walks},
     "diagonal_k7": {"enc_intra.cu": diagonal_k7},
-    "diagonal_k5": {"wavefront.cu": diagonal_k5},
-    "halo_reloaded": {"wavefront_device.cuh": halo_reloaded},
-    "k5_no_prefetch": {"wavefront_device.cuh": k5_no_prefetch},
-    "k5_whole_wait": {"wavefront_device.cuh": k5_whole_wait},
+    "k5_no_prefetch": {"wavefront_device.cuh": in_k5(k5_no_prefetch)},
+    "k5_whole_wait": {"wavefront_device.cuh": in_k5(k5_whole_wait)},
 }
 SOURCES_K7 = ("enc_intra", "wavefront", "enc_inter")
+
+
+# ---- K1 and K10: each step of their redesign undone
+
+def k1_serial_bpred(s):
+    """K1's B_PRED sub-blocks one a step in raster order, both halves of
+    the warp alike, not two a step along the diagonals 2 sr + sc."""
+    return rep(s, """  for (int d = 0; d < 10; ++d) {
+    // half h takes the (h+1)-th sub-block of diagonal d, in order of rows
+    const int first = d < 3 ? 0 : (d - 2) >> 1;
+    const bool active = first + h <= 3 && d - 2 * (first + h) >= 0;
+    const int sr = active ? first + h : first, sc = d - 2 * sr;""",
+               """  for (int d = 0; d < 16; ++d) {
+    const bool active = h == 0;
+    const int sr = d >> 2, sc = d & 3;""")
+
+
+def k1_whole_wait(s):
+    """K1 filters an inter macroblock's vertical edges after the wait on
+    the row above, not before it."""
+    s = rep(s, """      lu = (luma ? px[3] : px[1]) >> 24;
+      if (on)
+        lf_filter_window(s_y, s_u, s_v, lane, do_left, do_top, do_sb, p[5],
+                         p[6], p[7], p[8], true, false);
+""", """      lu = (luma ? px[3] : px[1]) >> 24;
+""")
+    return rep(s, """    if (lane == 0 && r > 0) row_wait(prog - 1, min(c + lag, C));
+    __syncwarp();
+""", """    if (lane == 0 && r > 0) row_wait(prog - 1, min(c + lag, C));
+    __syncwarp();
+    if (!intra && on)
+      lf_filter_window(s_y, s_u, s_v, lane, do_left, do_top, do_sb, p[5],
+                       p[6], p[7], p[8], true, false);
+""")
+
+
+def k10_every(s):
+    """K10 visits every macroblock of its row, encoding the intra ones, and
+    publishes after each, not once per run of inter macroblocks."""
+    s = rep(s, "k < C && md[(size_t)k * DECIDE_WORDS] == 0", "k < C")
+    return rep(s, "    fixup_mb(a, P, s,",
+               "    if (md[(size_t)c * DECIDE_WORDS] == 0) fixup_mb(a, P, s,")
+
+
+def k10_publish_every(s):
+    """k10_every, waiting only before an intra macroblock."""
+    return rep(k10_every(s), "if (tid == 0 && r > 0) row_wait(",
+               "if (tid == 0 && r > 0 && md[(size_t)c * DECIDE_WORDS] == 0) "
+               "row_wait(")
+
+
+K1_PHASES = ("before_wait", "wait", "loads", "intra_dc", "intra_rows",
+             "bpred_chain", "intra_pack", "intra_vertical", "horizontal",
+             "stores_publish")
+
+
+def k1_clocked_globals(s):
+    """The phase counters of k1_clocked (K1_PHASES, then the intra and the
+    B_PRED macroblocks counted) and their C entries."""
+    return rep(s, '#include "row_sched.cuh"\n', '''#include "row_sched.cuh"
+
+__device__ unsigned long long g_k1phase[16];
+extern "C" int k1_phase_read(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_k1phase, sizeof(g_k1phase));
+}
+extern "C" int k1_phase_zero() {
+  unsigned long long z[16] = {0};
+  return (int)cudaMemcpyToSymbol(g_k1phase, z, sizeof(z));
+}
+#define K1_TICK(k) if (lane == 0) { t2_ = clock64(); ph_[k] += t2_ - t_; t_ = t2_; }
+''')
+
+
+def k1_clocked(s):
+    """Lane 0's clock64() per phase of K1's macroblock step (K1_PHASES),
+    summed over the warps; the intra phases over intra macroblocks only,
+    the chain over B_PRED ones."""
+    s = rep(s, "  fetch(0);\n",
+            "  long long ph_[12] = {0}, t_ = clock64(), t2_;\n"
+            "  int n_intra_ = 0, n_bpred_ = 0;\n  fetch(0);\n")
+    s = rep(s, "    if (lane == 0 && r > 0) row_wait(prog - 1, min(c + lag, C));\n"
+               "    __syncwarp();\n",
+            "    K1_TICK(0)\n"
+            "    if (lane == 0 && r > 0) row_wait(prog - 1, min(c + lag, C));\n"
+            "    __syncwarp();\n    K1_TICK(1)\n")
+    s = rep(s, "    if (intra) {\n      // this macroblock's residual",
+            "    K1_TICK(2)\n    n_intra_ += intra;\n    n_bpred_ += bpred;\n"
+            "    if (intra) {\n      // this macroblock's residual")
+    s = rep(s, "      const int dc = dc_value(sa, sl, hrow_mb, c > 0, luma ? 4 : 3);\n",
+            "      const int dc = dc_value(sa, sl, hrow_mb, c > 0, luma ? 4 : 3);\n"
+            "      K1_TICK(3)\n")
+    s = rep(s, "      if (bpred) {\n        __syncwarp();\n",
+            "      K1_TICK(4)\n      if (bpred) {\n        __syncwarp();\n")
+    s = rep(s, "          for (int k = 0; k < 16; ++k) own[k] = s_t[1 + row][1 + k];\n"
+               "        }\n      }\n",
+            "          for (int k = 0; k < 16; ++k) own[k] = s_t[1 + row][1 + k];\n"
+            "        }\n        K1_TICK(5)\n      }\n")
+    s = rep(s, "      lu = (luma ? u[3] : u[1]) >> 24;\n      __syncwarp();\n",
+            "      lu = (luma ? u[3] : u[1]) >> 24;\n      __syncwarp();\n"
+            "      K1_TICK(6)\n")
+    s = rep(s, "    __syncwarp();\n    if (on)\n      lf_filter_window(s_y, s_u, "
+               "s_v, lane, do_left, do_top, do_sb, p[5],\n                       "
+               "p[6], p[7], p[8], false, true);\n",
+            "    __syncwarp();\n    K1_TICK(7)\n    if (on)\n      "
+            "lf_filter_window(s_y, s_u, s_v, lane, do_left, do_top, do_sb, "
+            "p[5],\n                       p[6], p[7], p[8], false, true);\n"
+            "    K1_TICK(8)\n")
+    return rep(s, "    if (lane == 0) row_publish(prog, c + 1);\n  }\n}",
+               "    if (lane == 0) row_publish(prog, c + 1);\n    K1_TICK(9)\n"
+               "  }\n  if (lane == 0) {\n    for (int k = 0; k < 10; ++k)\n"
+               "      atomicAdd(&g_k1phase[k], (unsigned long long)ph_[k]);\n"
+               "    atomicAdd(&g_k1phase[14], (unsigned long long)n_intra_);\n"
+               "    atomicAdd(&g_k1phase[15], (unsigned long long)n_bpred_);\n"
+               "  }\n}")
+
+
+K1_HEAD = "wave_row_kernel(WaveRowArgs a) {"
+# variant: {file: edit}, built from SOURCES_K1
+VARIANTS_K1 = {
+    "kept": {},
+    "k1_serial_bpred": {"wavefront_device.cuh": k1_serial_bpred},
+    "k1_whole_wait": {"wavefront_device.cuh": in_kernel(K1_HEAD,
+                                                        k1_whole_wait)},
+    "k10_publish_every": {"enc_intra_fixup.cu": k10_publish_every},
+    "k10_wait_every": {"enc_intra_fixup.cu": k10_every},
+    "k1_clocked": {"wavefront_device.cuh": lambda s: in_kernel(
+        K1_HEAD, k1_clocked)(k1_clocked_globals(s))},
+}
+SOURCES_K1 = ("wavefront", "enc_intra_fixup")
+
+
+def lib_entry(path, fn, types):
+    """The C entry ``fn`` of the library ``path``, typed as a wrapper types
+    it (``types``, then the stream and the launch count)."""
+    f = getattr(ctypes.CDLL(path), fn)
+    f.restype = ctypes.c_int
+    f.argtypes = list(types) + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    return f
+
+
+def k1_k10_cases():
+    """[(wrapper, case, args)]: K1 on the GOP decoder's 720p G=16 frames,
+    K10 on the fast path's 720p frame 1, pair and scene cut and 176x144."""
+    ivf = cs.IVFReader(cs.CLIP)
+    kept = cs.real_kernel_inputs([ivf.frame(i) for i in (0, 1)], ivf.width,
+                                 ivf.height, cs.G)
+    out = [(wavefront_cuda.wavefront_decode, "k1_" + k, kept["wave_" + k])
+           for k in ("inter", "key")]
+    sm = cs.decoded_frames(cs.SMALL_CLIP, (0, 1))
+    big = cs.decoded_frames(cs.CLIP, (0, 1, 5))
+    for case, (a, b, key_qi, qis) in {
+            "k10_frame1": (big[0], big[1], 48, [cs.FAST_QI]),
+            "k10_pair": (big[0], big[1], cs.FAST_PAIR_KEY_QI,
+                         cs.FAST_PAIR_QIS),
+            "k10_scene_cut": (big[5], big[0], 48, [cs.FAST_QI]),
+            "k10_176x144": (sm[0], sm[1], 48, [cs.FAST_QI])}.items():
+        out.append((enc_intra_fixup_cuda.intra_fixup_frame, case,
+                    cs.fast_kernel_inputs(a, b, key_qi, qis)[1]))
+    return out
+
+
+def run_k1_k10(card):
+    """Time K1 and K10 with each step of their redesign undone
+    (VARIANTS_K1), "kept" first and last."""
+    write_variants(VARIANTS_K1)
+    t0 = time.perf_counter()
+    logs = build([(os.path.join(OUT, n, "lib%s.so" % src),
+                   os.path.join(OUT, n, src + ".cu"))
+                  for n in VARIANTS_K1 for src in SOURCES_K1])
+    cs.say("ablation_build", seconds=time.perf_counter() - t0,
+           ptxas={os.path.relpath(k, OUT): v for k, v in logs.items()})
+    cases = k1_k10_cases()
+    saved = wavefront_cuda._entry, enc_intra_fixup_cuda._entry
+    ref, ok = {}, True
+    try:
+        for name in list(VARIANTS_K1) + ["kept"]:
+            d = os.path.join(OUT, name)
+            wavefront_cuda._entry = lambda d=d: lib_entry(
+                os.path.join(d, "libwavefront.so"), "wavefront_decode_launch",
+                wavefront_cuda.ARGTYPES)
+            enc_intra_fixup_cuda._entry = lambda d=d: lib_entry(
+                os.path.join(d, "libenc_intra_fixup.so"),
+                "intra_fixup_frame_launch", enc_intra_fixup_cuda.ARGTYPES)
+            ms, equal = {}, {}
+            for fn, case, a in cases:
+                out = fn(*a)
+                ref.setdefault(case, out)
+                equal[case] = all(torch.equal(x, y)
+                                  for x, y in zip(out, ref[case]))
+                ms[case] = cs.time_ms(lambda: fn(*a), 20)
+            ok &= all(equal.values())
+            cs.say("ablation", variant=name, card=card, ms=ms, equal=equal)
+            if name == "k1_clocked":
+                lib = ctypes.CDLL(os.path.join(d, "libwavefront.so"))
+                buf = (ctypes.c_ulonglong * 16)()
+                for fn, case, a in cases[:2]:
+                    lib.k1_phase_zero()
+                    fn(*a)
+                    torch.cuda.synchronize()
+                    lib.k1_phase_read(buf)
+                    n, n_intra, n_bpred = a[6].numel(), buf[14], buf[15]
+                    per = [n] * 3 + [max(n_intra, 1)] * 2 + [max(n_bpred, 1)] \
+                        + [max(n_intra, 1)] * 2 + [n] * 2
+                    cs.say("ablation_k1_phases", case=case, card=card,
+                           macroblocks=n, intra=n_intra, b_pred=n_bpred,
+                           cycles_per_macroblock={
+                               p: buf[i] / per[i]
+                               for i, p in enumerate(K1_PHASES)})
+    finally:
+        wavefront_cuda._entry, enc_intra_fixup_cuda._entry = saved
+    return ok
 
 
 def k7_variant_entry(lib_path, persistent):
@@ -850,13 +1045,14 @@ def main():
         raise SystemExit("chip_ablation.py needs a CUDA device")
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", help="a checkout of the parent commit")
-    ap.add_argument("--kernels", default="k7,k5,k8,pairs",
-                    help="comma-separated: k7 (its clocked phases), k5 (K7's "
-                         "and K5's variants), k8 (K8's and K9's, with "
-                         "--parent also the machine code), sass (the "
-                         "machine code alone, with --parent), pairs "
-                         "(with --parent: K10, K4, K1 and K8 timed from the "
-                         "parent's library and this one's in alternation)")
+    ap.add_argument("--kernels", default="k1,k7,k5,k8,pairs",
+                    help="comma-separated: k1 (K1's and K10's variants), k7 "
+                         "(K7's clocked phases), k5 (K7's and K5's "
+                         "variants), k8 (K8's and K9's, with --parent also "
+                         "the machine code), sass (the machine code alone, "
+                         "with --parent), pairs (with --parent: K10, K4, K5, "
+                         "K1 and K8 timed from the parent's library and this "
+                         "one's in alternation)")
     ap.add_argument("--pairs", type=int, default=12,
                     help="readings of each side in the pairs")
     args = ap.parse_args()
@@ -865,6 +1061,8 @@ def main():
     cs.say("ablation_env", card=card, device=torch.cuda.get_device_name(0))
     os.makedirs(OUT, exist_ok=True)
     ok = True
+    if "k1" in kernels:
+        ok &= run_k1_k10(card)
     if "k7" in kernels:
         k7_clocked(card, _build.CSRC_DIR, "here")
         if args.parent:
@@ -954,20 +1152,67 @@ def run_k8_k9(card, parent):
 # ---- the kernels this redesign holds to the parent: each case timed from
 # the parent's library and from this checkout's in alternation
 
-# source: (its C entry, the argument types, the wrapper's module)
+# C entry: (the argument types this checkout's wrapper gives it, the
+# wrapper's module)
 PAIR_ENTRIES = {
-    "enc_intra_fixup": ("intra_fixup_frame_launch",
-                        [_PTR] * 11 + [_INT] * 3, enc_intra_fixup_cuda),
-    "enc_inter": ENTRIES["enc_inter"] + (enc_inter_cuda,),
+    "intra_fixup_frame_launch": (enc_intra_fixup_cuda.ARGTYPES,
+                                 enc_intra_fixup_cuda),
+    "encode_inter_frame_launch": (ENTRIES["enc_inter"][1], enc_inter_cuda),
+    "intra_frame_launch": (wavefront_cuda.WAVE_ARGTYPES, intra_cuda),
+    "wavefront_decode_launch": (wavefront_cuda.ARGTYPES, wavefront_cuda),
+    "loop_filter_launch": (lf_cuda.ARGTYPES, lf_cuda),
 }
-PAIR_WAVE = {"intra_frame_launch": intra_cuda,
-             "wavefront_decode_launch": wavefront_cuda}
+
+
+def parent_k1(entry):
+    """K1's wrapper as the parent had it, around the parent's ``entry``
+    (planes out, tiles, residuals, words, bmode; G, R, C)."""
+    def wrapper(y, u, v, res_y, res_u, res_v, ymode, uvmode, bmode,
+                has_nonzero, intra_mask, lf_params):
+        G, R, C = ymode.shape
+        mbp = wavefront_cuda.pack_mb_params(ymode, uvmode, has_nonzero,
+                                            intra_mask, lf_params)
+        Y, U, V = wavefront_cuda.empty_planes(G, R, C, y.device)
+        _build.launch(entry, "parent wavefront_decode", y.device,
+                      *(t.data_ptr() for t in (Y, U, V, y, u, v, res_y,
+                                               res_u, res_v, mbp, bmode)),
+                      G, R, C)
+        return Y, U, V
+    return wrapper
+
+
+def parent_k10(entry):
+    """K10's wrapper as the parent had it, around the parent's ``entry``
+    (originals, decisions, planes encoded in place, coefficients, modes,
+    scalars, mode costs; Q, R, C): the planes cloned, the coefficients and
+    modes zeroed."""
+    def wrapper(oy, ou, ov, md, y, u, v, scalars, mbc):
+        Q, R, C = md.shape[:3]
+        Y, U, V = y.clone(), u.clone(), v.clone()
+        coeffs = torch.zeros((Q, R, C, 25, 16), dtype=torch.int16,
+                             device=oy.device)
+        modes = torch.zeros((Q, R, C, 3), dtype=torch.int32, device=oy.device)
+        _build.launch(entry, "parent intra_fixup_frame", oy.device,
+                      *(t.data_ptr() for t in (oy, ou, ov, md, Y, U, V,
+                                               coeffs, modes, scalars, mbc)),
+                      Q, R, C)
+        return coeffs, modes, Y, U, V
+    return wrapper
+
+
+# the parent's argument types and wrappers of the entries whose arguments
+# this checkout changed
+PARENT_WRAPPERS = {
+    "wavefront_decode_launch": (wavefront_cuda.WAVE_ARGTYPES, parent_k1),
+    "intra_fixup_frame_launch": ([_PTR] * 11 + [_INT] * 3, parent_k10),
+}
 
 
 def pair_cases():
     """[(source, C entry, case, wrapper, args)]: K10 on the fast path's four
-    cases, K4 and K1 on the decoders' 720p frames, K8 on chip_smoke.py's
-    720p and 176x144 cases."""
+    cases, K4, K5 and K1 on the decoders' 720p frames (K5 also on the
+    encoders' loop-filter search call), K8 on chip_smoke.py's 720p and
+    176x144 cases."""
     ivf = cs.IVFReader(cs.CLIP)
     payloads = [ivf.frame(i) for i in range(len(ivf))]
     sm = cs.decoded_frames(cs.SMALL_CLIP, (0, 1))
@@ -986,6 +1231,11 @@ def pair_cases():
     for f, label in ((1, "interframe"), (0, "key frame")):
         out.append(("wavefront", "intra_frame_launch", "k4 720p " + label,
                     intra_cuda.intra_frame, sf[("intra_frame", f)][0]))
+    for label, args in (("frame 1", sf[("loop_filter", 1)][0]),
+                        ("key frame qi24 search",
+                         cs.k5_search_inputs(big[0], 24))):
+        out.append(("wavefront", "loop_filter_launch", "k5 720p " + label,
+                    lf_cuda.loop_filter, args))
     kept = cs.real_kernel_inputs(payloads, ivf.width, ivf.height, cs.G)
     for key, label in (("wave_inter", "interframe"), ("wave_key", "key frame")):
         out.append(("wavefront", "wavefront_decode_launch",
@@ -1022,20 +1272,23 @@ def parent_pairs(card, parent, pairs):
     cs.say("ablation_build", variant="pairs", ptxas={
         os.path.relpath(k, OUT): v for k, v in build(jobs).items()})
 
-    def typed(tag, src, fn):
-        types = (PAIR_ENTRIES[src][1] if src in PAIR_ENTRIES
-                 else wavefront_cuda.WAVE_ARGTYPES)
-        f = getattr(ctypes.CDLL(os.path.join(OUT, "pairs", tag,
-                                             "lib%s.so" % src)), fn)
-        f.restype = ctypes.c_int
-        f.argtypes = list(types) + [ctypes.c_void_p,
-                                    ctypes.POINTER(ctypes.c_int)]
-        return f
+    def typed(tag, src, fn, types):
+        return lib_entry(os.path.join(OUT, "pairs", tag, "lib%s.so" % src),
+                         fn, types)
 
     ok = True
     for src, fn, case, wrapper, args in pair_cases():
-        mod = PAIR_ENTRIES[src][2] if src in PAIR_ENTRIES else PAIR_WAVE[fn]
-        entries = {tag: typed(tag, src, fn) for tag in ("parent", "here")}
+        types, mod = PAIR_ENTRIES[fn]
+        here = typed("here", src, fn, types)
+        calls = {"here": wrapper}
+        if fn in PARENT_WRAPPERS:
+            ptypes, make = PARENT_WRAPPERS[fn]
+            calls["parent"] = make(typed("parent", src, fn, ptypes))
+            parent = here
+        else:
+            calls["parent"] = wrapper
+            parent = typed("parent", src, fn, types)
+        entries = {"here": here, "parent": parent}
         saved = mod._entry
         outs, ms = {}, {"parent": [], "here": []}
         try:
@@ -1043,9 +1296,10 @@ def parent_pairs(card, parent, pairs):
                 for tag in (("parent", "here") if i % 2 == 0
                             else ("here", "parent")):
                     mod._entry = lambda t=tag: entries[t]
+                    call = calls[tag]
                     if tag not in outs:
-                        outs[tag] = wrapper(*args)
-                    ms[tag].append(cs.time_ms(lambda: wrapper(*args), 10))
+                        outs[tag] = call(*args)
+                    ms[tag].append(cs.time_ms(lambda: call(*args), 10))
         finally:
             mod._entry = saved
         tup = lambda x: x if isinstance(x, tuple) else (x,)

@@ -17,13 +17,13 @@ two-pass, as the fused 2-QP pair and on seeded extreme motion, and K9
 (decide_inter_frame) and K10 (intra_fixup_frame) on what the fast path
 hands them at 720p (one quantizer, the pair, a scene cut) and 176x144, on
 decoded frames of the fixtures; K5 also on the encoders' 8-level
-loop-filter search call and at G=16 on the GOP clip.  K5, K7, K8 and K9
-are persistent (one launch a call, blocks walking rows behind progress
-flags): each of their 720p cases runs 10 (K5, K7) or REPEATS (K8, K9) times
-more, every run held to the plain output, since a race between rows would
-show only now and then, and each runs once more with more (row, frame or
-quantizer) blocks than the card holds at once.  Then it drives the paths
-over
+loop-filter search call and at G=16 on the GOP clip.  K1, K5, K7, K8, K9
+and K10 are persistent (one launch a call, blocks walking rows behind
+progress flags): each of their 720p cases runs 10 (K5, K7) or REPEATS (K1,
+K8, K9, K10) times more, every run held to the plain output, since a race
+between rows would show only now and then, and each runs once more with
+more (row, frame or quantizer) blocks than the card holds at once.  Then it
+drives the paths over
 tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
 
 - main_path: 16 lockstep GOPs through BatchedGopDecoder.decode_stream
@@ -45,8 +45,9 @@ tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
   minihash, and the stream stays within the serial rt encoder's RD band.
 
 Each path runs with the launch counts set to 0 just before it and read
-just after, and every K5, K7, K8 and K9 call of the single-frame and encode
-paths is checked to be one kernel launch (`persistent_launches`); the last
+just after, and every K1 call of the GOP path and every K5, K7, K8, K9 and
+K10 call of the single-frame and encode paths is checked to be one kernel
+launch (`main_path`, `persistent_launches`); the last
 lines are the `kernels` JSON line (one entry per kernel), the card's name
 and power limit, and the result line.
 Each phase prints JSON lines; any failure is a non-zero exit.  There is no
@@ -293,13 +294,23 @@ def k5_bound(y, u, v, lfp):
                  lf_ops(lfp))
 
 
-def k1_case(label, args):
+def k1_case(label, args, repeats=0):
     return kernel_case("wavefront_decode", label,
                        wavefront_cuda.wavefront_decode,
                        wavefront.wavefront_decode_plain, args,
                        lambda: wavefront_cuda.kernel_launches, k1_bound,
+                       repeats=repeats, frames=args[6].shape[0],
                        intra_mbs=int(args[10].sum().item()),
                        filtered_mbs=int((args[11][0] > 0).sum().item()))
+
+
+def k1_tiled(args, G):
+    """wavefront_decode's arguments ``args`` repeated frame by frame over
+    G frames."""
+    def rep(t):
+        n = -(-G // t.shape[0])
+        return t.repeat((n,) + (1,) * (t.dim() - 1))[:G].contiguous()
+    return tuple(rep(t) for t in args[:11]) + (tuple(rep(t) for t in args[11]),)
 
 
 def k4_case(label, args):
@@ -768,14 +779,20 @@ def k10_bound(md):
 def fast_kernel_inputs(key, frame, key_qi, qis):
     """K9's and K10's arguments as the fast path hands them over for the
     decoded ``frame`` at the quantizers ``qis``, after a fast rt encoder on
-    the card has encoded ``key`` as a key frame at ``key_qi``: one
-    fast_frame call with its two kernel wrappers recorded (they run as
-    usual)."""
+    the card has encoded ``key`` as a key frame at ``key_qi``."""
     e = Encoder(key.display_width, key.display_height, quality="rt",
                 fast=True, device=DEV)
     e.encode_with_quantizer(key.display(), key_qi, key_frame=True)
+    return recorded_fast_frame(e, frame.display(), qis)
+
+
+def recorded_fast_frame(e, planes, qis):
+    """K9's and K10's arguments as the fast rt encoder ``e`` hands them
+    over for the (y, u, v) ``planes`` at the quantizers ``qis``: one
+    fast_frame call with its two kernel wrappers recorded (they run as
+    usual)."""
     args = encode_inter_fast.frame_inputs(
-        e, frame.display(), [QuantIndices(y_ac_qi=q) for q in qis])
+        e, planes, [QuantIndices(y_ac_qi=q) for q in qis])
     kept = {}
     saved = {n: getattr(encode_inter_fast, n)
              for n in ("decide_inter_frame", "intra_fixup_frame")}
@@ -811,6 +828,17 @@ def k9_extreme(seed, width, height, shift, qis):
     return oy, ly, scalars, icost, (mvc2p, pcost, sadcost, mvcost)
 
 
+def k10_scene_cut(seed, width, height, qis):
+    """intra_fixup_frame's arguments as fast_frame hands them over for a
+    seeded scene cut at the quantizers ``qis``: LAST one
+    extreme_motion_planes texture, the original another (seed + 1) upside
+    down, so that most macroblocks go intra, many of them neighbours."""
+    e, _ = extreme_encoder(seed, width, height, 8, quality="rt", fast=True)
+    _, other = extreme_motion_planes(seed + 1, width, height, 8)
+    return recorded_fast_frame(
+        e, tuple(np.ascontiguousarray(p[::-1]) for p in other), qis)[1]
+
+
 def k9_case(label, args, repeats=0):
     seen = {}
 
@@ -834,15 +862,16 @@ def k9_case(label, args, repeats=0):
     return case
 
 
-def k10_case(label, args):
+def k10_case(label, args, repeats=0):
     md = args[3]
     R, C = md.shape[1:3]
     return kernel_case("intra_fixup_frame", label,
                        enc_intra_fixup_cuda.intra_fixup_frame,
                        enc_intra_fixup.intra_fixup_frame_plain, args,
                        lambda: enc_intra_fixup_cuda.kernel_launches,
-                       lambda *a: k10_bound(md), quantizers=md.shape[0],
-                       mbs=R * C, intra_mbs=int((md[..., 0] == 0).sum().item()))
+                       lambda *a: k10_bound(md), repeats=repeats,
+                       quantizers=md.shape[0], mbs=R * C,
+                       intra_mbs=int((md[..., 0] == 0).sum().item()))
 
 
 def helper_plain_ms(blocks=3600 * 25, seed=7):
@@ -1225,9 +1254,8 @@ def fast_encode_phase(card, width, height, serial_rt_ms):
     FAST_ENCODE_SHA1); returns its result line."""
     rasters = decoded_frames(CLIP, tuple(range(6)))
     frames = {k: r.display() for k, r in rasters.items()}
-    R, C = (height + 15) // 16, (width + 15) // 16
-    # K9 is persistent (one launch a call), K10 a launch per diagonal r + c
-    per_call = {"decide_inter_frame": 1, "intra_fixup_frame": R + C - 1}
+    # K9 and K10 are persistent: one launch a call
+    per_call = {"decide_inter_frame": 1, "intra_fixup_frame": 1}
 
     # the fast path: counters to 0 just before, read just after; K9's and
     # K10's plain versions must not run on the card
@@ -1566,9 +1594,17 @@ def main():
         k2_case("frame1 chroma", *kept["mc_u"]),
         k2_case("synthetic extreme MVs luma", *k2_synthetic(16, 16)),
         k2_case("synthetic extreme MVs chroma", *k2_synthetic(8, 24)),
-        k1_case("frame1 interframe", kept["wave_inter"]),
-        k1_case("frame0 key frame", kept["wave_key"]),
+        k1_case("frame1 interframe", kept["wave_inter"], REPEATS),
+        k1_case("frame0 key frame", kept["wave_key"], REPEATS),
     ]
+    # more (row, frame) warps than the card holds at once: the key frame
+    # repeated over enough frames
+    res1 = wavefront_cuda.resident(DEV)
+    g1 = over_residency_rows(res1, 1) // (ivf.height // 16) + 1
+    say("kernels", kernel="wavefront_decode", resident_blocks=res1,
+        over_residency_blocks=g1 * (ivf.height // 16))
+    cases.append(k1_case("720p G=%d over-residency frame0 key frame" % g1,
+                         k1_tiled(kept["wave_key"], g1)))
     # K5 at G=16 on the GOP clip's unfiltered interframe planes (K4's)
     wi = kept["wave_inter"]
     k5_gop = k5_case("720p G=16 GOP frame1 interframe",
@@ -1679,7 +1715,8 @@ def main():
                                                           [FAST_QI]))]
     k9 = [k9_case(label, a9, REPEATS if label.startswith("720p") else 0)
           for label, (a9, _) in fast_in]
-    k10 = [k10_case(label, a10) for label, (_, a10) in fast_in]
+    k10 = [k10_case(label, a10, REPEATS if label.startswith("720p") else 0)
+           for label, (_, a10) in fast_in]
     del sm, big, fast_in
     res9 = enc_decide_cuda.resident(DEV)
     rows9 = over_residency_rows(res9, len(FAST_PAIR_QIS))
@@ -1687,14 +1724,25 @@ def main():
         over_residency_blocks=rows9 * len(FAST_PAIR_QIS))
     k9.append(k9_case("176x%d over-residency extreme motion pair" % (16 * rows9),
                       k9_extreme(46, 176, 16 * rows9, 40, FAST_PAIR_QIS)))
+    res10 = enc_intra_fixup_cuda.resident(DEV)
+    rows10 = over_residency_rows(res10, len(FAST_PAIR_QIS))
+    say("kernels", kernel="intra_fixup_frame", resident_blocks=res10,
+        over_residency_blocks=rows10 * len(FAST_PAIR_QIS))
+    k10.append(k10_case("176x%d over-residency scene cut pair" % (16 * rows10),
+                        k10_scene_cut(48, 176, 16 * rows10, FAST_PAIR_QIS)))
     say("kernels", helpers=helper_plain_ms())
     if quick:
         return
 
-    # main path: counters to 0 just before, read just after
-    zero_counts()
-    got, _ = decode_all(payloads, ivf.width, ivf.height, digest=True)
-    gop_calls, gop_kernels = read_counts()
+    # main path: counters to 0 just before, read just after; every K1 call
+    # recorded
+    k1_calls, undo = record_launches({"wavefront_decode": wavefront_cuda})
+    try:
+        zero_counts()
+        got, _ = decode_all(payloads, ivf.width, ivf.height, digest=True)
+        gop_calls, gop_kernels = read_counts()
+    finally:
+        undo()
     ok = [d == want for d in got]
     say("main_path", gops=G, frames=len(payloads), width=ivf.width,
         height=ivf.height, sha1_ok=ok, launches=gop_calls,
@@ -1703,6 +1751,9 @@ def main():
         raise SystemExit("decoded frames differ from the manifest SHA-1")
     if gop_calls["sixtap_mc"] <= 0 or gop_calls["wavefront_decode"] <= 0:
         raise SystemExit("the main path did not launch both kernels")
+    if set(k1_calls["wavefront_decode"]) != {1}:
+        raise SystemExit("a K1 call of the main path issued other than one "
+                         "kernel launch")
 
     # throughput: a few whole passes, device drained before each clock read
     passes = []
@@ -1731,23 +1782,26 @@ def main():
     say("device_profile", **device_profile(
         lambda: decode_all(payloads, ivf.width, ivf.height, digest=False)))
 
-    # every K5, K7, K8 and K9 call of the single-frame and encode paths:
-    # one persistent launch
+    # every K5, K7, K8, K9 and K10 call of the single-frame and encode
+    # paths, and every K1 call of the main path: one persistent launch
     per_call, undo = record_launches({"loop_filter": lf_cuda,
                                       "encode_kf_frame": enc_intra_cuda,
                                       "encode_inter_frame": enc_inter_cuda,
-                                      "decide_inter_frame": enc_decide_cuda})
+                                      "decide_inter_frame": enc_decide_cuda,
+                                      "intra_fixup_frame":
+                                          enc_intra_fixup_cuda})
     try:
         single, kf, inter, fast = persistent_paths(card, payloads, want,
                                                    ivf.width, ivf.height)
     finally:
         undo()
+    per_call.update(k1_calls)
     persistent = {k: {"calls": len(v), "launches_per_call": sorted(set(v))}
                   for k, v in per_call.items()}
     say("persistent_launches", **persistent)
     if any(not v or set(v) != {1} for v in per_call.values()):
-        raise SystemExit("a K5, K7, K8 or K9 call of the single-frame and "
-                         "encode paths issued other than one kernel launch")
+        raise SystemExit("a K1, K5, K7, K8, K9 or K10 call of its paths "
+                         "issued other than one kernel launch")
     sf_calls = single["launches"]
     # each kernel's calls on every path it runs on
     calls_on_paths = {k: sum(line["launches"][k]

@@ -1,13 +1,15 @@
-"""The persistent row walks of K5, K7, K8 and K9 on the CPU, no JAX: the
-plain versions driven one macroblock at a time in orders that row walkers
-under the progress-flag rule of csrc/row_sched.cuh could produce, with the
-very lags the wrappers pass to the card (``lf_cuda.ROW_LAG``,
-``enc_intra_cuda.ROW_LAG``, ``enc_inter_cuda.ROW_LAG``,
-``enc_decide_cuda.ROW_LAG``), are ``torch.equal`` to the anti-diagonal
-order; one lag less gives a different result, so each rule is tight and
-the test can fail.  And the decision chain K8 and K9 share, and the loop
-filter K1 and K5 share, are each defined once under csrc/.
+"""The persistent row walks of K1, K5, K7, K8, K9 and K10 on the CPU, no
+JAX: the plain versions driven one macroblock at a time in orders that row
+walkers under the progress-flag rule of csrc/row_sched.cuh could produce,
+with the very lags the wrappers pass to the card (``wavefront_cuda.ROW_LAG``,
+``lf_cuda.ROW_LAG``, ``enc_intra_cuda.ROW_LAG``, ``enc_inter_cuda.ROW_LAG``,
+``enc_decide_cuda.ROW_LAG``, ``enc_intra_fixup_cuda.ROW_LAG``), are
+``torch.equal`` to the anti-diagonal order; one lag less gives a different
+result, so each rule is tight and the test can fail.  And the decision
+chain K8 and K9 share, and the loop filter K1 and K5 share, are each
+defined once under csrc/.
 """
+import functools
 import pathlib
 import re
 import sys
@@ -28,10 +30,17 @@ from alfalfa_tpu_torch.encoder import encoder as ENC
 from alfalfa_tpu_torch.encoder.costs import rd_multipliers
 from alfalfa_tpu_torch.encoder.encode_intra import QUANT_KEYS
 from alfalfa_tpu_torch.encoder.trellis import token_costs_pm
+from alfalfa_tpu_torch.decoder import reconstruct_torch as RT
 from alfalfa_tpu_torch.ops import enc_batch, enc_decide, enc_decide_cuda, \
-    enc_inter, enc_inter_cuda, enc_intra, enc_intra_cuda, lf_cuda
+    enc_inter, enc_inter_cuda, enc_intra, enc_intra_cuda, \
+    enc_intra_fixup_cuda, lf_cuda, wavefront_cuda
+from alfalfa_tpu_torch.ops.enc_intra_fixup import intra_fixup_frame_plain
+from alfalfa_tpu_torch.ops import wavefront
 from alfalfa_tpu_torch.ops.wavefront import (diagonals, loop_filter_plain,
-                                             row_order, tile)
+                                             row_order, tile,
+                                             wavefront_decode_plain)
+from alfalfa_tpu_torch.parallel import gop
+from alfalfa_tpu_torch.util.ivf import IVFReader
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / "tests" / "fixtures"))
@@ -117,15 +126,19 @@ def test_row_order_obeys_the_flag_rule(lag):
 
 
 def test_wrappers_pass_the_lags_of_the_reads():
-    """K5, K7 and K8 reach their above-right neighbour (diagonals 2r + c:
-    K7's and K8's B_PRED reads its pixels, K5's top edge must find the
-    pixels its left edge writes), K9 its left, above and above-left
-    (r + c): the lags the kernels run with are those of the diagonals the
-    plain versions walk by default."""
+    """K1, K5, K7 and K8 reach their above-right neighbour (diagonals
+    2r + c: K1's intra prediction and K7's and K8's B_PRED read its pixels,
+    K1's and K5's top edge must find the pixels its left edge writes), K9
+    and K10 their left, above and above-left (r + c): the lags the kernels
+    run with are those of the diagonals the plain versions walk by
+    default."""
     assert enc_inter_cuda.ROW_LAG == 2 and enc_decide_cuda.ROW_LAG == 1
     assert enc_intra_cuda.ROW_LAG == 2 and lf_cuda.ROW_LAG == 2
+    assert wavefront_cuda.ROW_LAG == 2 and enc_intra_fixup_cuda.ROW_LAG == 1
     for k, lag in ((2, enc_inter_cuda.ROW_LAG), (1, enc_decide_cuda.ROW_LAG),
-                   (2, enc_intra_cuda.ROW_LAG), (2, lf_cuda.ROW_LAG)):
+                   (2, enc_intra_cuda.ROW_LAG), (2, lf_cuda.ROW_LAG),
+                   (2, wavefront_cuda.ROW_LAG),
+                   (1, enc_intra_fixup_cuda.ROW_LAG)):
         # every macroblock of diagonal d waits only on earlier diagonals
         for d, (rs, cs) in enumerate(diagonals(6, 9, k)):
             for r, c in zip(rs, cs):
@@ -301,6 +314,126 @@ def test_k5_lag_one_breaks_the_filter():
                for seed in SEEDS)
 
 
+# --------------------------------------- the plain K1 in row-walk orders
+
+K1_CLIPS = ("inter_176x144_q96.ivf", "inter_176x144_q32.ivf")
+
+
+@functools.cache
+def _k1_args():
+    """K1's arguments as the GOP decoder hands them over at G = 2 (the two
+    176x144 clips of K1_CLIPS in lockstep, 9 x 11 macroblocks) for frame 0,
+    a key frame, and frame 2, an interframe; each frame is decoded through
+    the plain K1 for the next one's references."""
+    ivfs = [IVFReader(str(REPO / "tests" / "fixtures" / n)) for n in K1_CLIPS]
+    dec = gop.BatchedGopDecoder(ivfs[0].width, ivfs[0].height, len(ivfs),
+                                device="cpu")
+    kept = {}
+    for f in range(3):
+        key_frame, batch, _flags, _show = dec.parse_frame_batch(
+            [i.frame(f) for i in ivfs])
+        mega, spec_r, spec_c, _off = gop._pack_merged(batch)
+        d = gop._unpack_upload(dec._upload(mega), spec_r + spec_c)
+        inp, fls = dec._step_inputs(key_frame, d)
+        y, u, v, res_y, res_u, res_v, intra = RT._stage_ab(
+            key_frame, inp["coeffs"], inp["qf"], inp["y2_coded"],
+            inp["has_nonzero"], inp["ref_sel"], inp["sub_mv"], inp["uv_mv"],
+            dec.refs)
+        args = (y, u, v, res_y, res_u, res_v, inp["ymode"], inp["uvmode"],
+                inp["bmode"], inp["has_nonzero"], intra, inp["lf_params"])
+        kept["key" if f == 0 else "inter"] = args
+        planes = wavefront_decode_plain(*args)
+        dec.refs = {p: gop.update_references(dec.refs[p], r, fls, key_frame)
+                    for p, r in zip("yuv", planes)}
+    return kept
+
+
+@pytest.mark.parametrize("frame", ["key", "inter"])
+def test_k1_row_walk_equals_diagonals(frame):
+    """176x144 at G = 2: a key frame (B_PRED macroblocks, filter levels 4
+    and 25) and an interframe with intra macroblocks, three row-walk
+    orders each, every macroblock predicted from the unfiltered pixels and
+    filtered in the other planes as the kernel does it."""
+    args = _k1_args()[frame]
+    ymode, intra, level = args[6], args[10], args[11][0]
+    assert ymode.shape[0] >= 2 and (level > 0).any()
+    assert ((ymode == wavefront.B_PRED) & intra).any()
+    assert frame == "key" or 0 < int(intra.sum()) < intra.numel() // 2
+    want = wavefront_decode_plain(*args)
+    G, R, C = ymode.shape
+    for seed in SEEDS:
+        got = wavefront_decode_plain(
+            *args, order=row_order(R, C, wavefront_cuda.ROW_LAG, seed))
+        assert _equal(got, want), seed
+
+
+def test_k1_lag_one_breaks_the_wavefront():
+    """The negative control: with lag 1 a macroblock may run before its
+    above-right neighbour, whose unfiltered pixels its prediction reads and
+    whose left edge writes pixels its top edge reads; some order gives
+    other planes."""
+    args = _k1_args()["key"]
+    want = wavefront_decode_plain(*args)
+    G, R, C = args[6].shape
+    assert any(not _equal(wavefront_decode_plain(
+        *args, order=row_order(R, C, 1, seed)), want) for seed in SEEDS)
+
+
+# -------------------------------------- the plain K10 in row-walk orders
+
+def _k10_args(qis):
+    """K10's arguments as the fast path hands them over (fast_frame's call,
+    recorded) for a scene cut at 176x144 (the _k9_args scene cut: most
+    macroblocks intra, many of them neighbours)."""
+    clip = gen_clip(176, 144, 3, seed=23)
+    key, frame = clip[1], (np.ascontiguousarray(clip[0][0][::-1]),
+                           clip[0][1], clip[0][2])
+    enc = Encoder(176, 144, device="cpu", quality="rt", fast=True)
+    enc.encode_with_quantizer(key, qis[0], key_frame=True)
+    args = EF.frame_inputs(enc, frame, [QuantIndices(y_ac_qi=q) for q in qis])
+    kept = []
+    saved = EF.intra_fixup_frame
+
+    def record(*a):
+        kept.append(a)
+        return saved(*a)
+
+    EF.intra_fixup_frame = record
+    try:
+        EF.fast_frame(*args)
+    finally:
+        EF.intra_fixup_frame = saved
+    return kept[0]
+
+
+@pytest.mark.parametrize("qis", [[48], [40, 72]], ids=["one", "pair"])
+def test_k10_row_walk_equals_diagonals(qis):
+    """A 176x144 scene cut at one quantizer and the pair, three row-walk
+    orders each."""
+    args = _k10_args(qis)
+    want = intra_fixup_frame_plain(*args)
+    intra = args[3][..., 0] == 0
+    chained = (intra[:, 1:] & intra[:, :-1]).sum() \
+        + (intra[..., 1:] & intra[..., :-1]).sum()
+    assert int(chained) > 0 and not bool(intra.all())
+    Q, R, C = intra.shape
+    for seed in SEEDS:
+        got = intra_fixup_frame_plain(
+            *args, order=row_order(R, C, enc_intra_fixup_cuda.ROW_LAG, seed))
+        assert _equal(got, want), seed
+
+
+def test_k10_lag_zero_breaks_the_chain():
+    """The negative control: with lag 0 an intra macroblock may run before
+    the one above it, whose reconstruction it predicts from; some order
+    gives another result."""
+    args = _k10_args([48])
+    want = intra_fixup_frame_plain(*args)
+    Q, R, C = args[3].shape[:3]
+    assert any(not _equal(intra_fixup_frame_plain(
+        *args, order=row_order(R, C, 0, seed)), want) for seed in SEEDS)
+
+
 # -------------------------------------------- one source for the chain
 
 CHAIN = ("clamp_mv", "luma_taps", "sixtap_pred", "warp_sum", "census_load",
@@ -324,16 +457,16 @@ def test_decision_chain_defined_once(name):
 @pytest.mark.parametrize("name", ["filter_edge", "lf_line",
                                   "lf_filter_window"])
 def test_loop_filter_defined_once(name):
-    """The per-macroblock loop filter of K1's diagonal phase and K5's row
-    walk is defined once, in csrc/wavefront_device.cuh, and both kernels
-    call lf_filter_window."""
+    """The per-macroblock loop filter of K1's and K5's row walks is defined
+    once, in csrc/wavefront_device.cuh, and both kernels call
+    lf_filter_window."""
     csrc = REPO / "alfalfa_tpu_torch" / "csrc"
     pat = re.compile(r"__device__[^;{(]*\b%s\s*\(" % name)
     files = [p.name for p in sorted(csrc.iterdir())
              if p.suffix in (".cu", ".cuh") and pat.search(p.read_text())]
     assert files == ["wavefront_device.cuh"]
     src = (csrc / "wavefront_device.cuh").read_text()
-    for kernel in ("lf_diag_kernel", "lf_row_kernel"):
+    for kernel in ("wave_row_kernel", "lf_row_kernel"):
         body = src[src.index(" %s(" % kernel):]
         body = body[:body.index("\n}\n")]
         assert "lf_filter_window(" in body, kernel
