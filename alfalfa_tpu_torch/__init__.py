@@ -17,14 +17,16 @@ stages of decode and of key-frame encode written as CUDA kernels:
                  yet), its cost and trellis tables and the serializer
 - ``ops``        transforms, prediction, loop filter, and the wrappers of
                  the CUDA kernels with their plain versions:
-                 ``sixtap_cuda`` (``mc_tiles`` for G frames,
+                 ``sixtap_cuda`` (the three planes' motion compensation
+                 in one launch: ``mc_tiles`` for G frames,
                  ``predict_mb_tiles`` for one), ``wavefront_cuda``
                  (intra prediction + loop filter of G frames),
                  ``intra_cuda`` (intra prediction alone), ``lf_cuda`` (loop
                  filter alone), ``enc_intra_cuda`` (the key-frame encoder's
                  macroblock loop, with transforms and trellis)
 - ``csrc``       CUDA sources of those kernels
-- ``parallel``   BatchedGopDecoder: G GOPs decoded in lockstep
+- ``parallel``   BatchedGopDecoder: G GOPs decoded in lockstep; the
+                 packed, pinned host-to-device upload the decoders share
 - ``cli``        ``python -m alfalfa_tpu_torch.cli.xc decode|decode-raw``
 - ``convert``    codec state, rasters and whole decoders and encoders
                  carried between the packages

@@ -111,11 +111,20 @@ def c_entry(lib, fn, argtypes):
 
 def launch(entry, name, device, *args):
     """Call the C entry on ``device``'s current stream; raise on a CUDA
-    error.  Returns the number of kernel launches the entry issued."""
+    error.  Returns the number of kernel launches the entry issued.
+
+    The stream is read as PyTorch's own launchers read it (its raw
+    handle for a device index), and the device is switched only when it is
+    not the current one: the context manager and the Stream object cost
+    more host time than a small kernel takes on the card."""
+    index = device.index
+    current = torch.cuda.current_device()
+    if index is not None and index != current:
+        with torch.cuda.device(device):
+            return launch(entry, name, torch.device("cuda", index), *args)
     issued = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        rc = entry(*args, torch.cuda.current_stream().cuda_stream,
-                   ctypes.byref(issued))
+    rc = entry(*args, torch._C._cuda_getCurrentRawStream(current),
+               ctypes.byref(issued))
     if rc != 0:
         raise RuntimeError("%s launch failed: CUDA error %d" % (name, rc))
     return issued.value

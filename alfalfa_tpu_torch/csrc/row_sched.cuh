@@ -1,6 +1,7 @@
 // The row scheduler of the persistent wavefront kernels (enc_inter.cu: K8,
-// enc_decide.cu: K9, enc_intra.cu: K7, wavefront.cu: K5): one launch per
-// call, in place of one launch per macroblock anti-diagonal.
+// enc_decide.cu: K9, enc_intra.cu: K7, enc_intra_fixup.cu: K10,
+// wavefront.cu: K1, K4, K5): one launch per call, in place of one launch
+// per macroblock anti-diagonal.
 //
 // Each block takes a ticket from a counter in device memory (atomicAdd),
 // row-major with the quantizer (K5: the frame) inner: ticket t is row t / Q

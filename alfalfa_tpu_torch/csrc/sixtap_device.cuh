@@ -1,9 +1,10 @@
-// The VP8 six-tap sub-pel filter, shared by the motion compensation of the
-// decoders (sixtap_mc.cu: K2, K3) and the interframe encoder's prediction
-// (enc_inter.cu: K8).  Each pass is a six-tap sum rounded with
-// (acc + 64) >> 7 and clipped to [0, 255]; phase 0 is the identity tap
-// 128, so both passes always run.  Reads outside a plane clamp per index
-// to its edge (what the reference's edge extension amounts to).
+// The VP8 six-tap sub-pel filter of the interframe encoder's prediction
+// and decision chain (enc_inter.cu: K8, enc_decide.cu: K9; the decoders'
+// motion compensation, sixtap_mc.cu, has its own form of the passes).
+// Each pass is a six-tap sum rounded with (acc + 64) >> 7 and clipped to
+// [0, 255]; phase 0 is the identity tap 128, so both passes always run.
+// Reads outside a plane clamp per index to its edge (what the reference's
+// edge extension amounts to).
 
 #pragma once
 

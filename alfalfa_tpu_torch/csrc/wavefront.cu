@@ -20,15 +20,10 @@
 // gather or transpose cheaply.  Here the planes live in global memory (L2
 // holds them at 720p G=16) and a block addresses its neighbours directly.
 //
-// Design of K4 (the simple right form): one launch copies the
-// inter-predicted tiles into the planes; then one launch per diagonal
-// predicts the intra macroblocks of that diagonal (grid: MBs of the
-// diagonal x G, 256 threads, B_PRED's 16 sub-blocks as a serial chain in
-// warp 0).  Stream order between launches is the only synchronisation.
-// Launches per frame: 1 + (2*(R-1) + C).  K1, K4 and K5 take dense
-// (G, R, C, ...) tiles and (G, H, W) planes, where the TPU kernels took
-// skewed (n_diags, R_pad, P) slabs: the skew is a layout of that machine,
-// not of the function.
+// K1, K4 and K5 take dense (G, R, C, ...) tiles and (G, H, W) planes,
+// where the TPU kernels took skewed (n_diags, R_pad, P) slabs: the skew is
+// a layout of that machine, not of the function.  Each is one persistent
+// launch a call on the row scheduler of row_sched.cuh.
 //
 // Design of K5: one launch per call, persistent (row_sched.cuh).  A warp
 // takes a (row, frame) ticket, the frame inner, and walks its row left to
@@ -58,60 +53,45 @@
 // crosses rows: the left column comes from the previous macroblock of the
 // same walk, kept in a register per lane.  So no unfiltered plane is kept
 // whole, only the pixels another block reads.  An inter macroblock (its
-// rows are its stage-B tile, read a macroblock ahead: K4's untile launch
-// folded into the walk) is in place, its bottom row kept and its vertical
+// rows are its stage-B tile, read a macroblock ahead) is in place, its bottom row kept and its vertical
 // edges filtered before the wait.  An intra one is predicted after it,
 // from L2 loads of row r-1's bottom rows and from its residual, which the
 // warp copied into shared memory a macroblock ahead (cp.async): no load
 // waits behind the acquire but those of pixels the row above wrote.  A
 // B_PRED macroblock's 16 sub-blocks run on the warp as K7's do: 10 steps
 // along the diagonals 2 sr + sc, two sub-blocks a step on the half-warps,
-// where K4's kernel chains 16 on one half-warp.  The filter is K5's step
+// where a serial chain takes 16.  The filter is K5's step
 // (lf_filter_window, the left halo kept in shared memory, the halo above
 // from the output through L2).  A block is one warp: at 720p, G=16, the
 // card holds all 720 (row, frame) warps at once.
 //
+// Design of K4: K1's walk without the filter, one launch per call,
+// persistent.  A block of K4_WARPS warps takes a (row, frame) ticket, the
+// frame inner.  Its warps first copy the row's inter macroblocks (their
+// stage-B tiles are their reconstruction and read nothing the launch
+// writes) and the row publishes up to its first intra macroblock; then
+// the intra macroblocks in order, each waiting for row r-1 to have
+// published min(c + 2, C) (ROW_LAG in ops/intra_cuda.py: the prediction
+// reads (r-1, c+1)), reconstructed with K1's step, and publishing up to
+// the next intra macroblock, so a run of inter macroblocks costs one
+// release.  Nothing is filtered, so the pixels above come from the output
+// planes themselves through L2 and K1's bottom-row arrays are not needed.
+// Warp 0 runs the luma rows (B_PRED's 10-step chain), warp 1 the chroma
+// rows beside it; the other warps only share out the copies.
+//
 // Bound: on paper memory (tiles and residuals in, planes out, about
 // 6 bytes per luma pixel; K5: planes in and out); in practice the critical
-// path: one dependent launch per diagonal for K4, each a small grid, with
-// the B_PRED chain of 16 dependent steps inside the intra ones; 2*(R-1) +
-// C macroblocks one after another for K5 and K1, each a wait on the row
-// above, an L2 load, the horizontal edges and the stores (an inter
-// macroblock's vertical edges overlap the wait), and in K1 an intra
-// macroblock's prediction (B_PRED: 10 dependent steps).
+// path: 2*(R-1) + C macroblocks one after another, each a wait on the row
+// above and an L2 load; in K5 and K1 the horizontal edges and the stores
+// (an inter macroblock's vertical edges overlap the wait), in K1 and K4 an
+// intra macroblock's prediction (B_PRED: 10 dependent steps).  An
+// interframe's chain in K4 is only as long as its chained intra
+// macroblocks: the inter ones are copied before any wait.
 
 #include "wavefront_device.cuh"
 
-static WaveArgs wave_args(void* Y, void* U, void* V, const void* ty,
-                          const void* tu, const void* tv, const void* ry,
-                          const void* ru, const void* rv, const void* mbp,
-                          const void* bmode, int G, int R, int C) {
-  WaveArgs a;
-  a.Y = (uint8_t*)Y; a.U = (uint8_t*)U; a.V = (uint8_t*)V;
-  a.ty = (const uint8_t*)ty; a.tu = (const uint8_t*)tu; a.tv = (const uint8_t*)tv;
-  a.ry = (const int16_t*)ry; a.ru = (const int16_t*)ru; a.rv = (const int16_t*)rv;
-  a.mbp = (const int16_t*)mbp;
-  a.bmode = (const uint8_t*)bmode;
-  a.G = G; a.R = R; a.C = C;
-  return a;
-}
-
-// One intra_diag_kernel launch per diagonal, in diagonal order on ``st``.
-// Returns the launches issued.
-static int enqueue_diagonals(const WaveArgs& a, cudaStream_t st) {
-  int issued = 0;
-  const int nd = 2 * (a.R - 1) + a.C;
-  for (int d = 0; d < nd; ++d) {
-    const int lo = d - a.C + 1;
-    const int r_lo = lo > 0 ? (lo + 1) / 2 : 0;
-    const int r_hi = d / 2 < a.R - 1 ? d / 2 : a.R - 1;
-    const int n = r_hi - r_lo + 1;
-    if (n <= 0) continue;
-    intra_diag_kernel<<<dim3(n, a.G), 256, 0, st>>>(a, d, r_lo);
-    ++issued;
-  }
-  return issued;
-}
+// The warps of K4's block (see intra_row_kernel).
+#define K4_WARPS 4
 
 // Each entry enqueues its launches on ``stream``, writes the number of
 // kernel launches it issued to ``*n_launched`` and returns
@@ -155,17 +135,40 @@ extern "C" int wavefront_decode_resident(int device) {
   return per_sm * sms;
 }
 
-// K4: untile and intra prediction; the planes come out unfiltered.
+// K4: intra prediction of G frames, one persistent launch of G * R blocks;
+// the planes are written whole and come out unfiltered.  mbp words 0-3 are
+// read; ``sched`` is 1 + G * R zeroed ints (the ticket, then the rows'
+// progress), ``lag`` the wait rule's lag (2).
 extern "C" int intra_frame_launch(
     void* Y, void* U, void* V, const void* ty, const void* tu, const void* tv,
     const void* ry, const void* ru, const void* rv, const void* mbp,
-    const void* bmode, int G, int R, int C, void* stream, int* n_launched) {
-  const WaveArgs a = wave_args(Y, U, V, ty, tu, tv, ry, ru, rv, mbp, bmode,
-                               G, R, C);
-  cudaStream_t st = (cudaStream_t)stream;
-  untile_kernel<<<dim3(C, R, G), 256, 0, st>>>(a);
-  *n_launched = 1 + enqueue_diagonals(a, st);
+    const void* bmode, int G, int R, int C, void* sched, int lag,
+    void* stream, int* n_launched) {
+  IntraRowArgs a;
+  a.Y = (uint8_t*)Y; a.U = (uint8_t*)U; a.V = (uint8_t*)V;
+  a.ty = (const uint8_t*)ty; a.tu = (const uint8_t*)tu; a.tv = (const uint8_t*)tv;
+  a.ry = (const int16_t*)ry; a.ru = (const int16_t*)ru; a.rv = (const int16_t*)rv;
+  a.mbp = (const int16_t*)mbp;
+  a.bmode = (const uint8_t*)bmode;
+  a.G = G; a.R = R; a.C = C;
+  a.rs.ticket = (int*)sched;
+  a.rs.progress = (int*)sched + 1;
+  a.rs.lag = lag;
+  intra_row_kernel<K4_WARPS><<<G * R, 32 * K4_WARPS, 0, (cudaStream_t)stream>>>(a);
+  *n_launched = 1;
   return (int)cudaGetLastError();
+}
+
+// Blocks of K4's kernel the card ``device`` holds at once (0 on an error).
+extern "C" int intra_frame_resident(int device) {
+  int per_sm = 0, sms = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, intra_row_kernel<K4_WARPS>, 32 * K4_WARPS, 0) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess)
+    return 0;
+  return per_sm * sms;
 }
 
 // K5: the loop filter of whole planes, one persistent launch of G * R

@@ -1,11 +1,13 @@
 // Device code of the decode wavefront, shared by the three C entries of
 // wavefront.cu: K1 wavefront_decode_launch (GOP batch: intra prediction and
-// loop filter in one persistent walk), K4 intra_frame_launch (untile,
-// intra) and K5 loop_filter_launch (loop filter alone).  One copy of the
-// math: untile_kernel and intra_diag_kernel (K4), lf_row_kernel (K5) and
-// wave_row_kernel (K1) with their helpers; the two filter kernels share
-// lf_filter_window.  wavefront.cu's header says what these kernels replace
-// and how they are scheduled.
+// loop filter in one persistent walk), K4 intra_frame_launch (intra
+// prediction alone, one persistent walk) and K5 loop_filter_launch (loop
+// filter alone).  One copy of the math: wave_row_kernel (K1),
+// intra_row_kernel (K4) and lf_row_kernel (K5) with their helpers; the two
+// filter kernels share lf_filter_window, the two intra kernels the
+// reconstruction step (intra_above_load, intra_mb_rows) and bpred_chain.
+// wavefront.cu's header says what these kernels replace and how they are
+// scheduled.
 
 #pragma once
 
@@ -20,151 +22,6 @@
 // (0 = do not filter), 5 interior limit, 6 mb edge limit, 7 sub-block edge
 // limit, 8 hev threshold, 9 skip sub-block edges.
 #define B_PRED 4
-
-struct WaveArgs {
-  uint8_t *Y, *U, *V;           // planes (G,16R,16C), (G,8R,8C): in place
-  const uint8_t *ty, *tu, *tv;  // stage-B tiles (G,R,C,S,S)
-  const int16_t *ry, *ru, *rv;  // residual tiles (G,R,C,S,S)
-  const int16_t* mbp;           // (G,R,C,NP)
-  const uint8_t* bmode;         // (G,R,C,16)
-  int G, R, C;
-};
-
-// ---------------------------------------------------------------- untile
-
-__global__ void untile_kernel(WaveArgs a) {
-  const int c = blockIdx.x, r = blockIdx.y, g = blockIdx.z;
-  const int mb = (g * a.R + r) * a.C + c;
-  const int tid = threadIdx.x;
-  const int W = a.C * 16, H = a.R * 16, Wc = W / 2, Hc = H / 2;
-  {
-    const int py = tid >> 4, px = tid & 15;
-    a.Y[((size_t)g * H + r * 16 + py) * W + c * 16 + px] =
-        a.ty[(size_t)mb * 256 + tid];
-  }
-  if (tid < 128) {
-    const int k = tid & 63, cy = k >> 3, cx = k & 7;
-    const size_t o = ((size_t)g * Hc + r * 8 + cy) * Wc + c * 8 + cx;
-    if (tid < 64) a.U[o] = a.tu[(size_t)mb * 64 + k];
-    else a.V[o] = a.tv[(size_t)mb * 64 + k];
-  }
-}
-
-// ----------------------------------------------------------------- intra
-
-// One block per macroblock of diagonal d: r = r_lo + blockIdx.x, c = d - 2r.
-__global__ void intra_diag_kernel(WaveArgs a, int d, int r_lo) {
-  const int r = r_lo + blockIdx.x, c = d - 2 * r, g = blockIdx.y;
-  const int mb = (g * a.R + r) * a.C + c;
-  const int16_t* p = a.mbp + (size_t)mb * NP;
-  if (!p[3]) return;  // inter macroblock: already in the planes
-  const int ymode = p[0], uvmode = p[1];
-  const bool nz = p[2] != 0;
-  const bool hrow = r > 0, hcol = c > 0, lastc = c == a.C - 1;
-  const int tid = threadIdx.x;
-  const int W = a.C * 16, H = a.R * 16, Wc = W / 2, Hc = H / 2;
-  uint8_t* Yp = a.Y + (size_t)g * H * W;
-  uint8_t* Up = a.U + (size_t)g * Hc * Wc;
-  uint8_t* Vp = a.V + (size_t)g * Hc * Wc;
-  const int y0 = r * 16, x0 = c * 16, cy0 = r * 8, cx0 = c * 8;
-
-  __shared__ int s_e[21];      // above-left, above x16, above-right x4
-  __shared__ int s_l[16];      // left column
-  __shared__ int s_ce[2][9];   // chroma above-left + above x8 (U, V)
-  __shared__ int s_cl[2][8];   // chroma left column
-  __shared__ int s_dc[3];
-  __shared__ int s_t[17][21];  // B_PRED working tile with its edges
-
-  if (tid < 16) {
-    s_e[1 + tid] = hrow ? Yp[(size_t)(y0 - 1) * W + x0 + tid] : 127;
-  } else if (tid < 20) {
-    const int k = tid - 16;
-    s_e[17 + k] = !hrow ? 127
-                  : lastc ? Yp[(size_t)(y0 - 1) * W + x0 + 15]
-                          : Yp[(size_t)(y0 - 1) * W + x0 + 16 + k];
-  } else if (tid == 20) {
-    s_e[0] = !hrow ? 127 : hcol ? Yp[(size_t)(y0 - 1) * W + x0 - 1] : 129;
-  } else if (tid >= 32 && tid < 48) {
-    const int k = tid - 32;
-    s_l[k] = hcol ? Yp[(size_t)(y0 + k) * W + x0 - 1] : 129;
-  } else if (tid >= 64 && tid < 128) {
-    const int pl = (tid - 64) >> 5, k = (tid - 64) & 31;
-    const uint8_t* P = pl ? Vp : Up;
-    if (k < 8) {
-      s_ce[pl][1 + k] = hrow ? P[(size_t)(cy0 - 1) * Wc + cx0 + k] : 127;
-    } else if (k == 8) {
-      s_ce[pl][0] = !hrow ? 127 : hcol ? P[(size_t)(cy0 - 1) * Wc + cx0 - 1] : 129;
-    } else if (k >= 16 && k < 24) {
-      s_cl[pl][k - 16] = hcol ? P[(size_t)(cy0 + k - 16) * Wc + cx0 - 1] : 129;
-    }
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int sa = 0, sl = 0;
-    for (int k = 0; k < 16; ++k) { sa += s_e[1 + k]; sl += s_l[k]; }
-    s_dc[0] = dc_value(sa, sl, hrow, hcol, 4);
-  } else if (tid == 32 || tid == 64) {
-    const int pl = tid == 64;
-    int sa = 0, sl = 0;
-    for (int k = 0; k < 8; ++k) { sa += s_ce[pl][1 + k]; sl += s_cl[pl][k]; }
-    s_dc[1 + pl] = dc_value(sa, sl, hrow, hcol, 3);
-  }
-  __syncthreads();
-
-  // chroma: threads 0..63 U, 64..127 V
-  if (tid < 128) {
-    const int pl = tid >> 6, k = tid & 63, cy = k >> 3, cx = k & 7;
-    const int pred = whole_pixel(uvmode, s_dc[1 + pl], s_ce[pl][1 + cx],
-                                 s_cl[pl][cy], s_ce[pl][0]);
-    const int16_t* res = pl ? a.rv : a.ru;
-    const int v = clampi(pred + (nz ? (int)res[(size_t)mb * 64 + k] : 0), 0, 255);
-    (pl ? Vp : Up)[(size_t)(cy0 + cy) * Wc + cx0 + cx] = (uint8_t)v;
-  }
-
-  const int py = tid >> 4, px = tid & 15;
-  if (ymode != B_PRED) {
-    const int pred = whole_pixel(ymode, s_dc[0], s_e[1 + px], s_l[py], s_e[0]);
-    const int v = clampi(pred + (nz ? (int)a.ry[(size_t)mb * 256 + tid] : 0), 0, 255);
-    Yp[(size_t)(y0 + py) * W + x0 + px] = (uint8_t)v;
-    return;
-  }
-
-  // B_PRED: 16 sub-blocks in raster order, each from reconstructed
-  // neighbours.  s_t row 0 / column 0 hold the macroblock's edges; cell
-  // (1+y, 1+x) is pixel (y, x).
-  if (tid < 21) s_t[0][tid] = s_e[tid];
-  else if (tid >= 32 && tid < 48) s_t[1 + tid - 32][0] = s_l[tid - 32];
-  __syncthreads();
-  if (tid < 32) {
-    const int ly = (tid >> 2) & 3, lx = tid & 3;
-    for (int sb = 0; sb < 16; ++sb) {
-      const int sr = sb >> 2, sc = sb & 3;
-      int val = 0;
-      if (tid < 16) {
-        int E[13];
-        // the right-most sub-block takes its above-right from the row above
-        // the macroblock in every sub-block row
-        const int arow = sc == 3 ? 0 : sr * 4;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          E[3 - k] = s_t[sr * 4 + 1 + k][sc * 4];
-          E[5 + k] = s_t[sr * 4][sc * 4 + 1 + k];
-          E[9 + k] = s_t[arow][sc * 4 + 5 + k];
-        }
-        E[4] = s_t[sr * 4][sc * 4];
-        const int pred = bpred_pixel(a.bmode[(size_t)mb * 16 + sb], E, ly, lx);
-        const int res =
-            nz ? (int)a.ry[(size_t)mb * 256 + (sr * 4 + ly) * 16 + sc * 4 + lx] : 0;
-        val = clampi(pred + res, 0, 255);
-      }
-      __syncwarp();
-      if (tid < 16) s_t[sr * 4 + 1 + ly][sc * 4 + 1 + lx] = val;
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-  Yp[(size_t)(y0 + py) * W + x0 + px] = (uint8_t)s_t[1 + py][1 + px];
-}
 
 // ----------------------------------------------------------- loop filter
 
@@ -269,6 +126,19 @@ __device__ __forceinline__ void lf_filter_window(int* s_y, int* s_u, int* s_v,
 // Byte k of a row held four to a word.
 __device__ __forceinline__ int row_byte(const uint32_t* w, int k) {
   return (w[k >> 2] >> (8 * (k & 3))) & 255;
+}
+
+// own[0..S-1] (S = 16 or 8 pixels) 4 a word.
+__device__ __forceinline__ void pack_row(uint32_t (&u)[4], const int* own,
+                                         int S) {
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    uint32_t v = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (4 * w + k < S) v |= (uint32_t)own[4 * w + k] << (8 * k);
+    u[w] = v;
+  }
 }
 
 // A row of a macroblock's halo above (16 luma or 8 chroma pixels, 4 a
@@ -489,6 +359,91 @@ __device__ __forceinline__ void bpred_chain(int (&t)[17][21], int (&e)[2][13],
   }
 }
 
+// ----------------------- the intra reconstruction step of K1 and K4
+
+// The pixels above intra macroblock (r, c), r > 0, in this lane's plane,
+// through L2 after the acquire (row r-1 wrote them during the launch):
+// ``A`` the S above (4 a word), ``corner`` the above-left (129 in column
+// 0) and, on lane 0 of a B_PRED macroblock, ``ar`` the 4 above-right (the
+// last column repeats the above row's last pixel).  ``ab``: the row above
+// the macroblock in this lane's plane, at the macroblock's first column.
+__device__ __forceinline__ void intra_above_load(uint32_t (&A)[4], int& corner,
+                                                 int& ar, const uint8_t* ab,
+                                                 bool luma, bool bpred,
+                                                 int lane, int c, int C) {
+  if (luma) {
+    const uint4 v = __ldcg(reinterpret_cast<const uint4*>(ab));
+    A[0] = v.x; A[1] = v.y; A[2] = v.z; A[3] = v.w;
+  } else {
+    const uint2 v = __ldcg(reinterpret_cast<const uint2*>(ab));
+    A[0] = v.x; A[1] = v.y;
+  }
+  corner = c > 0 ? __ldcg(ab - 1) : 129;
+  if (bpred && lane == 0)
+    ar = c == C - 1 ? 0x01010101 * (A[3] >> 24)
+                    : __ldcg(reinterpret_cast<const int*>(ab + 16));
+}
+
+// The whole-block prediction of intra macroblock (r, c), one pixel row a
+// lane (lanes 0-15 luma rows, 16-23 U, 24-31 V; ``row`` this lane's), with
+// its residual ``res`` (luma raster, then U, V; this lane's row at
+// ``res_at``) added where ``nz``, into own[0..S-1]: chroma always, luma
+// unless ``bpred``, and only where ``rows``.  The DC comes from the row
+// above (``A``, 4 a word) and the lanes' left pixels (``left``, 129 in
+// column 0); the four modes computed and one selected (luma and chroma
+// lanes take different modes).  For a B_PRED macroblock the luma lanes set
+// up bpred_chain's tile ``t`` instead: its left column, on lane 0 its
+// above-left (``corner``), above and above-right (``ar``) row, and
+// ``s_bm[lane]`` = ``bm``; the caller then runs the chain.  Every lane of
+// the warp calls it.
+__device__ __forceinline__ void intra_mb_rows(
+    int* own, bool luma, int row, int ymode, int uvmode, bool nz, bool bpred,
+    int bm, const uint32_t (&A)[4], int corner, int ar, int left,
+    bool hrow_mb, bool hcol, const int16_t* res, int res_at,
+    int (&t)[17][21], int* s_bm, int lane, bool rows = true) {
+  const int S = luma ? 16 : 8;
+  int sa = 0;
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    if (k < S) sa += row_byte(A, k);
+  int sl = left;
+  sl += __shfl_xor_sync(0xffffffffu, sl, 1);
+  sl += __shfl_xor_sync(0xffffffffu, sl, 2);
+  sl += __shfl_xor_sync(0xffffffffu, sl, 4);
+  const int s8 = __shfl_xor_sync(0xffffffffu, sl, 8);
+  if (luma) sl += s8;  // 16 luma rows; U and V 8 each
+  const int dc = dc_value(sa, sl, hrow_mb, hcol, luma ? 4 : 3);
+  if (!luma || !bpred) {
+    if (rows) {
+      const int mode = clampi(luma ? ymode : uvmode, 0, 3);
+      const uint4 rv = *reinterpret_cast<const uint4*>(res + res_at);
+      const uint4 rw = luma ? *reinterpret_cast<const uint4*>(res + res_at + 8)
+                            : make_uint4(0, 0, 0, 0);
+      const uint32_t rr[8] = {rv.x, rv.y, rv.z, rv.w, rw.x, rw.y, rw.z, rw.w};
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+        if (k < S) {
+          const int above = row_byte(A, k);
+          const int pred = mode == 0 ? dc : mode == 1 ? above
+                           : mode == 2 ? left
+                           : clampi(left + above - corner, 0, 255);
+          const int rk = nz ? (int16_t)(rr[k >> 1] >> (16 * (k & 1))) : 0;
+          own[k] = clampi(pred + rk, 0, 255);
+        }
+    }
+  } else {
+    t[1 + row][0] = left;
+    s_bm[lane] = bm;
+    if (lane == 0) {
+      t[0][0] = corner;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) t[0][1 + k] = row_byte(A, k);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) t[0][17 + k] = (ar >> (8 * k)) & 255;
+    }
+  }
+}
+
 // One warp per (row, frame) ticket, the frame inner: the row's macroblocks
 // left to right, each reconstructed and then filtered before the next.
 // Lane ``lane`` owns one pixel row of the macroblock (lanes 0-15 luma
@@ -617,71 +572,18 @@ __global__ void __launch_bounds__(32) wave_row_kernel(WaveRowArgs a) {
     if (do_top && lane < 12) lf_halo_load(h, habove, hp == 0);
     uint32_t A[4] = {0x7f7f7f7fu, 0x7f7f7f7fu, 0x7f7f7f7fu, 0x7f7f7f7fu};
     int corner = 127, ar = 0x7f7f7f7f;  // above-left; above-right x4 (luma)
-    if (intra && hrow_mb) {
-      // the unfiltered row above: above x S, above-left, above-right
-      const uint8_t* ab = edge + (size_t)(r - 1) * Wp + x0;
-      if (luma) {
-        const uint4 v = __ldcg(reinterpret_cast<const uint4*>(ab));
-        A[0] = v.x; A[1] = v.y; A[2] = v.z; A[3] = v.w;
-      } else {
-        const uint2 v = __ldcg(reinterpret_cast<const uint2*>(ab));
-        A[0] = v.x; A[1] = v.y;
-      }
-      corner = c > 0 ? __ldcg(ab - 1) : 129;
-      // the last column repeats the above row's last pixel
-      if (bpred && lane == 0)
-        ar = c == C - 1 ? 0x01010101 * (A[3] >> 24)
-                        : __ldcg(reinterpret_cast<const int*>(ab + 16));
-    }
+    if (intra && hrow_mb)  // the unfiltered row above
+      intra_above_load(A, corner, ar, edge + (size_t)(r - 1) * Wp + x0, luma,
+                       bpred, lane, c, C);
     if (do_top && lane < 12) lf_halo_put(hdst, h, HS);
     if (intra) {
       // this macroblock's residual in s_res: this lane's copy landed (the
       // B_PRED chain reads the others' after the barrier below)
       cp_async_wait<1>();
       const int16_t* res = s_res[c & 1];
-      // whole-block prediction of this lane's row (chroma always, luma
-      // unless B_PRED): the DC from the row above and the lanes' left
-      // pixels; the four modes computed and one selected (luma and chroma
-      // lanes take different modes)
-      const int left = c > 0 ? lu : 129;
-      int sa = 0;
-#pragma unroll
-      for (int k = 0; k < 16; ++k)
-        if (k < S) sa += row_byte(A, k);
-      int sl = left;
-      sl += __shfl_xor_sync(0xffffffffu, sl, 1);
-      sl += __shfl_xor_sync(0xffffffffu, sl, 2);
-      sl += __shfl_xor_sync(0xffffffffu, sl, 4);
-      const int s8 = __shfl_xor_sync(0xffffffffu, sl, 8);
-      if (luma) sl += s8;  // 16 luma rows; U and V 8 each
-      const int dc = dc_value(sa, sl, hrow_mb, c > 0, luma ? 4 : 3);
-      if (!luma || !bpred) {
-        const int mode = clampi(luma ? p[0] : p[1], 0, 3);
-        const uint4 rv = *reinterpret_cast<const uint4*>(res + res_at);
-        const uint4 rw = luma ? *reinterpret_cast<const uint4*>(res + res_at + 8)
-                              : make_uint4(0, 0, 0, 0);
-        const uint32_t rr[8] = {rv.x, rv.y, rv.z, rv.w, rw.x, rw.y, rw.z, rw.w};
-#pragma unroll
-        for (int k = 0; k < 16; ++k)
-          if (k < S) {
-            const int above = row_byte(A, k);
-            const int pred = mode == 0 ? dc : mode == 1 ? above
-                             : mode == 2 ? left
-                             : clampi(left + above - corner, 0, 255);
-            const int rk = nz ? (int16_t)(rr[k >> 1] >> (16 * (k & 1))) : 0;
-            own[k] = clampi(pred + rk, 0, 255);
-          }
-      } else {
-        s_t[1 + row][0] = left;
-        s_bm[lane] = bm;
-        if (lane == 0) {
-          s_t[0][0] = corner;
-#pragma unroll
-          for (int k = 0; k < 16; ++k) s_t[0][1 + k] = row_byte(A, k);
-#pragma unroll
-          for (int k = 0; k < 4; ++k) s_t[0][17 + k] = (ar >> (8 * k)) & 255;
-        }
-      }
+      intra_mb_rows(own, luma, row, p[0], p[1], nz, bpred, bm, A, corner, ar,
+                    c > 0 ? lu : 129, hrow_mb, c > 0, res, res_at, s_t, s_bm,
+                    lane);
       if (bpred) {
         __syncwarp();
         bpred_chain(s_t, s_e, res, nz, s_bm, lane);
@@ -692,14 +594,7 @@ __global__ void __launch_bounds__(32) wave_row_kernel(WaveRowArgs a) {
       }
       // the unfiltered row, kept for row r+1 and the next macroblock
       uint32_t u[4];
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        uint32_t v = 0;
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          if (4 * w + k < S) v |= (uint32_t)own[4 * w + k] << (8 * k);
-        u[w] = v;
-      }
+      pack_row(u, own, S);
       if (row == S - 1) {
         if (luma) *reinterpret_cast<uint4*>(ebelow) = make_uint4(u[0], u[1], u[2], u[3]);
         else *reinterpret_cast<uint2*>(ebelow) = make_uint2(u[0], u[1]);
@@ -718,5 +613,166 @@ __global__ void __launch_bounds__(32) wave_row_kernel(WaveRowArgs a) {
               do_top && lane < 12 && hrow > 0, hdst, HS, habove);
     __syncwarp();                       // every output of (r, c) written
     if (lane == 0) row_publish(prog, c + 1);
+  }
+}
+
+// ------------------------------------------------- K4: the persistent form
+
+struct IntraRowArgs {
+  uint8_t *Y, *U, *V;           // unfiltered planes (G,16R,16C), (G,8R,8C)
+  const uint8_t *ty, *tu, *tv;  // stage-B tiles (G,R,C,S,S)
+  const int16_t *ry, *ru, *rv;  // residual tiles (G,R,C,S,S)
+  const int16_t* mbp;           // (G,R,C,NP), words 0-3
+  const uint8_t* bmode;         // (G,R,C,16)
+  int G, R, C;
+  RowSched rs;                  // progress (G, R)
+};
+
+// The column of the row's first intra macroblock at or after ``c`` (C if
+// none): the warp reads 32 macroblocks' word 3 a step.
+__device__ __forceinline__ int next_intra(const int16_t* mbp, int c, int C,
+                                          int lane) {
+  for (; c < C; c += 32) {
+    const int k = c + lane;
+    const unsigned m = __ballot_sync(
+        0xffffffffu, k < C && __ldg(mbp + (size_t)k * NP + 3) != 0);
+    if (m) return c + __ffs(m) - 1;
+  }
+  return C;
+}
+
+// The warps of K4's walk that reconstruct intra macroblocks meet here:
+// warps 0 and 1 at a named barrier when NW > 1 (the others only copy).
+template <int NW>
+__device__ __forceinline__ void intra_sync() {
+  if (NW > 1) asm volatile("bar.sync 1, 64;" ::: "memory");
+  else __syncwarp();
+}
+
+// One block of NW warps per (row, frame) ticket, the frame inner.  First
+// every warp copies a share of the row's inter macroblocks from their
+// stage-B tiles into the planes (lanes 0-15 luma rows, 16-23 U rows, 24-31
+// V rows, a word or two a lane): they read nothing the launch writes, so
+// they go before any wait, and the row then publishes up to its first
+// intra macroblock.  Then the row's intra macroblocks in order: each waits
+// for row r-1 of its frame to have published min(c + lag, C) macroblocks,
+// is reconstructed with K1's step (intra_above_load from the planes
+// through L2, whose pixels above are unfiltered here; intra_mb_rows with
+// the left pixels from the planes, written by this block; the B_PRED chain
+// of 10 half-warp steps; the residual copied a macroblock ahead with
+// cp.async), and publishes up to the next intra macroblock: one release a
+// run of inter macroblocks.  With NW == 1 warp 0 reconstructs all three
+// planes; with NW > 1 warp 0 the luma (its B_PRED chain) and warp 1 the
+// chroma beside it, each into its own rows, and the other warps stop after
+// the copies.
+template <int NW>
+__global__ void __launch_bounds__(32 * NW) intra_row_kernel(IntraRowArgs a) {
+  constexpr int NR = NW > 1 ? 2 : 1;  // warps that reconstruct
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  __shared__ int s_own[NR][32][16];   // each lane's reconstructed row
+  __shared__ int s_t[17][21];         // a B_PRED macroblock's working tile
+  __shared__ int s_e[2][13];          // the edges of the half-warps' sub-blocks
+  __shared__ int s_bm[16];            // its b-modes
+  // the residual tiles (luma raster, then U, V), by intra macroblock parity
+  __shared__ __align__(16) int16_t s_res[NR][2][384];
+  __shared__ int s_ticket;
+  if (tid == 0) s_ticket = atomicAdd(a.rs.ticket, 1);
+  __syncthreads();
+  const int G = a.G, R = a.R, C = a.C;
+  const int r = s_ticket / G, g = s_ticket % G;
+  const int W = C * 16, H = R * 16, Wc = W / 2, Hc = H / 2;
+  const bool luma = lane < 16, is_u = lane >= 16 && lane < 24;
+  const int S = luma ? 16 : 8, Wp = luma ? W : Wc;
+  const int row = luma ? lane : lane & 7;
+  uint8_t* orow = (luma ? a.Y + (size_t)g * H * W
+                        : (is_u ? a.U : a.V) + (size_t)g * Hc * Wc)
+                  + (size_t)(r * S + row) * Wp;  // this lane's plane row
+  const size_t mb0 = (size_t)(g * R + r) * C;  // the row's first macroblock
+  const uint8_t* tile = (luma ? a.ty : is_u ? a.tu : a.tv) + mb0 * S * S + row * S;
+  const int16_t* resid = (luma ? a.ry : is_u ? a.ru : a.rv) + mb0 * S * S + row * S;
+  const int res_at = luma ? row * 16 : (is_u ? 256 : 320) + row * 8;
+  const int16_t* mbp = a.mbp + mb0 * NP;
+  int* prog = a.rs.progress + g * R + r;
+
+  // the inter macroblocks, a warp every NW-th, two a step
+  for (int c = warp; c < C; c += 2 * NW) {
+    const int c2 = c + NW;
+    const bool in1 = __ldg(mbp + (size_t)c * NP + 3) == 0;
+    const bool in2 = c2 < C && __ldg(mbp + (size_t)c2 * NP + 3) == 0;
+    if (luma) {
+      uint4 v1 = make_uint4(0, 0, 0, 0), v2 = v1;
+      if (in1) v1 = __ldg(reinterpret_cast<const uint4*>(tile + (size_t)c * 256));
+      if (in2) v2 = __ldg(reinterpret_cast<const uint4*>(tile + (size_t)c2 * 256));
+      if (in1) *reinterpret_cast<uint4*>(orow + c * 16) = v1;
+      if (in2) *reinterpret_cast<uint4*>(orow + c2 * 16) = v2;
+    } else {
+      uint2 v1 = make_uint2(0, 0), v2 = v1;
+      if (in1) v1 = __ldg(reinterpret_cast<const uint2*>(tile + (size_t)c * 64));
+      if (in2) v2 = __ldg(reinterpret_cast<const uint2*>(tile + (size_t)c2 * 64));
+      if (in1) *reinterpret_cast<uint2*>(orow + c * 8) = v1;
+      if (in2) *reinterpret_cast<uint2*>(orow + c2 * 8) = v2;
+    }
+  }
+  __syncthreads();
+  int c = next_intra(mbp, 0, C, lane);
+  if (tid == 0 && c > 0) row_publish(prog, c);
+  if (warp >= NR) return;
+
+  const bool rows = NR == 1 || (warp == 0) == luma;  // this lane's row is its
+  int* own = s_own[warp][lane];                       // warp's to write
+  int16_t (*res)[384] = s_res[warp];
+  auto fetch = [&](int cc, int buf) {
+    const int16_t* src = resid + (size_t)cc * S * S;
+    cp_async<16>(res[buf] + res_at, src);
+    if (luma) cp_async<16>(res[buf] + res_at + 8, src + 8);
+  };
+  if (c < C) fetch(c, 0);
+  cp_async_commit();
+  const int lag = a.rs.lag;
+  for (int k = 0; c < C; ++k) {
+    const int cn = next_intra(mbp, c + 1, C, lane);
+    // res[(k + 1) & 1] was intra macroblock k-1's: every lane is past it,
+    // and its copy has landed
+    cp_async_wait<1>();
+    if (cn < C) fetch(cn, (k + 1) & 1);
+    cp_async_commit();
+    const uint32_t w01 = __ldg(reinterpret_cast<const uint32_t*>(mbp + (size_t)c * NP));
+    const uint32_t w23 = __ldg(reinterpret_cast<const uint32_t*>(mbp + (size_t)c * NP + 2));
+    const int ymode = (int16_t)w01, uvmode = (int16_t)(w01 >> 16);
+    const bool nz = (int16_t)w23 != 0;
+    const bool bpred = warp == 0 && ymode == B_PRED;
+    const int bm = bpred && luma ? __ldg(a.bmode + (mb0 + c) * 16 + lane) : 0;
+    // the left pixel, (r, c-1)'s: copied or reconstructed by this block
+    const int left = c > 0 ? __ldcg(orow + c * S - 1) : 129;
+    if (tid == 0 && r > 0) row_wait(prog - 1, min(c + lag, C));
+    intra_sync<NW>();
+    uint32_t A[4] = {0x7f7f7f7fu, 0x7f7f7f7fu, 0x7f7f7f7fu, 0x7f7f7f7fu};
+    int corner = 127, ar = 0x7f7f7f7f;  // above-left; above-right x4 (luma)
+    if (r > 0)  // the row above, unfiltered: the planes themselves
+      intra_above_load(A, corner, ar, orow - (size_t)(row + 1) * Wp + c * S,
+                       luma, bpred, lane, c, C);
+    // this macroblock's residual: this lane's copy landed (the B_PRED
+    // chain reads the others' after the barrier in it)
+    cp_async_wait<1>();
+    const int16_t* rk = res[k & 1];
+    intra_mb_rows(own, luma, row, ymode, uvmode, nz, bpred, bm, A, corner, ar,
+                  left, r > 0, c > 0, rk, res_at, s_t, s_bm, lane, rows);
+    if (bpred) {
+      __syncwarp();
+      bpred_chain(s_t, s_e, rk, nz, s_bm, lane);
+      if (luma) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) own[j] = s_t[1 + row][1 + j];
+      }
+    }
+    if (rows) {
+      uint32_t u[4];
+      pack_row(u, own, S);
+      if (luma) *reinterpret_cast<uint4*>(orow + c * 16) = make_uint4(u[0], u[1], u[2], u[3]);
+      else *reinterpret_cast<uint2*>(orow + c * 8) = make_uint2(u[0], u[1]);
+    }
+    intra_sync<NW>();                   // every output of (r, c) written
+    if (tid == 0) row_publish(prog, cn);
+    c = cn;
   }
 }

@@ -10,6 +10,7 @@ import torch
 
 from alfalfa_tpu_torch.bitstream.header import UncompressedChunk
 from alfalfa_tpu_torch.native import bitwork
+from alfalfa_tpu_torch.parallel.upload import PinnedStaging
 from alfalfa_tpu_torch.state.decoder_state import DecoderState, References
 from alfalfa_tpu_torch.state import hashing
 from alfalfa_tpu_torch.util import tracing
@@ -31,6 +32,9 @@ class Decoder:
             bitwork._load()
             bitwork._load_mb()
         self.error_concealment = error_concealment
+        # the pinned buffers each frame's upload goes through, shared with
+        # this decoder's copies
+        self._staging = PinnedStaging(self.device)
 
     @property
     def width(self):
@@ -55,7 +59,7 @@ class Decoder:
         with tracing.stage("decode.reconstruct", sync=True):
             raster = reconstruct_torch.reconstruct(
                 header, arrays, self.state, self.references, chunk.key_frame,
-                device=self.device)
+                device=self.device, staging=self._staging)
         self._update_references(chunk.key_frame, header, raster)
         return chunk.show_frame, raster
 
@@ -84,9 +88,11 @@ class Decoder:
         """Value copy (the Salsify receiver keeps a minihash-addressed map
         of past decoders, salsify-receiver.cc:210-216).  Rasters are shared:
         a frame's planes never change after it is made."""
-        return Decoder(self.width, self.height, state=self.state.copy(),
-                       references=self.references.copy(), device=self.device,
-                       error_concealment=self.error_concealment)
+        d = Decoder(self.width, self.height, state=self.state.copy(),
+                    references=self.references.copy(), device=self.device,
+                    error_concealment=self.error_concealment)
+        d._staging = self._staging
+        return d
 
     # -- state identity ------------------------------------------------------
 

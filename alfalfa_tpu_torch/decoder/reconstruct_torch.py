@@ -5,10 +5,12 @@ Everything data-parallel runs as dense batched tensor ops (residual
 transforms, the add-and-clip of inter prediction); the stages with
 per-macroblock control flow are CUDA kernels:
 
-- GOP batch: ``ops.sixtap_cuda.mc_tiles`` (motion compensation) and
-  ``ops.wavefront_cuda.wavefront_decode`` (intra prediction + loop filter);
+- GOP batch: ``ops.sixtap_cuda.mc_tiles`` (motion compensation of the
+  three planes) and ``ops.wavefront_cuda.wavefront_decode`` (intra
+  prediction + loop filter);
 - one frame: ``ops.sixtap_cuda.predict_mb_tiles``, then
-  ``ops.intra_cuda.intra_frame``, then ``ops.lf_cuda.loop_filter``.
+  ``ops.intra_cuda.intra_frame``, then ``ops.lf_cuda.loop_filter``; its
+  inputs go up in one packed host-to-device copy (``reconstruct``).
 
 The kernels take dense (G, R, C, ...) tensors and hand back (G, H, W)
 uint8 planes: there is no diagonal skew, no pixel-major transpose and no
@@ -25,6 +27,8 @@ from alfalfa_tpu_torch.ops.lf_cuda import loop_filter
 from alfalfa_tpu_torch.ops.sixtap_cuda import mc_tiles, predict_mb_tiles
 from alfalfa_tpu_torch.ops.wavefront import untile
 from alfalfa_tpu_torch.ops.wavefront_cuda import wavefront_decode
+from alfalfa_tpu_torch.parallel.upload import (PinnedStaging, pack_upload,
+                                               unpack_upload)
 from alfalfa_tpu_torch.state.decoder_state import Raster
 
 
@@ -43,8 +47,9 @@ def _stage_ab(key_frame, coeffs, qf, y2_coded, has_nonzero,
     coeffs: (G, R, C, 25, 16) int; qf: dict of (G, R, C) int tensors;
     y2_coded, has_nonzero: (G, R, C) bool; ref_sel: (G, R, C) int32;
     sub_mv: (G, R, C, 4, 4, 2), uv_mv: (G, R, C, 2, 2, 2) int32; refs:
-    {"y", "u", "v"} -> (G, 3, H, W) uint8 (unused on key frames); mc:
-    the motion compensation, with mc_tiles' contract.
+    the references as ``mc`` takes them (unused on key frames); mc: the
+    motion compensation of the three planes, mc_tiles or
+    predict_mb_tiles.
 
     Returns (y, u, v stage-B tiles uint8; res_y, res_u, res_v int16;
     intra mask).  Intra macroblocks' tiles are zero."""
@@ -66,9 +71,8 @@ def _stage_ab(key_frame, coeffs, qf, y2_coded, has_nonzero,
     is_inter = ref_sel > 0
     m = is_inter[..., None, None]
     tiles = []
-    for plane, mv, S, r in (("y", sub_mv, 16, res_y), ("u", uv_mv, 8, res_u),
-                            ("v", uv_mv, 8, res_v)):
-        pred = mc(refs[plane], ref_sel, mv, S)
+    for pred, r in zip(mc(refs, ref_sel, sub_mv, uv_mv),
+                       (res_y, res_u, res_v)):
         t = torch.clamp(pred.to(torch.int16) + r, 0, 255).to(torch.uint8)
         tiles.append(torch.where(m, t, torch.zeros_like(t)))
     return (*tiles, res_y, res_u, res_v, ~is_inter)
@@ -108,23 +112,19 @@ def _frame_quant_factors(header, state, segment):
 # one frame: the single-frame Decoder's path and the encoders' loop filter
 # ---------------------------------------------------------------------------
 
-def _predict_one(refs, ref_sel, mv, S):
-    """mc_tiles' contract at G=1, through the single-frame entry."""
-    return predict_mb_tiles(refs, ref_sel[0], mv[0], S)[None]
-
-
 def reconstruct_core(key_frame, coeffs, qf, y2_coded, has_nonzero, ymode,
                      uvmode, bmode, ref_sel, sub_mv, uv_mv, refs, lf_params):
     """Reconstruct one frame: reconstruct_core_batch's arguments without
-    the G axis; refs: {"y", "u", "v"} -> (3, H, W) uint8 stacks (last,
-    golden, alternate), None on key frames.  Stages A/B, then intra
-    prediction (K4), then the loop filter of the three planes (K5).
-    Returns (H, W), (H/2, W/2), (H/2, W/2) uint8 planes."""
+    the G axis; refs: {"y", "u", "v"} -> the (H, W) uint8 planes of the
+    three references (last, golden, alternate), None on key frames.
+    Stages A/B (K3), then intra prediction (K4), then the loop filter of
+    the three planes (K5).  Returns (H, W), (H/2, W/2), (H/2, W/2) uint8
+    planes."""
     one = lambda x: x[None]
     y, u, v, res_y, res_u, res_v, intra_mask = _stage_ab(
         key_frame, one(coeffs), {k: one(q) for k, q in qf.items()},
         one(y2_coded), one(has_nonzero), one(ref_sel), one(sub_mv),
-        one(uv_mv), refs, mc=_predict_one)
+        one(uv_mv), refs, mc=predict_mb_tiles)
     planes = intra_frame(y, u, v, res_y, res_u, res_v, one(ymode),
                          one(uvmode), one(bmode), one(has_nonzero),
                          intra_mask)
@@ -145,36 +145,44 @@ def loopfilter_tiles(y_tiles, u_tiles, v_tiles, lf_params):
     return Y[0], U[0], V[0]
 
 
-def reconstruct(header, arrays, state, references, key_frame, device=None):
+def reconstruct(header, arrays, state, references, key_frame, device=None,
+                staging=None):
     """Reconstruct one parsed frame on ``device`` (default CUDA), with the
     contract of the JAX package's reconstruct_jax.reconstruct: returns a
-    new Raster, here with tensor planes on ``device``.  The reference
-    rasters' planes are used where they lie if they are on ``device``, and
-    copied there if not."""
+    new Raster, here with tensor planes on ``device``.  The parse arrays go
+    up in one packed copy (parallel/upload.py's layout) through
+    ``staging``, a PinnedStaging for ``device`` that the caller keeps from
+    frame to frame (None: a new one); the reference rasters' planes are
+    used where they lie if they are on ``device``, and copied there if
+    not."""
     dev = torch.device("cuda" if device is None else device)
     R, C = arrays.mb_rows, arrays.mb_cols
-
-    def put(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
-
-    qf = {k: put(q, torch.int32) for k, q in
-          _frame_quant_factors(header, state, arrays.segment).items()}
+    i32 = lambda a: np.asarray(a, np.int32)
+    host = {"coeffs": np.asarray(arrays.densify_coeffs(), np.int16),
+            "y2_coded": np.asarray(arrays.y2_coded, bool),
+            "has_nonzero": np.asarray(arrays.has_nonzero, bool),
+            "ymode": i32(arrays.ymode), "uvmode": i32(arrays.uvmode),
+            "bmode": np.asarray(arrays.bmode, np.uint8).reshape(R, C, 16),
+            "ref_sel": i32(arrays.ref), "sub_mv": i32(arrays.sub_mv),
+            "uv_mv": i32(arrays.uv_mv)}
+    host.update(("qf." + k, i32(q)) for k, q in
+                _frame_quant_factors(header, state, arrays.segment).items())
     lf = frame_lf_params(header, arrays, state, key_frame)
-    lf_params = tuple(put(x, torch.int32) for x in lf[:5]) \
-        + (put(lf[5], torch.bool),)
+    host.update(("lf%d" % i, i32(x)) for i, x in enumerate(lf[:5]))
+    host["lf5"] = np.asarray(lf[5], bool)
+    mega, spec = pack_upload(host)
+    if staging is None:
+        staging = PinnedStaging(dev)
+    d = unpack_upload(staging.upload(mega), spec)
     refs = None
     if not key_frame:
-        # one (3, H, W) stack per plane for the MC kernel: a device copy of
-        # the three references every interframe (about 4 MB at 720p)
         rasters = [r.on_device(dev) for r in (
             references.last, references.golden, references.alternative)]
-        refs = {p: torch.stack([getattr(r, p) for r in rasters])
-                for p in "yuv"}
+        refs = {p: tuple(getattr(r, p) for r in rasters) for p in "yuv"}
     y, u, v = reconstruct_core(
-        key_frame, put(arrays.densify_coeffs(), torch.int16), qf,
-        put(arrays.y2_coded, torch.bool), put(arrays.has_nonzero, torch.bool),
-        put(arrays.ymode, torch.int32), put(arrays.uvmode, torch.int32),
-        put(arrays.bmode.reshape(R, C, 16), torch.uint8),
-        put(arrays.ref, torch.int32), put(arrays.sub_mv, torch.int32),
-        put(arrays.uv_mv, torch.int32), refs, lf_params)
+        key_frame, d["coeffs"], {k[3:]: q for k, q in d.items()
+                                 if k.startswith("qf.")},
+        d["y2_coded"], d["has_nonzero"], d["ymode"], d["uvmode"], d["bmode"],
+        d["ref_sel"], d["sub_mv"], d["uv_mv"], refs,
+        tuple(d["lf%d" % i] for i in range(6)))
     return Raster(state.width, state.height, y, u, v)

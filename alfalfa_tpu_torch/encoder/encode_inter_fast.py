@@ -10,8 +10,8 @@ Per interframe, on the encoder's device, one function of tensors
 2. K9 (ops/enc_decide_cuda.py): census, ZERO / NEAREST / NEAR / NEWMV
    against that cost, one launch per anti-diagonal r + c;
 3. the whole-macroblock six-tap prediction of every macroblock at its
-   vector (K3, ops/sixtap_cuda.predict_last_tiles, luma and chroma, one
-   call per quantizer);
+   vector (K3, ops/sixtap_cuda.predict_mb_tiles: the three planes of LAST
+   under every quantizer's vectors in one call);
 4. dense fDCT, WHT and quantization of every macroblock
    (ops/enc_batch.py), the decoder's residuals
    (ops/transforms.residuals_from_coeffs) and the clamped reconstruction,
@@ -55,7 +55,7 @@ from alfalfa_tpu_torch.ops.enc_decide_cuda import decide_inter_frame
 from alfalfa_tpu_torch.ops.enc_inter import MODE_WORDS
 from alfalfa_tpu_torch.ops.enc_intra import _from_blocks, _to_blocks
 from alfalfa_tpu_torch.ops.enc_intra_fixup_cuda import intra_fixup_frame
-from alfalfa_tpu_torch.ops.sixtap_cuda import predict_last_tiles
+from alfalfa_tpu_torch.ops.sixtap_cuda import predict_mb_tiles
 from alfalfa_tpu_torch.ops.transforms import residuals_from_coeffs
 from alfalfa_tpu_torch.ops.wavefront import tile, untile
 from alfalfa_tpu_torch.state.decoder_state import (DecoderState,
@@ -70,13 +70,17 @@ _LF_RECLIMB_PERIOD = 16
 QUANT = ("y_dc", "y_ac", "y2_dc", "y2_ac", "uv_dc", "uv_ac")
 
 
-def _mc(plane, mvx, mvy, S):
-    """Whole-macroblock six-tap predictions of one plane at one vector per
-    macroblock: K3 at G=1 from LAST, (R, C, S, S) int32."""
-    R, C = mvx.shape
-    mv = torch.stack([mvx, mvy], -1)[:, :, None, None, :] \
-        .expand(R, C, S // 4, S // 4, 2).to(torch.int32).contiguous()
-    return predict_last_tiles(plane, mv, S).to(torch.int32)
+def _mc(ly, lu, lv, mvx, mvy, cmx, cmy):
+    """Whole-macroblock six-tap predictions of the three planes of LAST
+    ((H, W) each) at one luma and one chroma vector per macroblock and
+    quantizer ((Q, R, C) each): K3 once, the vectors as expanded views;
+    (Q, R, C, 16, 16), (Q, R, C, 8, 8), (Q, R, C, 8, 8) int32."""
+    def blocks(x, y, n):
+        v = torch.stack([x, y], -1).to(torch.int32)
+        return v[:, :, :, None, None, :].expand(v.shape[:3] + (n, n, 2))
+    preds = predict_mb_tiles({"y": (ly,), "u": (lu,), "v": (lv,)}, None,
+                             blocks(mvx, mvy, 4), blocks(cmx, cmy, 2))
+    return [p.to(torch.int32) for p in preds]
 
 
 def _blocks(t, n):
@@ -106,7 +110,6 @@ def fast_frame(oy, ou, ov, ly, lu, lv, scalars, tables, rd):
     dev = oy.device
     R, C = oy.shape[0] // 16, oy.shape[1] // 16
     mbc, _ibc, mvc2p, pcost, sadcost, mvcost = tables
-    Q = len(rd)
     oy_t = tile(oy[None], 16)[0]
     icost = torch.stack([EB.intra_screen_source(oy_t, mbc, rm, dm)
                          for rm, dm in rd])
@@ -117,9 +120,7 @@ def fast_frame(oy, ou, ov, ly, lu, lv, scalars, tables, rd):
     mvx = torch.where(is_inter, md[..., 2], 0)
     mvy = torch.where(is_inter, md[..., 3], 0)
     cmx, cmy = EB.chroma_mv(mvx), EB.chroma_mv(mvy)
-    preds = [torch.stack([_mc(plane, x[q], y[q], S) for q in range(Q)])
-             for plane, x, y, S in ((ly, mvx, mvy, 16), (lu, cmx, cmy, 8),
-                                    (lv, cmx, cmy, 8))]
+    preds = _mc(ly, lu, lv, mvx, mvy, cmx, cmy)
 
     # per-quantizer factors, (Q, R, C); [..., None] broadcasts over blocks
     f = {k: scalars[:, i].reshape(-1, 1, 1).expand(-1, R, C)

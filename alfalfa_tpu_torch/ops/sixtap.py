@@ -1,7 +1,7 @@
 """Batched inter prediction (PyTorch): VP8 six-tap subpel filter, gather
-formulation.  This is the plain version of the ``sixtap_mc`` CUDA kernel
-(ops/sixtap_cuda.py): ``mc_tiles_plain`` for G frames,
-``predict_frame_plain`` for one, both through ``predict_mb_tiles``.
+formulation.  This is the plain version of the ``mc_planes`` CUDA kernel
+(ops/sixtap_cuda.py): ``mc_planes_plain`` for the three planes, through
+``mc_tiles_plain`` for one plane of G frames, through ``predict_mb_tiles``.
 
 The reference treats full-pel MVs as a copy fast path and subpel as a
 two-pass 6-tap filter; filter index 0 is the identity tap, so a uniform
@@ -97,7 +97,7 @@ def predict_mb_tiles(ref_planes, ref_sel, sub_mv, S):
 
 
 def mc_tiles_plain(refs, ref_sel, sub_mv, S):
-    """Plain version of ops.sixtap_cuda.mc_tiles (same contract).
+    """One plane of mc_planes_plain.
 
     refs: (G, 3, H, W) uint8 (last, golden, alternate); ref_sel: (G, R, C)
     with 0 = intra, 1..3 = last/golden/alternate; sub_mv: (G, R, C, n, n, 2).
@@ -107,7 +107,26 @@ def mc_tiles_plain(refs, ref_sel, sub_mv, S):
     return predict_mb_tiles(refs, slot, sub_mv, S).to(torch.uint8)
 
 
-def predict_frame_plain(refs, ref_sel, sub_mv, S):
-    """Plain version of ops.sixtap_cuda.predict_mb_tiles (one frame, the
-    same contract): mc_tiles_plain at G=1."""
-    return mc_tiles_plain(refs[None], ref_sel[None], sub_mv[None], S)[0]
+def mc_planes_plain(refs, ref_sel, sub_mv, uv_mv):
+    """Plain version of ops.sixtap_cuda.mc_tiles and predict_mb_tiles, with
+    predict_mb_tiles' contract: refs {"y", "u", "v"} -> a (G, 3, H, W)
+    stack (last, golden, alternate), or three slots (one will do where
+    ref_sel is None), each an (H, W) plane or (G, H, W) frames; ref_sel
+    (G, R, C) or None (every macroblock from the first slot); sub_mv (G,
+    R, C, 4, 4, 2), uv_mv (G, R, C, 2, 2, 2), any strides.  Returns the
+    (G, R, C, 16, 16), (G, R, C, 8, 8), (G, R, C, 8, 8) uint8
+    predictions."""
+    G, R, C = sub_mv.shape[:3]
+    if ref_sel is None:
+        ref_sel = torch.ones((G, R, C), dtype=torch.int32,
+                             device=sub_mv.device)
+    out = []
+    for p, mv, S in (("y", sub_mv, 16), ("u", uv_mv, 8), ("v", uv_mv, 8)):
+        stack = refs[p]
+        if not torch.is_tensor(stack):
+            slots = list(stack)
+            slots += slots[-1:] * (3 - len(slots))
+            stack = torch.stack([t.expand((G,) + t.shape[-2:])
+                                 for t in slots], 1)
+        out.append(mc_tiles_plain(stack, ref_sel, mv, S))
+    return tuple(out)

@@ -167,14 +167,16 @@ def tile(P, S):
 
 
 def intra_frame_plain(y, u, v, res_y, res_u, res_v, ymode, uvmode, bmode,
-                      has_nonzero, intra_mask):
+                      has_nonzero, intra_mask, order=None):
     """Plain version of ops.intra_cuda.intra_frame: the intra phase alone.
-    Arguments as wavefront_decode_plain's without lf_params; returns the
-    reconstructed, unfiltered (G, 16R, 16C), (G, 8R, 8C), (G, 8R, 8C)
-    uint8 planes."""
+    Arguments as wavefront_decode_plain's without lf_params, the
+    macroblocks in ``order`` (default the anti-diagonals d = 2r + c; any
+    list of (rows, cols) in which every macroblock comes after those whose
+    pixels it reads, such as row_order's); returns the reconstructed,
+    unfiltered (G, 16R, 16C), (G, 8R, 8C), (G, 8R, 8C) uint8 planes."""
     G, R, C = ymode.shape
     Ty, Tu, Tv = (t.to(torch.int32) for t in (y, u, v))     # fresh copies
-    for rs, cs in diagonals(R, C):
+    for rs, cs in diagonals(R, C) if order is None else order:
         _intra_diag(Ty, Tu, Tv, rs, cs, res_y, res_u, res_v, ymode, uvmode,
                     bmode, has_nonzero, intra_mask, R, C)
     return untile(Ty), untile(Tu), untile(Tv)

@@ -31,9 +31,6 @@ NP = 12             # int16 words per macroblock, see csrc/wavefront_device.cuh
 # left edge writes (d = 2r + c).
 ROW_LAG = 2
 
-# intra_frame_launch's arguments (ops/intra_cuda.py): planes out, tiles,
-# residuals, words, bmode; G, R, C
-WAVE_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
 # wavefront_decode_launch's: planes out, the unfiltered bottom rows, tiles,
 # residuals, words, bmode; G, R, C; the schedule
 ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3

@@ -20,51 +20,12 @@ from alfalfa_tpu_torch.bitstream.header import (UncompressedChunk,
 from alfalfa_tpu_torch.decoder.parse import FrameParser, FrameArrays
 from alfalfa_tpu_torch.decoder import reconstruct_torch as _RT
 from alfalfa_tpu_torch.native import bitwork
+from alfalfa_tpu_torch.parallel.upload import PinnedStaging
+from alfalfa_tpu_torch.parallel.upload import pack_upload as _pack_upload
+from alfalfa_tpu_torch.parallel.upload import unpack_upload as _unpack_upload
 from alfalfa_tpu_torch.state.decoder_state import DecoderState
 from alfalfa_tpu_torch.bitstream import tables as _T
 from alfalfa_tpu_torch.util import tracing
-
-_ALIGN = 16     # byte alignment of every segment of the upload buffer
-
-_TORCH_DTYPES = {"|u1": torch.uint8, "|i1": torch.int8, "<i2": torch.int16,
-                 "<i4": torch.int32, "|b1": torch.bool}
-
-
-def _pack_upload(batch):
-    """Flatten the parse-output dict into ONE uint8 buffer + a spec of
-    (key, dtype, shape, offset, size) segments, so a step uploads a single
-    buffer and slices the segments back out on the device.  Segments start
-    on _ALIGN-byte boundaries so the device can reinterpret them in place."""
-    parts = []
-    spec = []
-    off = 0
-    for k in sorted(batch):
-        v = batch[k]
-        if v is None:
-            continue
-        a = np.ascontiguousarray(v)
-        flat = a.view(np.uint8).reshape(-1)
-        spec.append((k, a.dtype.str, a.shape, off, flat.size))
-        parts.append(flat)
-        pad = -flat.size % _ALIGN
-        if pad:
-            parts.append(np.zeros(pad, np.uint8))
-        off += flat.size + pad
-    return np.concatenate(parts), tuple(spec)
-
-
-def _unpack_upload(mega, spec):
-    """Inverse of _pack_upload on a uint8 tensor (any device): views into
-    ``mega``, no copies."""
-    out = {}
-    for k, dstr, shape, off, size in spec:
-        seg = mega[off:off + size]
-        dt = _TORCH_DTYPES[dstr]
-        if dt != torch.uint8:
-            seg = seg.view(dt)
-        out[k] = seg.reshape(shape)
-    return out
-
 
 _COEFF_KEYS = ("coeff_delta", "coeff_val8", "desc_pos", "desc_extra",
                "vesc_pos", "vesc_val")
@@ -187,11 +148,7 @@ class BatchedGopDecoder:
                            device=self.device)
             for p, h, w in (("y", H, W), ("u", H // 2, W // 2),
                             ("v", H // 2, W // 2))}
-        # two pinned staging buffers with an event each: a buffer is not
-        # rewritten while its host->device copy may still be in flight
-        self._staging = [None, None]
-        self._staged = [None, None]
-        self._slot = 0
+        self._staging = PinnedStaging(self.device)
 
     # -- host side -----------------------------------------------------------
 
@@ -538,24 +495,7 @@ class BatchedGopDecoder:
     def _upload(self, mega):
         """The merged buffer as a uint8 tensor on self.device: one
         non-blocking copy out of a pinned staging buffer."""
-        if self.device.type != "cuda":
-            return torch.from_numpy(mega)
-        slot = self._slot
-        self._slot ^= 1
-        if self._staged[slot] is not None:
-            self._staged[slot].synchronize()
-        buf = self._staging[slot]
-        if buf is None or buf.numel() < mega.size:
-            buf = torch.empty(max(mega.size, 1 << 20) * 5 // 4,
-                              dtype=torch.uint8, pin_memory=True)
-            self._staging[slot] = buf
-        buf.numpy()[:mega.size] = mega
-        dev = torch.empty(mega.size, dtype=torch.uint8, device=self.device)
-        dev.copy_(buf[:mega.size], non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(self.device))
-        self._staged[slot] = ev
-        return dev
+        return self._staging.upload(mega)
 
     def _step_inputs(self, key_frame, batch):
         """The unpacked upload turned into reconstruct_core_batch's

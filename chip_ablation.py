@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Ablation of the persistent kernels' steps on one NVIDIA GPU.
+"""Ablation of the hand-written kernels' design steps on one NVIDIA GPU.
 
-    python3 chip_ablation.py                  # from the repo root
-    python3 chip_ablation.py --parent DIR     # also: K7's clocked phases on
-                                              # DIR's sources, the machine
-                                              # code of K4, K5, K7, K8 and
-                                              # K9 against DIR's, and K10,
-                                              # K4, K5, K1 and K8 timed against
-                                              # DIR's in alternation
+    python3 chip_ablation.py --parent DIR     # K4's and the six-tap
+                                              # kernel's steps undone, K4's
+                                              # clocked phases, the machine
+                                              # code of K1, K5, K7-K10
+                                              # against DIR's, and K4, the
+                                              # six-tap kernel and K1 timed
+                                              # against DIR's in alternation
+                                              # (--kernels k4,mc,sass,pairs)
     python3 chip_ablation.py --kernels k1,sass,pairs --parent DIR
                                               # K1's and K10's steps undone,
                                               # the machine code, the pairs
@@ -18,24 +19,36 @@ each the sources with one step of a redesign undone (or, for "separable",
 one tried step added), builds them all at once (one nvcc per source) and
 times them on 720p inputs chip_smoke.py makes, every variant in one
 process, "kept" first and last for the spread; each output is compared
-with the kept form's.  K5 and K7 (kernels k5, k7): K7 (encode_kf_frame)
-on frame 0 one-pass at qi 24 and two-pass at qi 32, K8 rt on frame 1 (its
-intra macroblocks run K7's B_PRED chain), K5 (loop_filter) on the
-single-frame decoder's frame 1 and on the encoders' 8-level search call;
-K7's "clocked" variant adds thread 0's clock64() per phase and prints
-cycles a macroblock.  K8 and K9 (kernels k8): K8 (encode_inter_frame) best
-and rt at qi 48, the rt pair, seeded extreme motion, K9
-(decide_inter_frame) one quantizer and the pair; its "clocked" variant
-prints K8's phases.  K1 and K10 (kernels k1): K1 (wavefront_decode) on
-the GOP decoder's 720p G=16 interframe and key frame, K10
-(intra_fixup_frame) on the fast path's 720p frame 1, pair and scene cut and
-176x144.  The pairs (kernels pairs, with --parent): each case of K10, K4,
-K5, K1 and K8 timed from DIR's library and from this checkout's, alternating
-which goes first, 12 readings a side (DIR's K1 and K10 through their
-parent's wrappers, which the entries' arguments of this checkout no longer
-fit).  Prints JSON lines;
-exits non-zero without a CUDA device or if a variant does not build or its
-output differs.
+with the kept form's.  K4 and the six-tap kernel (kernels k4, mc): K4
+(intra_frame) on the single-frame decoder's 720p and 176x144 interframe
+and key frame with one and two warps a block, publishing every
+macroblock, and clocked (thread 0's clock64() per phase, cycles a
+macroblock); the six-tap kernel on the GOP path's 720p G=16 call, the
+single-frame path's (also with the references stacked first, the
+parent's copy) and the fast path's pair, with one thread a byte and with
+four threads a 4x4 block.  K5 and K7 (kernels k5, k7): K7
+(encode_kf_frame) on frame 0 one-pass at qi 24 and two-pass at qi 32, K8
+rt on frame 1 (its intra macroblocks run K7's B_PRED chain), K5
+(loop_filter) on the single-frame decoder's frame 1 and on the encoders'
+8-level search call; K7's "clocked" variant adds thread 0's clock64() per
+phase and prints cycles a macroblock.  K8 and K9 (kernels k8): K8
+(encode_inter_frame) best and rt at qi 48, the rt pair, seeded extreme
+motion, K9 (decide_inter_frame) one quantizer and the pair; its "clocked"
+variant prints K8's phases.  K1 and K10 (kernels k1): K1
+(wavefront_decode) on the GOP decoder's 720p G=16 interframe and key
+frame, K10 (intra_fixup_frame) on the fast path's 720p frame 1, pair and
+scene cut and 176x144.  The pairs (kernels pairs, with --parent): each
+case of K4, the six-tap kernel and K1 timed from DIR's library and from
+this checkout's, alternating which goes first, 12 readings a side (DIR's
+K4 and six-tap kernel through their parent's wrappers, copied here, whose
+entries' arguments this checkout changed: the six-tap kernel as the
+parent's three per-plane calls on stacked references, made outside the
+timing; the parent's six-tap calls also timed one by one and summed).
+The spans (kernels spans, with --parent): enc.fast_kernel a fast rt
+interframe and decode.reconstruct a frame at 720p, traced, in DIR's tree
+and this one's, a fresh process each, in the order DIR, this, this, DIR.
+Prints JSON lines; exits non-zero without a CUDA device or if a variant
+does not build or its output differs.
 
 The variants are text edits of the current sources: an edit that no longer
 applies fails loudly, and the script then describes an earlier design.
@@ -59,7 +72,7 @@ sys.path.insert(0, REPO)
 import chip_smoke as cs  # noqa: E402
 from alfalfa_tpu_torch import _build  # noqa: E402
 from alfalfa_tpu_torch.ops import enc_decide_cuda, enc_inter_cuda, \
-    enc_intra_cuda, enc_intra_fixup_cuda, intra_cuda, lf_cuda, \
+    enc_intra_cuda, enc_intra_fixup_cuda, intra_cuda, lf_cuda, sixtap_cuda, \
     wavefront_cuda  # noqa: E402
 
 OUT = os.path.join(REPO, "build", "ablation")
@@ -408,11 +421,13 @@ def entry(name, src):
     return f
 
 
-# the kernels a redesign of K1 and K10 leaves alone: K4's and K5's in the
-# library they share with K1, and K7's, K8's and K9's libraries
-SAME_SASS = {"wavefront": ("untile_kernel", "intra_diag_kernel",
-                           "lf_row_kernel"),
-             "enc_intra": None, "enc_inter": None, "enc_decide": None}
+# the kernels the redesign of K4 and the six-tap kernel holds to the
+# parent's machine code: K1's (its reconstruction step moved into helpers
+# K4 calls too) and K5's in the library they share with K4, and K7's,
+# K8's, K9's and K10's libraries
+SAME_SASS = {"wavefront": ("wave_row_kernel", "lf_row_kernel"),
+             "enc_intra": None, "enc_inter": None, "enc_decide": None,
+             "enc_intra_fixup": None}
 
 
 def sass_functions(so, cuobjdump):
@@ -774,9 +789,8 @@ def k10_publish_every(s):
                "row_wait(")
 
 
-K1_PHASES = ("before_wait", "wait", "loads", "intra_dc", "intra_rows",
-             "bpred_chain", "intra_pack", "intra_vertical", "horizontal",
-             "stores_publish")
+K1_PHASES = ("before_wait", "wait", "loads", "intra_rows", "bpred_chain",
+             "intra_pack", "intra_vertical", "horizontal", "stores_publish")
 
 
 def k1_clocked_globals(s):
@@ -811,28 +825,25 @@ def k1_clocked(s):
     s = rep(s, "    if (intra) {\n      // this macroblock's residual",
             "    K1_TICK(2)\n    n_intra_ += intra;\n    n_bpred_ += bpred;\n"
             "    if (intra) {\n      // this macroblock's residual")
-    s = rep(s, "      const int dc = dc_value(sa, sl, hrow_mb, c > 0, luma ? 4 : 3);\n",
-            "      const int dc = dc_value(sa, sl, hrow_mb, c > 0, luma ? 4 : 3);\n"
-            "      K1_TICK(3)\n")
     s = rep(s, "      if (bpred) {\n        __syncwarp();\n",
-            "      K1_TICK(4)\n      if (bpred) {\n        __syncwarp();\n")
+            "      K1_TICK(3)\n      if (bpred) {\n        __syncwarp();\n")
     s = rep(s, "          for (int k = 0; k < 16; ++k) own[k] = s_t[1 + row][1 + k];\n"
                "        }\n      }\n",
             "          for (int k = 0; k < 16; ++k) own[k] = s_t[1 + row][1 + k];\n"
-            "        }\n        K1_TICK(5)\n      }\n")
+            "        }\n        K1_TICK(4)\n      }\n")
     s = rep(s, "      lu = (luma ? u[3] : u[1]) >> 24;\n      __syncwarp();\n",
             "      lu = (luma ? u[3] : u[1]) >> 24;\n      __syncwarp();\n"
-            "      K1_TICK(6)\n")
+            "      K1_TICK(5)\n")
     s = rep(s, "    __syncwarp();\n    if (on)\n      lf_filter_window(s_y, s_u, "
                "s_v, lane, do_left, do_top, do_sb, p[5],\n                       "
                "p[6], p[7], p[8], false, true);\n",
-            "    __syncwarp();\n    K1_TICK(7)\n    if (on)\n      "
+            "    __syncwarp();\n    K1_TICK(6)\n    if (on)\n      "
             "lf_filter_window(s_y, s_u, s_v, lane, do_left, do_top, do_sb, "
             "p[5],\n                       p[6], p[7], p[8], false, true);\n"
-            "    K1_TICK(8)\n")
+            "    K1_TICK(7)\n")
     return rep(s, "    if (lane == 0) row_publish(prog, c + 1);\n  }\n}",
-               "    if (lane == 0) row_publish(prog, c + 1);\n    K1_TICK(9)\n"
-               "  }\n  if (lane == 0) {\n    for (int k = 0; k < 10; ++k)\n"
+               "    if (lane == 0) row_publish(prog, c + 1);\n    K1_TICK(8)\n"
+               "  }\n  if (lane == 0) {\n    for (int k = 0; k < 9; ++k)\n"
                "      atomicAdd(&g_k1phase[k], (unsigned long long)ph_[k]);\n"
                "    atomicAdd(&g_k1phase[14], (unsigned long long)n_intra_);\n"
                "    atomicAdd(&g_k1phase[15], (unsigned long long)n_bpred_);\n"
@@ -924,7 +935,7 @@ def run_k1_k10(card):
                     torch.cuda.synchronize()
                     lib.k1_phase_read(buf)
                     n, n_intra, n_bpred = a[6].numel(), buf[14], buf[15]
-                    per = [n] * 3 + [max(n_intra, 1)] * 2 + [max(n_bpred, 1)] \
+                    per = [n] * 3 + [max(n_intra, 1)] + [max(n_bpred, 1)] \
                         + [max(n_intra, 1)] * 2 + [n] * 2
                     cs.say("ablation_k1_phases", case=case, card=card,
                            macroblocks=n, intra=n_intra, b_pred=n_bpred,
@@ -933,6 +944,336 @@ def run_k1_k10(card):
                                for i, p in enumerate(K1_PHASES)})
     finally:
         wavefront_cuda._entry, enc_intra_fixup_cuda._entry = saved
+    return ok
+
+
+# ---- K4 and the six-tap kernel: each step of their redesign undone
+
+K4_HEAD = "intra_row_kernel(IntraRowArgs a) {"
+
+
+def k4_warps(n):
+    """K4's block of ``n`` warps (1: one warp copies and reconstructs all
+    three planes)."""
+    return lambda s: rep(s, "#define K4_WARPS 4\n", "#define K4_WARPS %d\n" % n)
+
+
+def k4_publish_every(s):
+    """K4 visits every macroblock of its row, the inter ones copied
+    already, and publishes after each (waiting only before an intra one),
+    not once a run of inter macroblocks."""
+    s = rep(s, "  int c = next_intra(mbp, 0, C, lane);\n"
+               "  if (tid == 0 && c > 0) row_publish(prog, c);\n",
+            "  int c = 0;\n")
+    s = rep(s, "    const int cn = next_intra(mbp, c + 1, C, lane);\n",
+            "    const int cn = c + 1;\n")
+    return rep(s, "    const bool nz = (int16_t)w23 != 0;\n",
+               "    const bool nz = (int16_t)w23 != 0;\n"
+               "    if ((int16_t)(w23 >> 16) == 0) {\n"
+               "      intra_sync<NW>();\n"
+               "      if (tid == 0) row_publish(prog, cn);\n"
+               "      c = cn;\n      continue;\n    }\n")
+
+
+K4_PHASES = ("copies", "next_words_left", "wait", "loads", "rows",
+             "bpred_chain", "store_publish")
+
+K4_GLOBALS = """#include "row_sched.cuh"
+
+__device__ unsigned long long g_k4phase[16];
+extern "C" int k4_phase_read(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_k4phase, sizeof(g_k4phase));
+}
+extern "C" int k4_phase_zero() {
+  unsigned long long z[16] = {0};
+  return (int)cudaMemcpyToSymbol(g_k4phase, z, sizeof(z));
+}
+#define K4_TICK(k) if (tid == 0) { t2_ = clock64(); ph_[k] += t2_ - t_; t_ = t2_; }
+"""
+
+
+def k4_clocked_globals(s):
+    """The phase counters of k4_clocked (K4_PHASES, then the intra and the
+    B_PRED macroblocks counted) and their C entries."""
+    return rep(s, '#include "row_sched.cuh"\n', K4_GLOBALS)
+
+
+def k4_clocked(s):
+    """Thread 0's clock64() per phase of K4's walk (K4_PHASES), summed
+    over the blocks; the copies over all macroblocks, the intra phases over
+    intra macroblocks, the chain over B_PRED ones."""
+    s = rep(s, "  int* prog = a.rs.progress + g * R + r;\n",
+            "  int* prog = a.rs.progress + g * R + r;\n"
+            "  long long ph_[8] = {0}, t_ = clock64(), t2_;\n"
+            "  int n_intra_ = 0, n_bpred_ = 0;\n")
+    s = rep(s, "  __syncthreads();\n  int c = next_intra(",
+            "  __syncthreads();\n  K4_TICK(0)\n  int c = next_intra(")
+    s = rep(s, "    if (tid == 0 && r > 0) row_wait(",
+            "    K4_TICK(1)\n    n_intra_ += 1;\n    n_bpred_ += bpred;\n"
+            "    if (tid == 0 && r > 0) row_wait(")
+    s = rep(s, "    intra_sync<NW>();\n    uint32_t A[4]",
+            "    intra_sync<NW>();\n    K4_TICK(2)\n    uint32_t A[4]")
+    s = rep(s, "    const int16_t* rk = res[k & 1];\n",
+            "    const int16_t* rk = res[k & 1];\n    K4_TICK(3)\n")
+    s = rep(s, "left, r > 0, c > 0, rk, res_at, s_t, s_bm, lane, rows);\n",
+            "left, r > 0, c > 0, rk, res_at, s_t, s_bm, lane, rows);\n"
+            "    K4_TICK(4)\n")
+    s = rep(s, "    if (rows) {\n      uint32_t u[4];",
+            "    K4_TICK(5)\n    if (rows) {\n      uint32_t u[4];")
+    return rep(s, "    if (tid == 0) row_publish(prog, cn);\n    c = cn;\n  }\n}",
+               "    if (tid == 0) row_publish(prog, cn);\n    K4_TICK(6)\n"
+               "    c = cn;\n  }\n  if (tid == 0) {\n"
+               "    for (int k = 0; k < 7; ++k)\n"
+               "      atomicAdd(&g_k4phase[k], (unsigned long long)ph_[k]);\n"
+               "    atomicAdd(&g_k4phase[14], (unsigned long long)n_intra_);\n"
+               "    atomicAdd(&g_k4phase[15], (unsigned long long)n_bpred_);\n"
+               "  }\n}")
+
+
+# the six-tap kernel's body with one thread per output pixel, both passes
+# straight from the plane (sixtap_device.cuh's sixtap_pixel: per-index
+# clamped byte loads, the taps from __constant__ at each thread's phase)
+BYTE_BODY = """#include "sixtap_device.cuh"
+
+#define MC_THREADS 256
+#define MC_PER_MB 384
+
+__global__ void __launch_bounds__(MC_THREADS) mc_planes_kernel(McArgs a) {
+  const int R = a.R, C = a.C, g = blockIdx.y;
+  const int t = blockIdx.x * MC_THREADS + threadIdx.x;
+  if (t >= R * C * 384) return;
+  const int m = t / 384, u = t - m * 384;
+  const int r = m / C, c = m - r * C;
+  const bool luma = u < 256;
+  const int pl = luma ? 0 : 1 + ((u - 256) >> 6);
+  const int k = luma ? u : (u - 256) & 63;
+  const int S = luma ? 16 : 8, py = k / S, px = k % S;
+  const int b = luma ? (py >> 2) * 4 + (px >> 2) : (py >> 2) * 2 + (px >> 2);
+  const size_t mb = (size_t)g * R * C + m;
+  const int slot = a.sel ? clampi(a.sel[mb] - 1, 0, 2) : 0;
+  const uint8_t* ref = a.ref[0][0];
+  long long bstride = a.bstride[0][0];
+#pragma unroll
+  for (int q = 1; q < 9; ++q)
+    if (q == pl * 3 + slot) {
+      ref = a.ref[q / 3][q % 3];
+      bstride = a.bstride[q / 3][q % 3];
+    }
+  ref += g * bstride;
+  const int* mv = luma ? a.mv[0] + mb * a.mv_mb[0] + b * a.mv_blk[0]
+                       : a.mv[1] + mb * a.mv_mb[1] + b * a.mv_blk[1];
+  uint8_t* out = pl == 0 ? a.out[0] : pl == 1 ? a.out[1] : a.out[2];
+  out[mb * MC_TILES + py * S + px] = (uint8_t)sixtap_pixel(
+      ref, R * S, C * S, r * S + py, c * S + px, mv[0], mv[1]);
+}
+
+"""
+
+
+def mc_byte_per_thread(s):
+    """The six-tap kernel computing one output byte a thread, each with its
+    own two passes from the plane, as the parent's body did (without its
+    staged windows)."""
+    i, j = s.index("#define MC_THREADS 192"), s.index("// p: 28 words")
+    s = s[:i] + BYTE_BODY + s[j:]
+    return rep(s, "  const int threads = R * C * 24;",
+               "  const int threads = R * C * MC_PER_MB;")
+
+
+# the first form of the new body: a thread a 4-pixel row of a 4x4 block,
+# the block's 4 lanes sharing its 9 filtered rows by shuffles
+QUAD_BODY = """__device__ __forceinline__ uint32_t quad_v_pass(const uint32_t (&v)[6],
+                                                int fy, const uint32_t* taps) {
+  if (fy == 0) return v[2];
+  const uint32_t ta = taps[2 * fy], tb = taps[2 * fy + 1];
+  const uint32_t p01 = __byte_perm(v[0], v[1], 0x5140);
+  const uint32_t p23 = __byte_perm(v[2], v[3], 0x5140);
+  const uint32_t p45 = __byte_perm(v[4], v[5], 0x5140);
+  const uint32_t q01 = __byte_perm(v[0], v[1], 0x7362);
+  const uint32_t q23 = __byte_perm(v[2], v[3], 0x7362);
+  const uint32_t q45 = __byte_perm(v[4], v[5], 0x7362);
+  return pack4(tap6(__byte_perm(p01, p23, 0x5410), p45, ta, tb),
+               tap6(__byte_perm(p01, p23, 0x7632), p45 >> 16, ta, tb),
+               tap6(__byte_perm(q01, q23, 0x5410), q45, ta, tb),
+               tap6(__byte_perm(q01, q23, 0x7632), q45 >> 16, ta, tb));
+}
+
+#define MC_THREADS 256
+#define MC_PER_MB 96
+
+__global__ void __launch_bounds__(MC_THREADS) mc_planes_kernel(McArgs a) {
+  __shared__ uint32_t s_taps[16];
+  if (threadIdx.x < 16) s_taps[threadIdx.x] = packed_taps(threadIdx.x);
+  __syncthreads();
+  const int R = a.R, C = a.C, g = blockIdx.y;
+  const int t = blockIdx.x * MC_THREADS + threadIdx.x;
+  if (t >= R * C * 96) return;
+  const int m = t / 96, u = t - m * 96;
+  const int r = m / C, c = m - r * C;
+  const bool luma = u < 64;
+  const int pl = luma ? 0 : 1 + ((u - 64) >> 4);
+  const int b = luma ? u >> 2 : (u >> 2) & 3;
+  const int i = u & 3;
+  const int S = luma ? 16 : 8;
+  const int by = (luma ? b >> 2 : b >> 1) * 4, bx = (luma ? b & 3 : b & 1) * 4;
+  const size_t mb = (size_t)g * R * C + m;
+  const int slot = a.sel ? clampi(a.sel[mb] - 1, 0, 2) : 0;
+  const uint8_t* ref = a.ref[0][0];
+  long long bstride = a.bstride[0][0];
+#pragma unroll
+  for (int q = 1; q < 9; ++q)
+    if (q == pl * 3 + slot) {
+      ref = a.ref[q / 3][q % 3];
+      bstride = a.bstride[q / 3][q % 3];
+    }
+  ref += g * bstride;
+  const int* mv = luma ? a.mv[0] + mb * a.mv_mb[0] + b * a.mv_blk[0]
+                       : a.mv[1] + mb * a.mv_mb[1] + b * a.mv_blk[1];
+  uint8_t* out = pl == 0 ? a.out[0] : pl == 1 ? a.out[1] : a.out[2];
+  const int mvx = mv[0], mvy = mv[1];
+  const int H = R * S, W = C * S;
+  const int ys = r * S + by + (mvy >> 3) - 2;
+  const int xs = c * S + bx + (mvx >> 3) - 2;
+  const int fx = mvx & 7;
+  const uint32_t h0 = h_row(ref, H, W, ys + i, xs, fx, s_taps);
+  const uint32_t h1 = h_row(ref, H, W, ys + i + 4, xs, fx, s_taps);
+  const uint32_t h2 = h_row(ref, H, W, ys + 8, xs, fx, s_taps);
+  uint32_t v[6];
+  const int quad = threadIdx.x & 28;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    if (k == 0) { v[0] = h0; continue; }
+    if (k == 4) { v[4] = h1; continue; }
+    const int j = ((i - k) & 3) + k;
+    const uint32_t send = j < 4 ? h0 : j < 8 ? h1 : h2;
+    v[k] = __shfl_sync(0xffffffffu, send, quad | ((i + k) & 3));
+  }
+  *reinterpret_cast<uint32_t*>(out + mb * MC_TILES + (by + i) * S + bx) =
+      quad_v_pass(v, mvy & 7, s_taps);
+}
+
+"""
+
+
+def mc_quad(s):
+    """The six-tap kernel with a thread a 4-pixel row of a 4x4 block (96
+    threads a macroblock), the block's 4 lanes computing 3 of its 9
+    filtered rows each and sharing them by shuffles."""
+    i, j = s.index("#define MC_THREADS 192"), s.index("// p: 28 words")
+    s = s[:i] + QUAD_BODY + s[j:]
+    return rep(s, "  const int threads = R * C * 24;",
+               "  const int threads = R * C * MC_PER_MB;")
+
+
+# variant: {file: edit}, built from SOURCES_K4
+VARIANTS_K4 = {
+    "kept": {},
+    "k4_one_warp": {"wavefront.cu": k4_warps(1)},
+    "k4_two_warps": {"wavefront.cu": k4_warps(2)},
+    "k4_publish_every": {"wavefront_device.cuh": in_kernel(K4_HEAD,
+                                                           k4_publish_every)},
+    "k4_clocked": {"wavefront_device.cuh": lambda s: in_kernel(
+        K4_HEAD, k4_clocked)(k4_clocked_globals(s))},
+    "mc_byte_per_thread": {"sixtap_mc.cu": mc_byte_per_thread},
+    "mc_quad": {"sixtap_mc.cu": mc_quad},
+}
+SOURCES_K4 = ("wavefront", "sixtap_mc")
+
+
+def stacked(fn):
+    """``fn`` (predict_mb_tiles) called as the parent's single-frame path
+    called the six-tap kernel: the three references of each plane first
+    stacked into one (1, 3, H, W) tensor, a device copy."""
+    def wrapper(refs, ref_sel, sub_mv, uv_mv):
+        return fn({p: torch.stack(list(r))[None] for p, r in refs.items()},
+                  ref_sel, sub_mv, uv_mv)
+    return wrapper
+
+
+def k4_mc_cases():
+    """[(wrapper, case, args)]: K4 on the single-frame decoder's 720p
+    frames 1 and 0 and on 176x144; the six-tap kernel on the GOP path's
+    720p G=16 frame 1, the single-frame path's frame 1 (G=1, the rasters
+    unstacked; and stacked, the parent's copy), the fast path's pair."""
+    ivf = cs.IVFReader(cs.CLIP)
+    payloads = [ivf.frame(i) for i in (0, 1)]
+    small = cs.IVFReader(cs.SMALL_CLIP)
+    sf = cs.single_frame_kernel_inputs(payloads, ivf.width, ivf.height)
+    sfs = cs.single_frame_kernel_inputs([small.frame(0), small.frame(1)],
+                                        small.width, small.height)
+    out = [(intra_cuda.intra_frame, "k4_720p_inter", sf[("intra_frame", 1)][0]),
+           (intra_cuda.intra_frame, "k4_720p_key", sf[("intra_frame", 0)][0]),
+           (intra_cuda.intra_frame, "k4_176x144_inter",
+            sfs[("intra_frame", 1)][0]),
+           (intra_cuda.intra_frame, "k4_176x144_key",
+            sfs[("intra_frame", 0)][0])]
+    kept = cs.real_kernel_inputs(payloads, ivf.width, ivf.height, cs.G)
+    big = cs.decoded_frames(cs.CLIP, (0, 1))
+    fast = cs.fast_kernel_inputs(big[0], big[1], cs.FAST_PAIR_KEY_QI,
+                                 cs.FAST_PAIR_QIS)[2]
+    mc1 = sf[("predict_mb_tiles", 1)][0]
+    out += [(sixtap_cuda.mc_tiles, "mc_720p_G16", kept["mc"]),
+            (sixtap_cuda.predict_mb_tiles, "mc_720p_G1", mc1),
+            (stacked(sixtap_cuda.predict_mb_tiles), "mc_720p_G1_stacked",
+             mc1),
+            (sixtap_cuda.predict_mb_tiles, "mc_720p_fast_pair", fast)]
+    return out
+
+
+def run_k4_mc(card, parts):
+    """Time K4 (``parts`` holds "k4") and the six-tap kernel ("mc") with
+    each step of their redesign undone (VARIANTS_K4), "kept" first and
+    last, and K4's clocked phases."""
+    variants = {n: e for n, e in VARIANTS_K4.items()
+                if n == "kept" or n.split("_")[0] in parts}
+    write_variants(variants)
+    t0 = time.perf_counter()
+    logs = build([(os.path.join(OUT, n, "lib%s.so" % src),
+                   os.path.join(OUT, n, src + ".cu"))
+                  for n in variants for src in SOURCES_K4])
+    cs.say("ablation_build", seconds=time.perf_counter() - t0,
+           ptxas={os.path.relpath(k, OUT): v for k, v in logs.items()})
+    cases = [c for c in k4_mc_cases() if c[1].split("_")[0] in parts]
+    saved = intra_cuda._entry, sixtap_cuda._entry
+    ref, ok = {}, True
+    try:
+        for name in list(variants) + ["kept"]:
+            d = os.path.join(OUT, name)
+            intra_cuda._entry = lambda d=d: lib_entry(
+                os.path.join(d, "libwavefront.so"), "intra_frame_launch",
+                intra_cuda.ARGTYPES)
+            sixtap_cuda._entry = lambda d=d: lib_entry(
+                os.path.join(d, "libsixtap_mc.so"), "mc_planes_launch",
+                sixtap_cuda.ARGTYPES)
+            ms, equal = {}, {}
+            for fn, case, a in cases:
+                key = case.replace("_stacked", "")
+                out = fn(*a)
+                ref.setdefault(key, out)
+                equal[case] = all(torch.equal(x, y)
+                                  for x, y in zip(out, ref[key]))
+                ms[case] = cs.time_ms(lambda: fn(*a), 20)
+            ok &= all(equal.values())
+            cs.say("ablation", variant=name, card=card, ms=ms, equal=equal)
+            if name == "k4_clocked":
+                lib = ctypes.CDLL(os.path.join(d, "libwavefront.so"))
+                buf = (ctypes.c_ulonglong * 16)()
+                for fn, case, a in [c for c in cases
+                                    if c[1].startswith("k4_720p")]:
+                    lib.k4_phase_zero()
+                    fn(*a)
+                    torch.cuda.synchronize()
+                    lib.k4_phase_read(buf)
+                    n, n_intra, n_bpred = a[6].numel(), buf[14], buf[15]
+                    per = [n] + [max(n_intra, 1)] * 4 + [max(n_bpred, 1)] \
+                        + [max(n_intra, 1)]
+                    cs.say("ablation_k4_phases", case=case, card=card,
+                           macroblocks=n, intra=n_intra, b_pred=n_bpred,
+                           cycles_per_macroblock={
+                               p: buf[i] / per[i]
+                               for i, p in enumerate(K4_PHASES)})
+    finally:
+        intra_cuda._entry, sixtap_cuda._entry = saved
     return ok
 
 
@@ -1045,14 +1386,18 @@ def main():
         raise SystemExit("chip_ablation.py needs a CUDA device")
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", help="a checkout of the parent commit")
-    ap.add_argument("--kernels", default="k1,k7,k5,k8,pairs",
-                    help="comma-separated: k1 (K1's and K10's variants), k7 "
-                         "(K7's clocked phases), k5 (K7's and K5's "
-                         "variants), k8 (K8's and K9's, with --parent also "
-                         "the machine code), sass (the machine code alone, "
-                         "with --parent), pairs (with --parent: K10, K4, K5, "
-                         "K1 and K8 timed from the parent's library and this "
-                         "one's in alternation)")
+    ap.add_argument("--kernels", default="k4,mc,sass,pairs",
+                    help="comma-separated: k4 (K4's variants and clocked "
+                         "phases), mc (the six-tap kernel's variants), k1 "
+                         "(K1's and K10's variants), k7 (K7's clocked "
+                         "phases), k5 (K7's and K5's variants), k8 (K8's "
+                         "and K9's, with --parent also the machine code), "
+                         "sass (the machine code alone, with --parent), "
+                         "pairs (with --parent: K4, the six-tap kernel and "
+                         "K1 timed from the parent's library and this one's "
+                         "in alternation), spans (with --parent: "
+                         "enc.fast_kernel and decode.reconstruct in the "
+                         "parent's tree and this one's, four processes)")
     ap.add_argument("--pairs", type=int, default=12,
                     help="readings of each side in the pairs")
     args = ap.parse_args()
@@ -1061,6 +1406,8 @@ def main():
     cs.say("ablation_env", card=card, device=torch.cuda.get_device_name(0))
     os.makedirs(OUT, exist_ok=True)
     ok = True
+    if kernels & {"k4", "mc"}:
+        ok &= run_k4_mc(card, kernels & {"k4", "mc"})
     if "k1" in kernels:
         ok &= run_k1_k10(card)
     if "k7" in kernels:
@@ -1076,6 +1423,8 @@ def main():
         sass(args.parent)
     if "pairs" in kernels and args.parent:
         ok &= parent_pairs(card, args.parent, args.pairs)
+    if "spans" in kernels and args.parent:
+        run_spans(card, os.path.abspath(args.parent))
     if not ok:
         raise SystemExit("a variant's output differs from the kept form's "
                          "(or, in the pairs, from the parent's)")
@@ -1149,31 +1498,116 @@ def run_k8_k9(card, parent):
     return ok
 
 
+# ---- the spans ISSUE-level predictions name, this tree against the parent
+
+# run as ``python -c SPANS_CHILD TREE`` from TREE's root: TREE's own
+# package times enc.fast_kernel (the fast path's device function, a fast
+# rt interframe at 720p, traced) and decode.reconstruct (the single-frame
+# decoder, a 720p frame, traced), three passes after a warm-up; one JSON
+# line
+SPANS_CHILD = r"""
+import json, os, sys, time
+root = os.path.abspath(sys.argv[1])
+sys.path.insert(0, root)
+os.chdir(root)
+import torch
+import chip_smoke as cs
+from alfalfa_tpu_torch import _build
+from alfalfa_tpu_torch.decoder import Decoder
+from alfalfa_tpu_torch.encoder import Encoder
+from alfalfa_tpu_torch.util import tracing
+
+_build.build_all()
+ivf = cs.IVFReader(cs.CLIP)
+payloads = [ivf.frame(i) for i in range(len(ivf))]
+frames = {k: r.display() for k, r in
+          cs.decoded_frames(cs.CLIP, tuple(range(6))).items()}
+out = {"tree": sys.argv[1], "fast_kernel_ms": [], "fast_host_ms": [],
+       "reconstruct_ms": []}
+for rep in range(4):
+    e = Encoder(ivf.width, ivf.height, quality="rt", fast=True, device=cs.DEV)
+    e.encode_with_quantizer(frames[0], cs.FAST_QI, key_frame=True)
+    tracing.enable(rep > 0)
+    tracing.snapshot()
+    for k in cs.FAST_ORDER:
+        e.encode_with_quantizer(frames[k], cs.FAST_QI)
+    torch.cuda.synchronize()
+    spans = tracing.snapshot()
+    d = Decoder(ivf.width, ivf.height, device=cs.DEV)
+    for p in payloads:
+        d.decode_frame(p)
+    torch.cuda.synchronize()
+    dspans = tracing.snapshot()
+    tracing.enable(False)
+    if rep:
+        n = len(cs.FAST_ORDER)
+        out["fast_kernel_ms"].append(spans["enc.fast_kernel"]["seconds"] * 1e3 / n)
+        out["fast_host_ms"].append(spans["enc.fast_host"]["seconds"] * 1e3 / n)
+        out["reconstruct_ms"].append(
+            dspans["decode.reconstruct"]["seconds"] * 1e3 / len(payloads))
+print(json.dumps(out), flush=True)
+"""
+
+
+def run_spans(card, parent):
+    """SPANS_CHILD in the parent's tree and this one's, in the order
+    parent, this, this, parent (each a fresh process): the spans' readings
+    and their medians per tree."""
+    got = {"parent": [], "here": []}
+    for tag, tree in (("parent", parent), ("here", REPO), ("here", REPO),
+                      ("parent", parent)):
+        res = subprocess.run([sys.executable, "-c", SPANS_CHILD, tree],
+                             capture_output=True, text=True, check=True)
+        got[tag].append(json.loads(res.stdout.strip().splitlines()[-1]))
+    line = {}
+    for tag, runs in got.items():
+        for k in ("fast_kernel_ms", "fast_host_ms", "reconstruct_ms"):
+            vals = [v for r in runs for v in r[k]]
+            line["%s_%s" % (tag, k)] = vals
+            line["%s_%s_median" % (tag, k)] = statistics.median(vals)
+    cs.say("ablation_spans", card=card, **line)
+
+
 # ---- the kernels this redesign holds to the parent: each case timed from
 # the parent's library and from this checkout's in alternation
 
 # C entry: (the argument types this checkout's wrapper gives it, the
 # wrapper's module)
 PAIR_ENTRIES = {
-    "intra_fixup_frame_launch": (enc_intra_fixup_cuda.ARGTYPES,
-                                 enc_intra_fixup_cuda),
-    "encode_inter_frame_launch": (ENTRIES["enc_inter"][1], enc_inter_cuda),
-    "intra_frame_launch": (wavefront_cuda.WAVE_ARGTYPES, intra_cuda),
+    "intra_frame_launch": (intra_cuda.ARGTYPES, intra_cuda),
+    "mc_planes_launch": (sixtap_cuda.ARGTYPES, sixtap_cuda),
     "wavefront_decode_launch": (wavefront_cuda.ARGTYPES, wavefront_cuda),
-    "loop_filter_launch": (lf_cuda.ARGTYPES, lf_cuda),
 }
 
 
-def parent_k1(entry):
-    """K1's wrapper as the parent had it, around the parent's ``entry``
-    (planes out, tiles, residuals, words, bmode; G, R, C)."""
+def parent_launch(entry, name, device, *args):
+    """The parent's _build.launch: the device switched and the stream read
+    through torch.cuda on every call."""
+    issued = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = entry(*args, torch.cuda.current_stream().cuda_stream,
+                   ctypes.byref(issued))
+    if rc != 0:
+        raise RuntimeError("%s launch failed: CUDA error %d" % (name, rc))
+    return issued.value
+
+
+def parent_k4(entry):
+    """K4's wrapper as the parent had it, around the parent's ``entry``
+    (planes out, tiles, residuals, words, bmode; G, R, C): one untile
+    launch and one launch per diagonal."""
     def wrapper(y, u, v, res_y, res_u, res_v, ymode, uvmode, bmode,
-                has_nonzero, intra_mask, lf_params):
+                has_nonzero, intra_mask):
         G, R, C = ymode.shape
+        dev = y.device
+        wavefront_cuda.check_wave_inputs(
+            dev, G, R, C, y, u, v, res_y, res_u, res_v, bmode,
+            {"ymode": ymode, "uvmode": uvmode, "has_nonzero": has_nonzero,
+             "intra_mask": intra_mask})
         mbp = wavefront_cuda.pack_mb_params(ymode, uvmode, has_nonzero,
-                                            intra_mask, lf_params)
-        Y, U, V = wavefront_cuda.empty_planes(G, R, C, y.device)
-        _build.launch(entry, "parent wavefront_decode", y.device,
+                                            intra_mask)
+        Y, U, V = wavefront_cuda.empty_planes(G, R, C, dev)
+        parent_launch(entry, "parent intra_frame", dev,
                       *(t.data_ptr() for t in (Y, U, V, y, u, v, res_y,
                                                res_u, res_v, mbp, bmode)),
                       G, R, C)
@@ -1181,78 +1615,120 @@ def parent_k1(entry):
     return wrapper
 
 
-def parent_k10(entry):
-    """K10's wrapper as the parent had it, around the parent's ``entry``
-    (originals, decisions, planes encoded in place, coefficients, modes,
-    scalars, mode costs; Q, R, C): the planes cloned, the coefficients and
-    modes zeroed."""
-    def wrapper(oy, ou, ov, md, y, u, v, scalars, mbc):
-        Q, R, C = md.shape[:3]
-        Y, U, V = y.clone(), u.clone(), v.clone()
-        coeffs = torch.zeros((Q, R, C, 25, 16), dtype=torch.int16,
-                             device=oy.device)
-        modes = torch.zeros((Q, R, C, 3), dtype=torch.int32, device=oy.device)
-        _build.launch(entry, "parent intra_fixup_frame", oy.device,
-                      *(t.data_ptr() for t in (oy, ou, ov, md, Y, U, V,
-                                               coeffs, modes, scalars, mbc)),
-                      Q, R, C)
-        return coeffs, modes, Y, U, V
+def parent_plane(entry, refs, ref_sel, sub_mv, S, slots=3):
+    """One per-plane call of the parent's six-tap kernel, with the parent's
+    wrapper's checks, output and launch: (G, R, C, S, S) uint8."""
+    G, R, C = ref_sel.shape
+    n, dev = S // 4, refs.device
+    _build.check_tensor("refs", refs, torch.uint8, (G, slots, R * S, C * S),
+                        dev)
+    _build.check_tensor("ref_sel", ref_sel, torch.int32, (G, R, C), dev)
+    _build.check_tensor("sub_mv", sub_mv, torch.int32, (G, R, C, n, n, 2),
+                        dev)
+    out = torch.empty((G, R, C, S, S), dtype=torch.uint8, device=dev)
+    parent_launch(entry, "parent sixtap_mc", dev, refs.data_ptr(),
+                  ref_sel.data_ptr(), sub_mv.data_ptr(), out.data_ptr(), G,
+                  R, C, R * S, C * S, S)
+    return out
+
+
+def parent_mc(entry):
+    """The parent's three per-plane calls (mc_tiles, or predict_mb_tiles
+    at G=1) on the (G, 3, H, W) stacks its callers built: the planes'
+    predictions.  ``wrapper.planes(args)`` gives the three calls apart,
+    for the pairs' second reading: the three timed one by one and
+    summed."""
+    def one(p, args):
+        refs, ref_sel, sub_mv, uv_mv = args
+        mv, S = (sub_mv, 16) if p == "y" else (uv_mv, 8)
+        return parent_plane(entry, refs[p], ref_sel, mv, S)
+
+    def wrapper(*args):
+        return tuple(one(p, args) for p in "yuv")
+    wrapper.planes = lambda args: [lambda p=p: one(p, args) for p in "yuv"]
     return wrapper
 
 
-# the parent's argument types and wrappers of the entries whose arguments
-# this checkout changed
+def parent_fast_mc(entry):
+    """The parent fast path's motion compensation (encode_inter_fast._mc):
+    per plane and quantizer, the macroblocks' vectors expanded into a
+    contiguous copy and the kernel launched on LAST alone."""
+    def wrapper(planes, mvx, mvy, cmx, cmy):
+        Q, R, C = mvx.shape
+        out = []
+        for plane, x, y, S in ((planes[0], mvx, mvy, 16),
+                               (planes[1], cmx, cmy, 8),
+                               (planes[2], cmx, cmy, 8)):
+            per_q = []
+            for q in range(Q):
+                mv = torch.stack([x[q], y[q]], -1)[:, :, None, None, :] \
+                    .expand(R, C, S // 4, S // 4, 2).to(torch.int32) \
+                    .contiguous()
+                sel = torch.zeros((R, C), dtype=torch.int32, device=mv.device)
+                per_q.append(parent_plane(entry, plane[None, None], sel[None],
+                                          mv[None], S, slots=1)[0])
+            out.append(torch.stack(per_q))
+        return tuple(out)
+    return wrapper
+
+
+# the parent's C entry, its argument types and wrapper, for the entries
+# whose arguments this checkout changed
 PARENT_WRAPPERS = {
-    "wavefront_decode_launch": (wavefront_cuda.WAVE_ARGTYPES, parent_k1),
-    "intra_fixup_frame_launch": ([_PTR] * 11 + [_INT] * 3, parent_k10),
+    "intra_frame_launch": ("intra_frame_launch", [_PTR] * 11 + [_INT] * 3,
+                           parent_k4),
+    "mc_planes_launch": ("sixtap_mc_launch", [_PTR] * 4 + [_INT] * 6,
+                         parent_mc),
+    "mc_planes_launch fast": ("sixtap_mc_launch", [_PTR] * 4 + [_INT] * 6,
+                              parent_fast_mc),
 }
 
 
+def parent_stacks(refs, ref_sel, sub_mv, uv_mv):
+    """predict_mb_tiles' arguments in the parent's form: each plane's
+    references stacked (G, 3, H, W), a selector map, contiguous vectors;
+    made once, outside the timing (the parent's callers made them)."""
+    G, R, C = sub_mv.shape[:3]
+    st = {}
+    for p, r in refs.items():
+        if not torch.is_tensor(r):
+            r = list(r) + [r[-1]] * (3 - len(r))
+            r = torch.stack([t.expand((G,) + t.shape[-2:]) for t in r], 1)
+        st[p] = r.contiguous()
+    if ref_sel is None:
+        ref_sel = torch.ones((G, R, C), dtype=torch.int32, device=cs.DEV)
+    return st, ref_sel, sub_mv.contiguous(), uv_mv.contiguous()
+
+
 def pair_cases():
-    """[(source, C entry, case, wrapper, args)]: K10 on the fast path's four
-    cases, K4, K5 and K1 on the decoders' 720p frames (K5 also on the
-    encoders' loop-filter search call), K8 on chip_smoke.py's 720p and
-    176x144 cases."""
-    ivf = cs.IVFReader(cs.CLIP)
-    payloads = [ivf.frame(i) for i in range(len(ivf))]
-    sm = cs.decoded_frames(cs.SMALL_CLIP, (0, 1))
-    big = cs.decoded_frames(cs.CLIP, (0, 1, 5))
+    """[(source, C entry, case, wrapper, args, the parent's wrapper key and
+    args)]: K4 on the single-frame decoder's 720p and 176x144 frames, the
+    six-tap kernel on the GOP path's, the single-frame path's and the fast
+    path's 720p calls (against the parent's three per-plane calls), K1 on
+    the GOP decoder's 720p frames."""
     out = []
-    for label, (k, f, key_qi, qis) in {
-            "720p frame1 qi48": (0, 1, 48, [cs.FAST_QI]),
-            "720p pair": (0, 1, cs.FAST_PAIR_KEY_QI, cs.FAST_PAIR_QIS),
-            "720p scene cut": (5, 0, 48, [cs.FAST_QI]),
-            "176x144 frame1 qi48": (None, None, 48, [cs.FAST_QI])}.items():
-        a, b = (sm[0], sm[1]) if k is None else (big[k], big[f])
-        out.append(("enc_intra_fixup", "intra_fixup_frame_launch",
-                    "k10 " + label, enc_intra_fixup_cuda.intra_fixup_frame,
-                    cs.fast_kernel_inputs(a, b, key_qi, qis)[1]))
-    sf = cs.single_frame_kernel_inputs(payloads[:2], ivf.width, ivf.height)
-    for f, label in ((1, "interframe"), (0, "key frame")):
-        out.append(("wavefront", "intra_frame_launch", "k4 720p " + label,
-                    intra_cuda.intra_frame, sf[("intra_frame", f)][0]))
-    for label, args in (("frame 1", sf[("loop_filter", 1)][0]),
-                        ("key frame qi24 search",
-                         cs.k5_search_inputs(big[0], 24))):
-        out.append(("wavefront", "loop_filter_launch", "k5 720p " + label,
-                    lf_cuda.loop_filter, args))
-    kept = cs.real_kernel_inputs(payloads, ivf.width, ivf.height, cs.G)
+    cases = k4_mc_cases()
+    for fn, case, args in cases:
+        if case.startswith("k4"):
+            out.append(("wavefront", "intra_frame_launch", case, fn, args,
+                        ("intra_frame_launch", args)))
+        elif case == "mc_720p_fast_pair":
+            refs, _, sub_mv, uv_mv = args
+            planes = tuple(refs[p][0] for p in "yuv")
+            out.append(("sixtap_mc", "mc_planes_launch", case, fn, args,
+                        ("mc_planes_launch fast",
+                         (planes, sub_mv[..., 0, 0, 0], sub_mv[..., 0, 0, 1],
+                          uv_mv[..., 0, 0, 0], uv_mv[..., 0, 0, 1]))))
+        elif not case.endswith("_stacked"):
+            out.append(("sixtap_mc", "mc_planes_launch", case, fn, args,
+                        ("mc_planes_launch", parent_stacks(*args))))
+    ivf = cs.IVFReader(cs.CLIP)
+    kept = cs.real_kernel_inputs([ivf.frame(i) for i in (0, 1)], ivf.width,
+                                 ivf.height, cs.G)
     for key, label in (("wave_inter", "interframe"), ("wave_key", "key frame")):
         out.append(("wavefront", "wavefront_decode_launch",
                     "k1 720p G=16 " + label, wavefront_cuda.wavefront_decode,
-                    kept[key]))
-    for label, args in (
-            ("720p best", cs.k8_args(big[0], big[1], 48, [48])),
-            ("720p rt", cs.k8_args(big[0], big[1], 48, [48], "rt")),
-            ("720p pair", cs.k8_args(big[0], big[1], cs.INTER_PAIR_KEY_QI,
-                                     cs.INTER_PAIR_QIS, "rt")),
-            ("720p extreme", cs.k8_extreme(44)),
-            ("176x144 best", cs.k8_args(sm[0], sm[1], 48, [48])),
-            ("176x144 rt", cs.k8_args(sm[0], sm[1], 48, [48], "rt")),
-            ("176x144 two-pass", cs.k8_args(sm[0], sm[1], 32, [32],
-                                            two_pass=True))):
-        out.append(("enc_inter", "encode_inter_frame_launch", "k8 " + label,
-                    enc_inter_cuda.encode_inter_frame, args))
+                    kept[key], (None, kept[key])))
     return out
 
 
@@ -1263,7 +1739,7 @@ def parent_pairs(card, parent, pairs):
     their spread, and whether the two outputs are equal."""
     jobs = [(os.path.join(OUT, "pairs", tag, "lib%s.so" % src),
              os.path.join(d, src + ".cu"))
-            for src in ("enc_intra_fixup", "enc_inter", "wavefront")
+            for src in ("wavefront", "sixtap_mc")
             for tag, d in (("parent", os.path.join(
                 parent, "alfalfa_tpu_torch", "csrc")),
                 ("here", _build.CSRC_DIR))]
@@ -1277,29 +1753,36 @@ def parent_pairs(card, parent, pairs):
                          fn, types)
 
     ok = True
-    for src, fn, case, wrapper, args in pair_cases():
+    for src, fn, case, wrapper, args, (pkey, pargs) in pair_cases():
         types, mod = PAIR_ENTRIES[fn]
         here = typed("here", src, fn, types)
-        calls = {"here": wrapper}
-        if fn in PARENT_WRAPPERS:
-            ptypes, make = PARENT_WRAPPERS[fn]
-            calls["parent"] = make(typed("parent", src, fn, ptypes))
+        calls = {"here": (wrapper, args)}
+        if pkey is not None:
+            pfn, ptypes, make = PARENT_WRAPPERS[pkey]
+            calls["parent"] = (make(typed("parent", src, pfn, ptypes)),
+                               pargs)
             parent = here
         else:
-            calls["parent"] = wrapper
+            calls["parent"] = (wrapper, args)
             parent = typed("parent", src, fn, types)
         entries = {"here": here, "parent": parent}
         saved = mod._entry
         outs, ms = {}, {"parent": [], "here": []}
+        planes = getattr(calls["parent"][0], "planes", None)
+        if planes is not None:
+            ms["parent_summed"] = []
         try:
             for i in range(pairs):
                 for tag in (("parent", "here") if i % 2 == 0
                             else ("here", "parent")):
                     mod._entry = lambda t=tag: entries[t]
-                    call = calls[tag]
+                    call, a = calls[tag]
                     if tag not in outs:
-                        outs[tag] = call(*args)
-                    ms[tag].append(cs.time_ms(lambda: call(*args), 10))
+                        outs[tag] = call(*a)
+                    ms[tag].append(cs.time_ms(lambda: call(*a), 10))
+                    if tag == "parent" and planes is not None:
+                        ms["parent_summed"].append(sum(
+                            cs.time_ms(f, 10) for f in planes(a)))
         finally:
             mod._entry = saved
         tup = lambda x: x if isinstance(x, tuple) else (x,)
@@ -1307,11 +1790,19 @@ def parent_pairs(card, parent, pairs):
                     zip(tup(outs["parent"]), tup(outs["here"])))
         ok &= equal
         med = {t: statistics.median(v) for t, v in ms.items()}
+        extra = {}
+        if planes is not None:
+            # the parent's three per-plane calls each timed alone and
+            # summed, as its per-call times were recorded
+            extra = dict(median_parent_summed=med["parent_summed"],
+                         ratio_summed=med["here"] / med["parent_summed"],
+                         range_parent_summed=[min(ms["parent_summed"]),
+                                              max(ms["parent_summed"])])
         cs.say("ablation_pairs", case=case, card=card, pairs=pairs,
                equal=equal, median_parent=med["parent"],
                median_here=med["here"], ratio=med["here"] / med["parent"],
                range_parent=[min(ms["parent"]), max(ms["parent"])],
-               range_here=[min(ms["here"]), max(ms["here"])])
+               range_here=[min(ms["here"]), max(ms["here"])], **extra)
     return ok
 
 

@@ -8,21 +8,23 @@
 Builds the CUDA kernels and the native host parsers from the sources in
 this checkout (one nvcc per kernel source, all at once), and holds each
 kernel against its plain PyTorch version on the card at the shapes its
-path gives it: K1 (wavefront_decode) and K2 (sixtap_mc) at 720p G=16 for
-the GOP decoder, K3 (predict_mb_tiles), K4 (intra_frame) and K5
-(loop_filter) at 720p G=1 for the single-frame decoder, K7
+path gives it: K1 (wavefront_decode) and K2 (sixtap_mc, through
+mc_tiles: the three planes in one launch) at 720p G=16 for the GOP
+decoder, K3 (the same kernel through predict_mb_tiles), K4 (intra_frame)
+and K5 (loop_filter) at 720p G=1 for the single-frame decoder (K3 also on
+the fast path's call: one LAST under two quantizers' vectors), K7
 (encode_kf_frame, with H1 and H2 inside) at 720p and 176x144, one-pass and
 two-pass, K8 (encode_inter_frame) at 720p and 176x144 in best, rt and
 two-pass, as the fused 2-QP pair and on seeded extreme motion, and K9
 (decide_inter_frame) and K10 (intra_fixup_frame) on what the fast path
 hands them at 720p (one quantizer, the pair, a scene cut) and 176x144, on
 decoded frames of the fixtures; K5 also on the encoders' 8-level
-loop-filter search call and at G=16 on the GOP clip.  K1, K5, K7, K8, K9
-and K10 are persistent (one launch a call, blocks walking rows behind
+loop-filter search call and at G=16 on the GOP clip.  K1, K4, K5, K7, K8,
+K9 and K10 are persistent (one launch a call, blocks walking rows behind
 progress flags): each of their 720p cases runs 10 (K5, K7) or REPEATS (K1,
-K8, K9, K10) times more, every run held to the plain output, since a race
-between rows would show only now and then, and each runs once more with
-more (row, frame or quantizer) blocks than the card holds at once.  Then it
+K4, K8, K9, K10) times more, every run held to the plain output, since a
+race between rows would show only now and then, and each runs once more
+with more (row, frame or quantizer) blocks than the card holds at once.  Then it
 drives the paths over
 tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
 
@@ -45,9 +47,10 @@ tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
   minihash, and the stream stays within the serial rt encoder's RD band.
 
 Each path runs with the launch counts set to 0 just before it and read
-just after, and every K1 call of the GOP path and every K5, K7, K8, K9 and
-K10 call of the single-frame and encode paths is checked to be one kernel
-launch (`main_path`, `persistent_launches`); the last
+just after, and every K1 and six-tap call of the GOP path and every K3,
+K4, K5, K7, K8, K9 and K10 call of the single-frame and encode paths is
+checked to be one kernel launch (`main_path`, `persistent_launches`); the
+last
 lines are the `kernels` JSON line (one entry per kernel), the card's name
 and power limit, and the result line.
 Each phase prints JSON lines; any failure is a non-zero exit.  There is no
@@ -94,6 +97,12 @@ SMALL_CLIP = os.path.join(REPO, "tests", "fixtures", "inter_176x144_q96.ivf")
 MANIFEST = os.path.join(REPO, "tests", "fixtures", "manifest.json")
 G = 16
 DEV = torch.device("cuda")
+
+# The kernels line's ``library`` reason: no single PyTorch call computes
+# these functions, so ``library_ms`` is null.
+NO_LIBRARY = ("none: no single PyTorch call computes per-block VP8 six-tap "
+              "motion compensation, intra prediction, the loop filter or "
+              "the encoders' searches")
 
 # Peaks of one H100 SXM (NVIDIA data sheet): device memory rate, and the
 # float32 rate outside the tensor cores, the nearest published row for
@@ -201,50 +210,99 @@ def kernel_case(kernel, label, wrapper, plain, args, counts, bound_fn,
 
 # ------------------------------------------------------------- K2, K3
 
-def k2_bound(refs, ref_sel, sub_mv, S):
-    """Least time for one MC call: motion vectors and selectors in, one
-    plane's worth of reference pixels in, predictions out; two 6-tap passes
-    (the first over S+5 rows) at 2 operations per tap."""
-    n_mb = ref_sel.numel()
-    px = n_mb * S * S
-    bytes_ = sub_mv.numel() * 4 + ref_sel.numel() * 4 + 2 * px
-    ops = n_mb * 2 * 6 * ((S + 5) * S + S * S)
+def unique_bytes(t):
+    """Bytes of ``t``'s storage that its elements cover once (an expanded
+    view counts its broadcast axes once)."""
+    n = t.element_size()
+    for size, stride in zip(t.shape, t.stride()):
+        if stride:
+            n *= size
+    return n
+
+
+def mc_bound(refs, ref_sel, sub_mv, uv_mv):
+    """Least time for one call of the six-tap kernel (mc_tiles' or
+    predict_mb_tiles' arguments): vectors and selectors in (each stored
+    value once), one reference frame's pixels for each frame that has its
+    own (a macroblock reads one slot), the three planes' predictions out;
+    2 operations a tap of the passes this run's phases need (a 4x4 block's
+    horizontal pass 9 rows x 4 pixels x 6 taps where x is sub-pel, its
+    vertical pass 16 x 6 where y is)."""
+    G, R, C = sub_mv.shape[:3]
+    own = own_frames(refs, G)
+    n_mb = G * R * C
+    bytes_ = (unique_bytes(sub_mv) + unique_bytes(uv_mv)
+              + (0 if ref_sel is None else ref_sel.numel() * 4)
+              + (G if own else 1) * R * C * 384 + n_mb * 384)
+    ops = 0
+    for mv in (sub_mv, uv_mv, uv_mv):
+        fx = (mv[..., 0] & 7) != 0
+        fy = (mv[..., 1] & 7) != 0
+        ops += int((fx.sum() * 9 * 4 * 6 + fy.sum() * 16 * 6).item()) * 2
     return bound(bytes_, ops)
 
 
-def k2_case(label, *args):
+def own_frames(refs, G):
+    """Whether each of the G frames has its own references: mc_tiles'
+    (G, 3, H, W) stacks, or predict_mb_tiles' slots holding G frames (not
+    one plane, nor one frame at batch stride 0)."""
+    first = refs["y"] if torch.is_tensor(refs["y"]) else refs["y"][0]
+    return first.dim() == 4 or (first.dim() == 3 and G > 1
+                                and first.stride(0) != 0)
+
+
+def mc_extra(args):
+    refs, ref_sel, sub_mv = args[:3]
+    return dict(frames=sub_mv.shape[0], mbs=sub_mv[0, ..., 0, 0, 0].numel(),
+                own_references=own_frames(refs, sub_mv.shape[0]),
+                ref_sel=ref_sel is not None,
+                vector_strides=list(sub_mv.stride()))
+
+
+def k2_case(label, args):
     return kernel_case("sixtap_mc", label, sixtap_cuda.mc_tiles,
-                       sixtap.mc_tiles_plain, args,
-                       lambda: sixtap_cuda.kernel_launches, k2_bound, reps=20,
-                       S=args[3])
+                       sixtap.mc_planes_plain, args,
+                       lambda: sixtap_cuda.kernel_launches, mc_bound, reps=20,
+                       **mc_extra(args))
 
 
-def k3_case(label, *args):
+def k3_case(label, args):
     return kernel_case("predict_mb_tiles", label,
-                       sixtap_cuda.predict_mb_tiles,
-                       sixtap.predict_frame_plain, args,
-                       lambda: sixtap_cuda.predict_kernel_launches, k2_bound,
-                       reps=20, S=args[3])
+                       sixtap_cuda.predict_mb_tiles, sixtap.mc_planes_plain,
+                       args, lambda: sixtap_cuda.predict_kernel_launches,
+                       mc_bound, reps=20, **mc_extra(args))
 
 
-def k2_synthetic(S, seed, g=2):
-    """Seeded extreme motion vectors at 720p, G=g: SPLITMV blocks, windows
-    fully outside the frame, full-pel, mixed full/sub-pel."""
+def mc_synthetic(seed, g=2):
+    """Seeded extreme motion vectors at 720p, G=g, all three planes (the
+    chroma vectors drawn apart from the luma ones): SPLITMV blocks, windows
+    fully outside the frame, full-pel, mixed full/sub-pel; mc_tiles'
+    arguments."""
     rng = np.random.default_rng(seed)
-    R, C, n = 45, 80, S // 4
-    H, W = R * S, C * S
-    refs = rng.integers(0, 256, (g, 3, H, W), dtype=np.uint8)
+    R, C = 45, 80
+    refs = {p: rng.integers(0, 256, (g, 3, R * S, C * S), dtype=np.uint8)
+            for p, S in (("y", 16), ("u", 8), ("v", 8))}
     sel = rng.integers(0, 4, (g, R, C)).astype(np.int32)
-    base = rng.integers(-40, 40, (g, R, C, 1, 1, 2)).astype(np.int32)
-    mv = np.broadcast_to(base, (g, R, C, n, n, 2)).copy()
-    split = rng.random((g, R, C)) < 0.3
-    mv[split] += rng.integers(-24, 24, (int(split.sum()), n, n, 2))
-    mv[:, 0, 0] = -8 * (W + 64)              # fully outside, top-left
-    mv[:, -1, -1] = 8 * (W + 64) + 3         # fully outside, bottom-right
-    mv[:, 1, :] = (mv[:, 1, :] // 8) * 8     # full-pel row
-    mv[:, 2, :, :, :, 0] &= ~7               # full-pel x, sub-pel y
+    mvs = []
+    for n, W in ((4, C * 16), (2, C * 8)):
+        base = rng.integers(-40, 40, (g, R, C, 1, 1, 2)).astype(np.int32)
+        mv = np.broadcast_to(base, (g, R, C, n, n, 2)).copy()
+        split = rng.random((g, R, C)) < 0.3
+        mv[split] += rng.integers(-24, 24, (int(split.sum()), n, n, 2))
+        mv[:, 0, 0] = -8 * (W + 64)              # fully outside, top-left
+        mv[:, -1, -1] = 8 * (W + 64) + 3         # fully outside, bottom-right
+        mv[:, 1, :] = (mv[:, 1, :] // 8) * 8     # full-pel row
+        mv[:, 2, :, :, :, 0] &= ~7               # full-pel x, sub-pel y
+        mvs.append(mv)
     t = lambda a: torch.from_numpy(a).to(DEV)
-    return t(refs), t(sel), t(mv), S
+    return {p: t(r) for p, r in refs.items()}, t(sel), t(mvs[0]), t(mvs[1])
+
+
+def mc_single(refs, ref_sel, sub_mv, uv_mv):
+    """mc_tiles' arguments of frame 0 as predict_mb_tiles takes a single
+    frame's: three separate (H, W) planes a plane, G = 1."""
+    return ({p: tuple(refs[p][0, k].clone() for k in range(3)) for p in "yuv"},
+            ref_sel[:1], sub_mv[:1], uv_mv[:1])
 
 
 # --------------------------------------------------------- K1, K4, K5
@@ -304,20 +362,25 @@ def k1_case(label, args, repeats=0):
                        filtered_mbs=int((args[11][0] > 0).sum().item()))
 
 
-def k1_tiled(args, G):
-    """wavefront_decode's arguments ``args`` repeated frame by frame over
-    G frames."""
+def tiled(args, G):
+    """wavefront_decode's (or intra_frame's) arguments ``args`` repeated
+    frame by frame over G frames."""
     def rep(t):
+        if isinstance(t, tuple):
+            return tuple(rep(x) for x in t)
         n = -(-G // t.shape[0])
         return t.repeat((n,) + (1,) * (t.dim() - 1))[:G].contiguous()
-    return tuple(rep(t) for t in args[:11]) + (tuple(rep(t) for t in args[11]),)
+    return tuple(rep(t) for t in args)
 
 
-def k4_case(label, args):
+def k4_case(label, args, repeats=0):
     return kernel_case("intra_frame", label, intra_cuda.intra_frame,
                        wavefront.intra_frame_plain, args,
                        lambda: intra_cuda.kernel_launches, k4_bound,
-                       intra_mbs=int(args[10].sum().item()))
+                       repeats=repeats, frames=args[6].shape[0],
+                       intra_mbs=int(args[10].sum().item()),
+                       b_pred_mbs=int(((args[6] == wavefront.B_PRED)
+                                       & args[10]).sum().item()))
 
 
 def k5_case(label, args, repeats=0):
@@ -378,8 +441,8 @@ def real_kernel_inputs(payloads, width, height, n_gops):
         d = gop._unpack_upload(dec._upload(mega), spec_r + spec_c)
         inp, fls = dec._step_inputs(key_frame, d)
         if not key_frame:
-            kept["mc_y"] = (dec.refs["y"], inp["ref_sel"], inp["sub_mv"], 16)
-            kept["mc_u"] = (dec.refs["u"], inp["ref_sel"], inp["uv_mv"], 8)
+            kept["mc"] = (dec.refs, inp["ref_sel"], inp["sub_mv"],
+                          inp["uv_mv"])
         y, u, v, res_y, res_u, res_v, intra = RT._stage_ab(
             key_frame, inp["coeffs"], inp["qf"], inp["y2_coded"],
             inp["has_nonzero"], inp["ref_sel"], inp["sub_mv"], inp["uv_mv"],
@@ -579,7 +642,7 @@ def fast_labels(name):
             for i, k in enumerate((0,) + FAST_ORDER)]
 
 
-# integer operations K8's work needs, counted as k2_bound counts the same
+# integer operations K8's work needs, counted as mc_bound counts the same
 # filter: 2 a six-tap tap, only the passes a vector's sub-pel phases need
 # (the mode words count the taps of every diamond site and candidate
 # scored); a SAD term 3 a pixel (difference, absolute value, sum), a
@@ -777,7 +840,7 @@ def k10_bound(md):
 
 
 def fast_kernel_inputs(key, frame, key_qi, qis):
-    """K9's and K10's arguments as the fast path hands them over for the
+    """K9's, K10's and K3's arguments as the fast path hands them over for the
     decoded ``frame`` at the quantizers ``qis``, after a fast rt encoder on
     the card has encoded ``key`` as a key frame at ``key_qi``."""
     e = Encoder(key.display_width, key.display_height, quality="rt",
@@ -787,15 +850,16 @@ def fast_kernel_inputs(key, frame, key_qi, qis):
 
 
 def recorded_fast_frame(e, planes, qis):
-    """K9's and K10's arguments as the fast rt encoder ``e`` hands them
-    over for the (y, u, v) ``planes`` at the quantizers ``qis``: one
-    fast_frame call with its two kernel wrappers recorded (they run as
+    """K9's, K10's and K3's arguments as the fast rt encoder ``e`` hands
+    them over for the (y, u, v) ``planes`` at the quantizers ``qis``: one
+    fast_frame call with its three kernel wrappers recorded (they run as
     usual)."""
     args = encode_inter_fast.frame_inputs(
         e, planes, [QuantIndices(y_ac_qi=q) for q in qis])
     kept = {}
     saved = {n: getattr(encode_inter_fast, n)
-             for n in ("decide_inter_frame", "intra_fixup_frame")}
+             for n in ("decide_inter_frame", "intra_fixup_frame",
+                       "predict_mb_tiles")}
 
     def record(name, fn):
         def wrapped(*a):
@@ -811,7 +875,8 @@ def recorded_fast_frame(e, planes, qis):
         for n, fn in saved.items():
             setattr(encode_inter_fast, n, fn)
     torch.cuda.synchronize()
-    return kept["decide_inter_frame"], kept["intra_fixup_frame"]
+    return (kept["decide_inter_frame"], kept["intra_fixup_frame"],
+            kept["predict_mb_tiles"])
 
 
 def k9_extreme(seed, width, height, shift, qis):
@@ -1367,9 +1432,11 @@ def fast_encode_phase(card, width, height, serial_rt_ms):
                              % (k, per_call[k]))
     if plain_calls[0]:
         raise SystemExit("the fast path ran a plain version on the card")
-    if calls["encode_inter_frame"] or calls["loop_filter"] <= 0 \
-            or calls["predict_mb_tiles"] <= 0:
-        raise SystemExit("the fast path launched K8, or not K3 and K5")
+    if calls["encode_inter_frame"] or calls["loop_filter"] <= 0:
+        raise SystemExit("the fast path launched K8, or not K5")
+    if calls["predict_mb_tiles"] != n_calls:
+        raise SystemExit("K3 ran %d times, not once per fast interframe (%d)"
+                         % (calls["predict_mb_tiles"], n_calls))
     if any(calls[k] for k in ("sixtap_mc", "wavefront_decode",
                               "intra_frame")):
         raise SystemExit("the fast path launched a decode kernel")
@@ -1473,6 +1540,11 @@ def read_counts():
             {k: getattr(m, n) for k, (m, _, n) in COUNTS.items()})
 
 
+def interframes(payloads):
+    """The interframes among VP8 frames (bit 0 of the frame tag set)."""
+    return sum(p[0] & 1 for p in payloads)
+
+
 def single_frame_decode(digest):
     """The 720p clip through the port's FilePlayer on the card; the SHA-1
     of the shown frames (if ``digest``)."""
@@ -1540,6 +1612,10 @@ def persistent_paths(card, payloads, want, width, height):
         raise SystemExit("the single-frame path did not launch K3, K4 and K5")
     if sf_calls["sixtap_mc"] or sf_calls["wavefront_decode"]:
         raise SystemExit("the single-frame path launched a GOP kernel")
+    if sf_calls["predict_mb_tiles"] != interframes(payloads) \
+            or sf_calls["intra_frame"] != len(payloads):
+        raise SystemExit("the single-frame path made other than one K3 call "
+                         "an interframe and one K4 call a frame")
     if sf_kernels["loop_filter"] != sf_calls["loop_filter"]:
         raise SystemExit("K5 did not launch one persistent kernel per call")
 
@@ -1582,18 +1658,16 @@ def main():
     kept = real_kernel_inputs([small.frame(0), small.frame(1)], small.width,
                               small.height, 3)
     small_cases = [
-        k2_case("176x144 frame1 luma", *kept["mc_y"]),
-        k2_case("176x144 frame1 chroma", *kept["mc_u"]),
+        k2_case("176x144 G=3 frame1", kept["mc"]),
         k1_case("176x144 frame1 interframe", kept["wave_inter"]),
         k1_case("176x144 frame0 key frame", kept["wave_key"]),
     ]
 
     kept = real_kernel_inputs(payloads, ivf.width, ivf.height, G)
+    synthetic = mc_synthetic(16)
     cases = [
-        k2_case("frame1 luma", *kept["mc_y"]),
-        k2_case("frame1 chroma", *kept["mc_u"]),
-        k2_case("synthetic extreme MVs luma", *k2_synthetic(16, 16)),
-        k2_case("synthetic extreme MVs chroma", *k2_synthetic(8, 24)),
+        k2_case("720p G=16 frame1, three slots", kept["mc"]),
+        k2_case("720p G=2 synthetic extreme MVs", synthetic),
         k1_case("frame1 interframe", kept["wave_inter"], REPEATS),
         k1_case("frame0 key frame", kept["wave_key"], REPEATS),
     ]
@@ -1604,7 +1678,7 @@ def main():
     say("kernels", kernel="wavefront_decode", resident_blocks=res1,
         over_residency_blocks=g1 * (ivf.height // 16))
     cases.append(k1_case("720p G=%d over-residency frame0 key frame" % g1,
-                         k1_tiled(kept["wave_key"], g1)))
+                         tiled(kept["wave_key"], g1)))
     # K5 at G=16 on the GOP clip's unfiltered interframe planes (K4's)
     wi = kept["wave_inter"]
     k5_gop = k5_case("720p G=16 GOP frame1 interframe",
@@ -1613,14 +1687,25 @@ def main():
 
     # the single-frame kernels on what the Decoder hands them at 720p
     sf = single_frame_kernel_inputs(payloads, ivf.width, ivf.height)
-    mc = sf[("predict_mb_tiles", 1)]
-    one = lambda refs, sel, mv, S: (refs[0], sel[0], mv[0], S)
-    k3 = [k3_case("frame1 luma", *mc[0]),
-          k3_case("frame1 chroma", *mc[1]),
-          k3_case("synthetic extreme MVs luma", *one(*k2_synthetic(16, 16, 1))),
-          k3_case("synthetic extreme MVs chroma", *one(*k2_synthetic(8, 24, 1)))]
-    k4 = [k4_case("frame1 interframe", sf[("intra_frame", 1)][0]),
-          k4_case("frame0 key frame", sf[("intra_frame", 0)][0])]
+    k3 = [k3_case("720p G=1 frame1, three unstacked rasters",
+                  sf[("predict_mb_tiles", 1)][0]),
+          k3_case("720p G=1 synthetic extreme MVs", mc_single(*synthetic))]
+    k4 = [k4_case("frame1 interframe", sf[("intra_frame", 1)][0], REPEATS),
+          k4_case("frame0 key frame", sf[("intra_frame", 0)][0], REPEATS)]
+    # more (row, frame) blocks than the card holds at once: the key frame
+    # repeated over enough frames
+    res4 = intra_cuda.resident(DEV)
+    g4 = over_residency_rows(res4, 1) // (ivf.height // 16) + 1
+    say("kernels", kernel="intra_frame", resident_blocks=res4,
+        over_residency_blocks=g4 * (ivf.height // 16))
+    k4.append(k4_case("720p G=%d over-residency frame0 key frame" % g4,
+                      tiled(sf[("intra_frame", 0)][0], g4)))
+    sf_small = single_frame_kernel_inputs([small.frame(0), small.frame(1)],
+                                          small.width, small.height)
+    k4 += [k4_case("176x144 frame1 interframe",
+                   sf_small[("intra_frame", 1)][0]),
+           k4_case("176x144 frame0 key frame",
+                   sf_small[("intra_frame", 0)][0])]
     k5 = [k5_case("frame1 interframe", sf[("loop_filter", 1)][0], 10),
           k5_case("frame0 key frame", sf[("loop_filter", 0)][0], 10),
           k5_gop]
@@ -1632,7 +1717,7 @@ def main():
         over_residency_blocks=g5 * (ivf.height // 16))
     k5.append(k5_case("720p G=%d over-residency frame1 broadcast" % g5,
                       k5_tiled(sf[("loop_filter", 1)][0], g5)))
-    del sf, mc
+    del sf, sf_small, synthetic
 
     # K7 on decoded frames: one-pass at two quantizers, two-pass under the
     # default token costs and under the tables after one key frame, at 720p
@@ -1714,9 +1799,11 @@ def main():
                ("176x144 frame1 qi48", fast_kernel_inputs(sm[0], sm[1], 48,
                                                           [FAST_QI]))]
     k9 = [k9_case(label, a9, REPEATS if label.startswith("720p") else 0)
-          for label, (a9, _) in fast_in]
+          for label, (a9, _, _) in fast_in]
     k10 = [k10_case(label, a10, REPEATS if label.startswith("720p") else 0)
-           for label, (_, a10) in fast_in]
+           for label, (_, a10, _) in fast_in]
+    k3 += [k3_case("%s, LAST broadcast" % label, a3)
+           for label, (_, _, a3) in fast_in if label.startswith("720p")]
     del sm, big, fast_in
     res9 = enc_decide_cuda.resident(DEV)
     rows9 = over_residency_rows(res9, len(FAST_PAIR_QIS))
@@ -1734,9 +1821,10 @@ def main():
     if quick:
         return
 
-    # main path: counters to 0 just before, read just after; every K1 call
-    # recorded
-    k1_calls, undo = record_launches({"wavefront_decode": wavefront_cuda})
+    # main path: counters to 0 just before, read just after; every K1 and
+    # six-tap call recorded
+    k1_calls, undo = record_launches({"wavefront_decode": wavefront_cuda,
+                                      "sixtap_mc": sixtap_cuda})
     try:
         zero_counts()
         got, _ = decode_all(payloads, ivf.width, ivf.height, digest=True)
@@ -1751,9 +1839,12 @@ def main():
         raise SystemExit("decoded frames differ from the manifest SHA-1")
     if gop_calls["sixtap_mc"] <= 0 or gop_calls["wavefront_decode"] <= 0:
         raise SystemExit("the main path did not launch both kernels")
-    if set(k1_calls["wavefront_decode"]) != {1}:
-        raise SystemExit("a K1 call of the main path issued other than one "
-                         "kernel launch")
+    if any(set(v) != {1} for v in k1_calls.values()):
+        raise SystemExit("a K1 or six-tap call of the main path issued other "
+                         "than one kernel launch")
+    if gop_calls["sixtap_mc"] != interframes(payloads):
+        raise SystemExit("the main path made other than one six-tap call "
+                         "an interframe")
 
     # throughput: a few whole passes, device drained before each clock read
     passes = []
@@ -1782,9 +1873,12 @@ def main():
     say("device_profile", **device_profile(
         lambda: decode_all(payloads, ivf.width, ivf.height, digest=False)))
 
-    # every K5, K7, K8, K9 and K10 call of the single-frame and encode
-    # paths, and every K1 call of the main path: one persistent launch
-    per_call, undo = record_launches({"loop_filter": lf_cuda,
+    # every K3, K4, K5, K7, K8, K9 and K10 call of the single-frame and
+    # encode paths, and every K1 and six-tap call of the main path: one
+    # launch
+    per_call, undo = record_launches({"predict_mb_tiles": sixtap_cuda,
+                                      "intra_frame": intra_cuda,
+                                      "loop_filter": lf_cuda,
                                       "encode_kf_frame": enc_intra_cuda,
                                       "encode_inter_frame": enc_inter_cuda,
                                       "decide_inter_frame": enc_decide_cuda,
@@ -1800,13 +1894,13 @@ def main():
                   for k, v in per_call.items()}
     say("persistent_launches", **persistent)
     if any(not v or set(v) != {1} for v in per_call.values()):
-        raise SystemExit("a K1, K5, K7, K8, K9 or K10 call of its paths "
-                         "issued other than one kernel launch")
-    sf_calls = single["launches"]
+        raise SystemExit("a K1, K3, K4, K5, K7, K8, K9, K10 or six-tap call "
+                         "of its paths issued other than one kernel launch")
     # each kernel's calls on every path it runs on
     calls_on_paths = {k: sum(line["launches"][k]
                              for line in (single, kf, inter, fast))
-                      for k in ("loop_filter", "encode_kf_frame")}
+                      for k in ("predict_mb_tiles", "intra_frame",
+                                "loop_filter", "encode_kf_frame")}
 
     def entry(name, source, replaces, launches, primary, all_cases):
         return {"name": name, "route": "cuda", "source": source,
@@ -1814,23 +1908,23 @@ def main():
                 "max_abs_err": max(c["max_abs_err"] for c in all_cases),
                 "ms": primary["kernel_ms"], "plain_ms": primary["plain_ms"],
                 "bound_ms": primary["bound_ms"], "bound_by": primary["bound_by"],
-                "library_ms": None, "measured_on": primary["case"],
-                "cases": all_cases}
+                "library_ms": None, "library": NO_LIBRARY,
+                "measured_on": primary["case"], "cases": all_cases}
 
     print(json.dumps({"kernels": [
         entry("sixtap_mc", "alfalfa_tpu_torch/csrc/sixtap_mc.cu",
               "alfalfa_tpu/ops/sixtap_pallas.py:269",
-              gop_calls["sixtap_mc"], cases[0], cases[:4] + small_cases[:2]),
+              gop_calls["sixtap_mc"], cases[0], cases[:2] + small_cases[:1]),
         entry("wavefront_decode", "alfalfa_tpu_torch/csrc/wavefront.cu",
               "alfalfa_tpu/ops/wavefront_pm.py:432",
-              gop_calls["wavefront_decode"], cases[4],
-              cases[4:] + small_cases[2:]),
+              gop_calls["wavefront_decode"], cases[2],
+              cases[2:] + small_cases[1:]),
         entry("predict_mb_tiles", "alfalfa_tpu_torch/csrc/sixtap_mc.cu",
               "alfalfa_tpu/ops/sixtap_pallas.py:347",
-              sf_calls["predict_mb_tiles"], k3[0], k3),
+              calls_on_paths["predict_mb_tiles"], k3[0], k3),
         entry("intra_frame", "alfalfa_tpu_torch/csrc/wavefront.cu",
               "alfalfa_tpu/ops/intra_pallas.py:346",
-              sf_calls["intra_frame"], k4[0], k4),
+              calls_on_paths["intra_frame"], k4[0], k4),
         entry("loop_filter", "alfalfa_tpu_torch/csrc/wavefront.cu",
               "alfalfa_tpu/ops/lf_pallas.py:148",
               calls_on_paths["loop_filter"], k5[0], k5),

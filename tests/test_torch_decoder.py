@@ -164,13 +164,40 @@ def test_whole_decoder_carried_both_ways():
     assert refs.last is refs.golden is refs.alternative
 
 
-def test_copy_is_a_value():
+def test_copy_is_a_value(monkeypatch):
+    """A copy decodes on its own, sharing only its decoder's upload
+    buffers.  Each frame's parse arrays go up in one packed copy
+    (parallel/upload.py), and an interframe hands the six-tap kernel the
+    reference rasters' own planes: no stacked copy of the references."""
+    from alfalfa_tpu_torch.decoder import reconstruct_torch as RT
+    from alfalfa_tpu_torch.parallel import upload
+    uploads, seen = [], []
+    saved_upload, saved_mc = upload.PinnedStaging.upload, RT.predict_mb_tiles
+
+    def counted(self, mega):
+        uploads.append(mega.size)
+        return saved_upload(self, mega)
+
+    def recorded(refs, *a):
+        seen.append(refs)
+        return saved_mc(refs, *a)
+
+    monkeypatch.setattr(upload.PinnedStaging, "upload", counted)
+    monkeypatch.setattr(RT, "predict_mb_tiles", recorded)
     w, h, payloads = _payloads(CARRY)
     dec = Decoder(w, h, device="cpu")
-    _decode(dec, payloads[:2])
+    for f, p in enumerate(payloads[:2]):
+        refs = dec.references
+        want = [getattr(r, q) for q in "yuv" for r in
+                (refs.last, refs.golden, refs.alternative)]
+        _decode(dec, [p])
+        assert len(uploads) == f + 1
+    assert len(seen) == 1            # frame 1: the rasters themselves
+    assert all(a is b for a, b in
+               zip([t for q in "yuv" for t in seen[0][q]], want))
     before = dec.get_hash()
     other = dec.copy()
-    assert other.get_hash() == before
+    assert other.get_hash() == before and other._staging is dec._staging
     _decode(other, payloads[2:4])
     assert dec.get_hash() == before and other.get_hash() != before
     _decode(dec, payloads[2:4])

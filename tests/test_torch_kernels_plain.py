@@ -5,6 +5,9 @@ they replace, on the CPU, tolerance 0 (integer arithmetic):
   (and K6, wavefront_pallas's lane-major twin, with ALFALFA_PM=0);
 - K2 ``mc_tiles_plain`` against sixtap_pallas.mc_tiles_packed;
 - K3 ``predict_mb_tiles`` against sixtap_pallas.mc_tiles;
+- the three-plane entry's plain version (``mc_planes_plain``, behind both
+  wrappers) against those per-plane calls, on the strides and batch forms
+  the paths hand it;
 - K4 ``intra_frame_plain`` against intra_pallas.intra_frame;
 - K5 ``loop_filter_plain`` against lf_pallas.lf_pallas (and the encoders'
   ``loopfilter_tiles`` against reconstruct_jax's on its TPU path).
@@ -137,19 +140,106 @@ def test_plain_mc_batch_axis(S):
         np.testing.assert_array_equal(got[g].numpy(), one.numpy())
 
 
+def _mc_three(G=1, seed=7):
+    """The three planes' _mc_inputs for G frames: {plane: (G, 3, H, W)}
+    stacks, and (G, ...) selectors and vectors (frame g > 0 rolled)."""
+    sel, sub_mv, uv_mv, refs, refs_uv = _mc_inputs(seed)
+    rng = np.random.default_rng(seed)
+    frame = lambda a, g: a if g == 0 else np.roll(a, g, axis=0)
+    stacks = {"y": refs, "u": refs_uv,
+              "v": rng.integers(0, 256, refs_uv.shape).astype(np.uint8)}
+    return ({p: t(np.stack([frame(r, g) for g in range(G)]))
+             for p, r in stacks.items()},
+            t(np.stack([frame(sel, g) for g in range(G)])),
+            t(np.stack([frame(sub_mv, g) for g in range(G)])),
+            t(np.stack([frame(uv_mv, g) for g in range(G)])))
+
+
+def _per_plane(stacks, sel, sub_mv, uv_mv):
+    """The three planes through the per-plane plain version held to the
+    TPU kernels (test_plain_mc_equals_pallas_packed)."""
+    return tuple(TS.mc_tiles_plain(stacks[p], sel, mv, S)
+                 for p, mv, S in (("y", sub_mv, 16), ("u", uv_mv, 8),
+                                  ("v", uv_mv, 8)))
+
+
+def _planes_equal(got, want, G):
+    for a, b, S in zip(got, want, (16, 8, 8)):
+        assert a.dtype == torch.uint8 and a.shape == (G, R, C, S, S)
+        assert torch.equal(a, b)
+
+
 def test_mc_wrapper_checks_and_cpu_route():
-    planes, sel, mv = _mc_case(16)
-    before = sixtap_cuda.launches
-    got = sixtap_cuda.mc_tiles(t(planes)[None], t(sel)[None], t(mv)[None], 16)
-    want = TS.mc_tiles_plain(t(planes)[None], t(sel)[None], t(mv)[None], 16)
-    assert torch.equal(got, want)
-    assert sixtap_cuda.launches == before      # CPU tensor: no launch
+    """On CPU tensors both wrappers take the plain version of the
+    three-plane entry and count no launch, and it equals the per-plane
+    plain calls held to the TPU kernels above in each form a path hands it
+    over: mc_tiles at G=2 on (G, 3, H, W) stacks (the GOP decoder);
+    predict_mb_tiles on three separate slot planes a plane at G=1 (the
+    single-frame decoder's rasters), on one (H, W) LAST a plane under Q=2
+    vector sets with no selectors (the fast path; it must read slot 0
+    alone), and with one vector a macroblock as a stride-0 view over its
+    blocks (the fast path's).  The checks of the kernel's arguments raise
+    on what it does not take: wrong dtypes, shapes, strides, slot counts
+    and alignment."""
+    stacks, sel, sub_mv, uv_mv = _mc_three(G=2)
+    before = (sixtap_cuda.launches, sixtap_cuda.kernel_launches,
+              sixtap_cuda.predict_launches)
+    got = sixtap_cuda.mc_tiles(stacks, sel, sub_mv, uv_mv)
+    _planes_equal(got, _per_plane(stacks, sel, sub_mv, uv_mv), 2)
+    slots = {p: tuple(stacks[p][:, k] for k in range(3)) for p in "yuv"}
+    _planes_equal(sixtap_cuda.predict_mb_tiles(slots, sel, sub_mv, uv_mv),
+                  got, 2)
+    # one frame's three separate rasters
+    one = {p: tuple(stacks[p][0, k].clone() for k in range(3)) for p in "yuv"}
+    _planes_equal(sixtap_cuda.predict_mb_tiles(one, sel[:1], sub_mv[:1],
+                                               uv_mv[:1]),
+                  _per_plane({p: x[:1] for p, x in stacks.items()}, sel[:1],
+                             sub_mv[:1], uv_mv[:1]), 1)
+    # LAST alone under two vector sets; slots 1 and 2 of the reference
+    # hold other pixels, so a read of them would show
+    last = {p: stacks[p][0, 0].clone() for p in "yuv"}
+    want = _per_plane(
+        {p: torch.stack([x, stacks[p][1, 1], stacks[p][1, 2]])[None]
+         .expand(2, 3, *x.shape) for p, x in last.items()},
+        torch.ones_like(sel), sub_mv, uv_mv)
+    _planes_equal(sixtap_cuda.predict_mb_tiles(
+        {p: (x,) for p, x in last.items()}, None, sub_mv, uv_mv), want, 2)
+    # one vector a macroblock, expanded over its blocks
+    per_mb = lambda mv, n: mv[:, :, :, :1, :1].expand(mv.shape[:3] + (n, n, 2))
+    ex_y, ex_c = per_mb(sub_mv, 4), per_mb(uv_mv, 2)
+    assert ex_y.stride()[3:5] == (0, 0)
+    _planes_equal(sixtap_cuda.predict_mb_tiles(slots, sel, ex_y, ex_c),
+                  _per_plane(stacks, sel, ex_y.contiguous(),
+                             ex_c.contiguous()), 2)
+    assert (sixtap_cuda.launches, sixtap_cuda.kernel_launches,
+            sixtap_cuda.predict_launches) == before   # no launch
+
+    def rejects(exc, **change):
+        a = dict(refs=slots, ref_sel=sel, sub_mv=sub_mv, uv_mv=uv_mv)
+        a.update(change)
+        with pytest.raises(exc):
+            sixtap_cuda._mc_planes("test", a["refs"], a["ref_sel"],
+                                   a["sub_mv"], a["uv_mv"])
+    rejects(TypeError, sub_mv=sub_mv.to(torch.int64))
+    rejects(TypeError, uv_mv=uv_mv[:, :1])                 # wrong shape
+    rejects(ValueError, sub_mv=sub_mv.transpose(3, 4))     # block strides
+    rejects(ValueError, ref_sel=sel.to(torch.int64))
+    rejects(ValueError, ref_sel=sel.transpose(1, 2).contiguous()
+            .transpose(1, 2))                              # not contiguous
+    rejects(TypeError, refs=dict(slots, y=tuple(x.to(torch.int16)
+                                                for x in slots["y"])))
+    rejects(ValueError, refs=dict(slots, u=slots["u"][:2]))  # two slots
+    rejects(ValueError, refs=dict(slots, v=tuple(x[:, :-1] for x in
+                                                 slots["v"])))  # shape
+    G_, H_, W_ = slots["y"][0].shape
+    wide = torch.zeros((G_, H_, W_ + 8), dtype=torch.uint8)[..., :W_]
+    rejects(ValueError, refs=dict(slots, y=(wide,) * 3))   # row stride
+    odd = torch.zeros(stacks["u"][:, 0].numel() + 1, dtype=torch.uint8)
+    odd = odd[1:].view(stacks["u"][:, 0].shape)            # 1 byte off
+    rejects(ValueError, refs=dict(slots, u=(odd,) * 3))
     with pytest.raises(TypeError):
-        check_tensor("sub_mv", t(mv).to(torch.int64), torch.int32,
-                           mv.shape, torch.device("cpu"))
-    with pytest.raises(ValueError):
-        check_tensor("ref_sel", t(sel).T, torch.int32, sel.T.shape[::-1],
-                           torch.device("cpu"))
+        check_tensor("sub_mv", sub_mv.to(torch.int64), torch.int32,
+                     sub_mv.shape, torch.device("cpu"))
 
 
 # --------------------------------------------------- K1: decode wavefront
@@ -323,16 +413,21 @@ def test_plain_wavefront_equals_lane_major_pallas(monkeypatch):
 def test_plain_predict_mb_tiles_equals_pallas_mc_tiles(S, monkeypatch):
     """The single-frame TPU kernel on its padded 4-slot stack (slot 0, the
     intra dummy, a copy of ``last``) against the port's plain version on
-    the (3, H, W) stack, through the wrapper's CPU route."""
+    the three slot planes, through the wrapper's CPU route (its plane S of
+    the three it predicts)."""
     planes, sel, mv = _mc_case(S)
     _interpret(monkeypatch, SP)
     stack4 = np.concatenate([planes[:1], planes])
     want = np.asarray(jax.jit(SP.mc_tiles, static_argnums=(1, 2, 5))(
         SP.pad_refs(jnp.asarray(stack4)), R * S, C * S, jnp.asarray(sel),
         jnp.asarray(mv), S))
-    got = sixtap_cuda.predict_mb_tiles(t(planes), t(sel), t(mv), S)
-    assert got.dtype == torch.uint8 and got.shape == (R, C, S, S)
-    np.testing.assert_array_equal(got.numpy(), want)
+    stacks, _, sub_mv, uv_mv = _mc_three()
+    slots = {p: tuple(stacks[p][0, k] for k in range(3)) for p in "yuv"}
+    slots["y" if S == 16 else "u"] = tuple(t(planes))
+    got = sixtap_cuda.predict_mb_tiles(slots, t(sel)[None], sub_mv,
+                                       uv_mv)[0 if S == 16 else 1]
+    assert got.dtype == torch.uint8 and got.shape == (1, R, C, S, S)
+    np.testing.assert_array_equal(got[0].numpy(), want)
 
 
 # ----------------------------------------------- K4: intra wavefront
@@ -508,10 +603,11 @@ def test_frame_wrappers_cpu_route_and_checks():
     raise."""
     before = (intra_cuda.launches, lf_cuda.launches,
               sixtap_cuda.predict_launches, sixtap_cuda.launches)
-    planes, sel, mv = _mc_case(8)
-    assert torch.equal(
-        sixtap_cuda.predict_mb_tiles(t(planes), t(sel), t(mv), 8),
-        TS.predict_frame_plain(t(planes), t(sel), t(mv), 8))
+    stacks, sel, sub_mv, uv_mv = _mc_three()
+    slots = {p: tuple(stacks[p][0, k] for k in range(3)) for p in "yuv"}
+    for a, b in zip(sixtap_cuda.predict_mb_tiles(slots, sel, sub_mv, uv_mv),
+                    _per_plane(stacks, sel, sub_mv, uv_mv)):
+        assert torch.equal(a, b)
     lf_planes, lfp = _lf_inputs(3)
     args = [t(p)[None] for p in lf_planes], tuple(t(x)[None] for x in lfp)
     for a, b in zip(lf_cuda.loop_filter(*args[0], args[1]),
@@ -540,9 +636,10 @@ def test_frame_wrappers_cpu_route_and_checks():
                                          maps[2], {})
     with pytest.raises(ValueError):         # a map of the wrong shape
         check_map("ymode", maps[0][0], (G, R_, C_), cpu)
-    with pytest.raises(ValueError):         # only luma and chroma tiles
-        sixtap_cuda._launch("predict_mb_tiles", t(planes)[None],
-                            t(sel)[None], t(mv)[None], 12)
+    with pytest.raises(ValueError):         # planes of the wrong size
+        sixtap_cuda._mc_planes("predict_mb_tiles",
+                               dict(slots, y=slots["u"]), sel, sub_mv,
+                               uv_mv)
     words = wavefront_cuda.pack_mb_params(lf_params=args[1])
     assert words.shape == (1, RI, CI, wavefront_cuda.NP)
     assert not words[..., :4].any()

@@ -351,12 +351,15 @@ def test_cuda_wrapper_takes_plain_version_only_on_cpu():
     launch; nothing in the package asks whether CUDA is available."""
     from alfalfa_tpu_torch.ops import sixtap_cuda
     rng = np.random.default_rng(54)
-    refs = t(rng.integers(0, 256, (1, 3, 32, 32)).astype(np.uint8))
+    refs = {p: t(rng.integers(0, 256, (1, 3, 32 // k, 32 // k))
+                 .astype(np.uint8)) for p, k in (("y", 1), ("u", 2), ("v", 2))}
     sel = t(rng.integers(0, 4, (1, 2, 2)).astype(np.int32))
     mv = t(rng.integers(-20, 20, (1, 2, 2, 4, 4, 2)).astype(np.int32))
+    uv = t(rng.integers(-20, 20, (1, 2, 2, 2, 2, 2)).astype(np.int32))
     before = sixtap_cuda.launches
-    eq(sixtap_cuda.mc_tiles(refs, sel, mv, 16),
-       TS.mc_tiles_plain(refs, sel, mv, 16))
+    got = sixtap_cuda.mc_tiles(refs, sel, mv, uv)
+    eq(got[0], TS.mc_tiles_plain(refs["y"], sel, mv, 16))
+    eq(got[2], TS.mc_tiles_plain(refs["v"], sel, uv, 8))
     assert sixtap_cuda.launches == before
     src = "".join(f.read_text() for f in
                   (REPO / "alfalfa_tpu_torch").rglob("*.py"))

@@ -1,13 +1,14 @@
-"""The persistent row walks of K1, K5, K7, K8, K9 and K10 on the CPU, no
-JAX: the plain versions driven one macroblock at a time in orders that row
-walkers under the progress-flag rule of csrc/row_sched.cuh could produce,
-with the very lags the wrappers pass to the card (``wavefront_cuda.ROW_LAG``,
-``lf_cuda.ROW_LAG``, ``enc_intra_cuda.ROW_LAG``, ``enc_inter_cuda.ROW_LAG``,
+"""The persistent row walks of K1, K4, K5, K7, K8, K9 and K10 on the CPU,
+no JAX: the plain versions driven one macroblock at a time in orders that
+row walkers under the progress-flag rule of csrc/row_sched.cuh could
+produce, with the very lags the wrappers pass to the card
+(``wavefront_cuda.ROW_LAG``, ``intra_cuda.ROW_LAG``, ``lf_cuda.ROW_LAG``,
+``enc_intra_cuda.ROW_LAG``, ``enc_inter_cuda.ROW_LAG``,
 ``enc_decide_cuda.ROW_LAG``, ``enc_intra_fixup_cuda.ROW_LAG``), are
 ``torch.equal`` to the anti-diagonal order; one lag less gives a different
 result, so each rule is tight and the test can fail.  And the decision
-chain K8 and K9 share, and the loop filter K1 and K5 share, are each
-defined once under csrc/.
+chain K8 and K9 share, the loop filter K1 and K5 share, and the intra
+reconstruction step K1 and K4 share, are each defined once under csrc/.
 """
 import functools
 import pathlib
@@ -33,12 +34,12 @@ from alfalfa_tpu_torch.encoder.trellis import token_costs_pm
 from alfalfa_tpu_torch.decoder import reconstruct_torch as RT
 from alfalfa_tpu_torch.ops import enc_batch, enc_decide, enc_decide_cuda, \
     enc_inter, enc_inter_cuda, enc_intra, enc_intra_cuda, \
-    enc_intra_fixup_cuda, lf_cuda, wavefront_cuda
+    enc_intra_fixup_cuda, intra_cuda, lf_cuda, wavefront_cuda
 from alfalfa_tpu_torch.ops.enc_intra_fixup import intra_fixup_frame_plain
 from alfalfa_tpu_torch.ops import wavefront
-from alfalfa_tpu_torch.ops.wavefront import (diagonals, loop_filter_plain,
-                                             row_order, tile,
-                                             wavefront_decode_plain)
+from alfalfa_tpu_torch.ops.wavefront import (diagonals, intra_frame_plain,
+                                             loop_filter_plain, row_order,
+                                             tile, wavefront_decode_plain)
 from alfalfa_tpu_torch.parallel import gop
 from alfalfa_tpu_torch.util.ivf import IVFReader
 
@@ -126,18 +127,19 @@ def test_row_order_obeys_the_flag_rule(lag):
 
 
 def test_wrappers_pass_the_lags_of_the_reads():
-    """K1, K5, K7 and K8 reach their above-right neighbour (diagonals
-    2r + c: K1's intra prediction and K7's and K8's B_PRED read its pixels,
-    K1's and K5's top edge must find the pixels its left edge writes), K9
-    and K10 their left, above and above-left (r + c): the lags the kernels
-    run with are those of the diagonals the plain versions walk by
-    default."""
+    """K1, K4, K5, K7 and K8 reach their above-right neighbour (diagonals
+    2r + c: K1's and K4's intra prediction and K7's and K8's B_PRED read its
+    pixels, K1's and K5's top edge must find the pixels its left edge
+    writes), K9 and K10 their left, above and above-left (r + c): the lags
+    the kernels run with are those of the diagonals the plain versions walk
+    by default."""
     assert enc_inter_cuda.ROW_LAG == 2 and enc_decide_cuda.ROW_LAG == 1
     assert enc_intra_cuda.ROW_LAG == 2 and lf_cuda.ROW_LAG == 2
     assert wavefront_cuda.ROW_LAG == 2 and enc_intra_fixup_cuda.ROW_LAG == 1
+    assert intra_cuda.ROW_LAG == 2
     for k, lag in ((2, enc_inter_cuda.ROW_LAG), (1, enc_decide_cuda.ROW_LAG),
                    (2, enc_intra_cuda.ROW_LAG), (2, lf_cuda.ROW_LAG),
-                   (2, wavefront_cuda.ROW_LAG),
+                   (2, wavefront_cuda.ROW_LAG), (2, intra_cuda.ROW_LAG),
                    (1, enc_intra_fixup_cuda.ROW_LAG)):
         # every macroblock of diagonal d waits only on earlier diagonals
         for d, (rs, cs) in enumerate(diagonals(6, 9, k)):
@@ -353,30 +355,41 @@ def test_k1_row_walk_equals_diagonals(frame):
     """176x144 at G = 2: a key frame (B_PRED macroblocks, filter levels 4
     and 25) and an interframe with intra macroblocks, three row-walk
     orders each, every macroblock predicted from the unfiltered pixels and
-    filtered in the other planes as the kernel does it."""
+    filtered in the other planes as the kernel does it.  K4's plain
+    version (the intra phase alone) on the same frames, in the orders of
+    intra_cuda.ROW_LAG, equals its diagonal order too."""
     args = _k1_args()[frame]
     ymode, intra, level = args[6], args[10], args[11][0]
     assert ymode.shape[0] >= 2 and (level > 0).any()
     assert ((ymode == wavefront.B_PRED) & intra).any()
     assert frame == "key" or 0 < int(intra.sum()) < intra.numel() // 2
     want = wavefront_decode_plain(*args)
+    want4 = intra_frame_plain(*args[:11])
     G, R, C = ymode.shape
     for seed in SEEDS:
         got = wavefront_decode_plain(
             *args, order=row_order(R, C, wavefront_cuda.ROW_LAG, seed))
         assert _equal(got, want), seed
+        got4 = intra_frame_plain(
+            *args[:11], order=row_order(R, C, intra_cuda.ROW_LAG, seed))
+        assert _equal(got4, want4), seed
 
 
 def test_k1_lag_one_breaks_the_wavefront():
     """The negative control: with lag 1 a macroblock may run before its
     above-right neighbour, whose unfiltered pixels its prediction reads and
     whose left edge writes pixels its top edge reads; some order gives
-    other planes."""
+    other planes.  The same holds for K4's plain version (its B_PRED
+    prediction reads the above-right neighbour's unfiltered pixels)."""
     args = _k1_args()["key"]
     want = wavefront_decode_plain(*args)
+    want4 = intra_frame_plain(*args[:11])
     G, R, C = args[6].shape
     assert any(not _equal(wavefront_decode_plain(
         *args, order=row_order(R, C, 1, seed)), want) for seed in SEEDS)
+    assert any(not _equal(intra_frame_plain(
+        *args[:11], order=row_order(R, C, 1, seed)), want4)
+        for seed in SEEDS)
 
 
 # -------------------------------------- the plain K10 in row-walk orders
@@ -470,3 +483,21 @@ def test_loop_filter_defined_once(name):
         body = src[src.index(" %s(" % kernel):]
         body = body[:body.index("\n}\n")]
         assert "lf_filter_window(" in body, kernel
+
+
+def test_reconstruction_step_defined_once():
+    """The intra reconstruction step of K1's and K4's row walks (the pixels
+    above, the whole-block rows, the B_PRED chain) is defined once, in
+    csrc/wavefront_device.cuh, and both kernels call each part."""
+    csrc = REPO / "alfalfa_tpu_torch" / "csrc"
+    src = (csrc / "wavefront_device.cuh").read_text()
+    for name in ("intra_above_load", "intra_mb_rows", "bpred_chain"):
+        pat = re.compile(r"__device__[^;{(]*\b%s\s*\(" % name)
+        files = [p.name for p in sorted(csrc.iterdir())
+                 if p.suffix in (".cu", ".cuh") and pat.search(p.read_text())]
+        assert files == ["wavefront_device.cuh"], name
+        assert len(pat.findall(src)) == 1, name
+        for kernel in ("wave_row_kernel", "intra_row_kernel"):
+            body = src[src.index(" %s(" % kernel):]
+            body = body[:body.index("\n}\n")]
+            assert name + "(" in body, (name, kernel)
