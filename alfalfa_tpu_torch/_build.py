@@ -24,7 +24,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 KERNEL_SOURCES = ("sixtap_mc", "wavefront", "enc_intra", "enc_inter",
-                  "enc_decide", "enc_intra_fixup")
+                  "enc_decide", "enc_intra_fixup", "rebase_residues")
 
 # -Xptxas -v: the compiler output lists registers and shared memory per kernel
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

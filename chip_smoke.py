@@ -17,7 +17,10 @@ the fast path's call: one LAST under two quantizers' vectors), K7
 two-pass, K8 (encode_inter_frame) at 720p and 176x144 in best, rt and
 two-pass, as the fused 2-QP pair and on seeded extreme motion, and K9
 (decide_inter_frame) and K10 (intra_fixup_frame) on what the fast path
-hands them at 720p (one quantizer, the pair, a scene cut) and 176x144, on
+hands them at 720p (one quantizer, the pair, a scene cut) and 176x144,
+and the rebase's residue kernel (inter_residues, no TPU counterpart: XLA
+there) on rebased frame 4's arguments, on seeded SPLITMV macroblocks with
+extreme vectors at qi 0 and 127 and on a seeded 176x144 mix, on
 decoded frames of the fixtures; K5 also on the encoders' 8-level
 loop-filter search call and at G=16 on the GOP clip.  K1, K4, K5, K7, K8,
 K9 and K10 are persistent (one launch a call, blocks walking rows behind
@@ -44,11 +47,22 @@ tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
   frame and 17 fast interframes, and encode_interframe_fast_multiqp the
   Salsify pair over five frames (FAST_ENCODE_SHA1: the JAX package's fast
   path's frames); the Decoder re-decodes every frame to the encoder's
-  minihash, and the stream stays within the serial rt encoder's RD band.
+  minihash, and the stream stays within the serial rt encoder's RD band;
+- rebase: ExCamera's xc-enc -I/-O and -r through the port's CLI: chunk 0
+  (decoded frames 0-2) and an independent prediction chunk (frames 3-5)
+  encoded at qi 48, then the prediction rebased onto chunk 0's state at
+  key-frame weight 0.5 (REBASE_SHA1: the JAX package's frames); the
+  port's Decoder re-decodes each rebased frame from chunk 0's state to
+  the encoder's minihash; rebased frames/s with its spans;
+- cluster: xc enc-parallel over frames 0-5 in chunks of 3, two worker
+  processes on the card, then the serial rebase (CLUSTER_SHA1); FilePlayer
+  decodes the stitched stream from scratch to CLUSTER_MINIHASH frame by
+  frame; the wall time of each phase.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after, and every K1 and six-tap call of the GOP path and every K3,
-K4, K5, K7, K8, K9 and K10 call of the single-frame and encode paths is
+K4, K5, K7, K8, K9, K10 and residue-kernel call of the single-frame,
+encode, rebase and cluster paths is
 checked to be one kernel launch (`main_path`, `persistent_launches`); the
 last
 lines are the `kernels` JSON line (one entry per kernel), the card's name
@@ -71,10 +85,13 @@ import torch
 from alfalfa_tpu_torch import _build
 from alfalfa_tpu_torch.bitstream import tables as T
 from alfalfa_tpu_torch.bitstream.header import QuantIndices
+from alfalfa_tpu_torch.cli import xc
 from alfalfa_tpu_torch.decoder import Decoder, FilePlayer
 from alfalfa_tpu_torch.decoder import reconstruct_torch as RT
 from alfalfa_tpu_torch.encoder import Encoder
 from alfalfa_tpu_torch.encoder import encode_inter, encode_inter_fast
+from alfalfa_tpu_torch.encoder import reencode as RB
+from alfalfa_tpu_torch.encoder import reencode_device
 from alfalfa_tpu_torch.encoder.costs import rd_multipliers
 from alfalfa_tpu_torch.encoder.encode_intra import QUANT_KEYS
 from alfalfa_tpu_torch.encoder.encoder import LF_CHUNK
@@ -82,14 +99,17 @@ from alfalfa_tpu_torch.encoder.trellis import token_costs_pm
 from alfalfa_tpu_torch.native import bitwork
 from alfalfa_tpu_torch.ops import enc_batch, enc_decide, enc_decide_cuda, \
     enc_inter, enc_inter_cuda, enc_intra, enc_intra_cuda, enc_intra_fixup, \
-    enc_intra_fixup_cuda, enc_transforms, intra_cuda, lf_cuda, sixtap, \
-    sixtap_cuda, transforms, trellis, wavefront, wavefront_cuda
+    enc_intra_fixup_cuda, enc_transforms, intra_cuda, lf_cuda, rebase, \
+    rebase_cuda, sixtap, sixtap_cuda, transforms, trellis, wavefront, \
+    wavefront_cuda
 from alfalfa_tpu_torch.parallel import gop
+from alfalfa_tpu_torch.parallel.cluster import parallel_encode
 from alfalfa_tpu_torch.state import serdes
 from alfalfa_tpu_torch.state.decoder_state import Raster
 from alfalfa_tpu_torch.util import tracing
 from alfalfa_tpu_torch.util.ivf import IVFReader
 from alfalfa_tpu_torch.util.ssim import ssim
+from alfalfa_tpu_torch.util.y4m import Y4MWriter
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CLIP = os.path.join(REPO, "tests", "fixtures", "inter_1280x720_q48.ivf")
@@ -101,8 +121,8 @@ DEV = torch.device("cuda")
 # The kernels line's ``library`` reason: no single PyTorch call computes
 # these functions, so ``library_ms`` is null.
 NO_LIBRARY = ("none: no single PyTorch call computes per-block VP8 six-tap "
-              "motion compensation, intra prediction, the loop filter or "
-              "the encoders' searches")
+              "motion compensation, intra prediction, the loop filter, "
+              "the encoders' searches or the rebase's residue update")
 
 # Peaks of one H100 SXM (NVIDIA data sheet): device memory rate, and the
 # float32 rate outside the tensor cores, the nearest published row for
@@ -130,6 +150,34 @@ KF_ENCODE_SHA1 = {
     "qi32_two_pass_frame3": "a7e2013b606dd6aa8df0e91d058ba757105b927c",
     "min_ssim_0.90_frame0": "18a53d28c9c05a7e22a8df6822fb00b88cb1a1aa",
 }
+
+
+# rebase and cluster: SHA-1 of each frame the JAX package makes of decoded
+# frames 0-5 of inter_1280x720_q48.ivf (its FilePlayer's, which meet the
+# manifest).  REBASE_SHA1: its host encoder encodes chunk 0 (frames 0-2)
+# and, independently, a prediction chunk (frames 3-5), both at qi 48 in
+# best quality; its host reencode rebases the prediction against chunk 0's
+# exit state at key-frame weight 0.5 (frame 3 a full inter encode, frames
+# 4-5 the residue update, frame 5 refreshing every reference).
+# CLUSTER_SHA1: its parallel_encode(workers=1) of frames 0-5 in chunks of
+# 3 at qi 48, weight 0.5 (chunk 0 terminated, chunk 1 rebased onto it).
+# REBASE_MINIHASH: the rebasing encoder's minihash after each frame;
+# CLUSTER_MINIHASH: the JAX package's FilePlayer's after each stitched
+# frame.  Computed once on a CPU host; tests/test_torch_rebase.py
+# recomputes them (-m slow).
+REBASE_FRAMES, REBASE_CHUNK, REBASE_QI, REBASE_KF_WEIGHT = 6, 3, 48, 0.5
+REBASE_SHA1 = ["a37ddb36493787a95ea3a5b55949b5cd73c4b0f5",
+               "aecff866280e2f2ca1768e13a59cb9ac5bc69c5e",
+               "af7e727eb2489318a3c958ed2f1b5592e8b59d3d"]
+CLUSTER_SHA1 = ["8fd62474aaaa54eb38fe34967290b0be424d977d",
+                "6232b81cce006d449264108699189b28f439ef58",
+                "822797c68c7a70bf3c761ead7a59a880b1b41efa",
+                "a37ddb36493787a95ea3a5b55949b5cd73c4b0f5",
+                "aecff866280e2f2ca1768e13a59cb9ac5bc69c5e",
+                "af7e727eb2489318a3c958ed2f1b5592e8b59d3d"]
+REBASE_MINIHASH = [4065873981, 621619213, 939088200]
+CLUSTER_MINIHASH = [4122798039, 949739970, 555510815,
+                    4065873981, 621619213, 939088200]
 
 
 def say(phase, **kw):
@@ -1443,6 +1491,326 @@ def fast_encode_phase(card, width, height, serial_rt_ms):
     return line
 
 
+# --------------------------------------------- the rebase and the cluster
+
+def residue_call(fn):
+    """``fn`` (the residue wrapper or its plain version) on copies of the
+    reconstruction planes; returns (coefficients, nonzero, y, u, v)."""
+    def call(orig, pred, ref_sel, splitmv, quant, recon):
+        out = [p.clone() for p in recon]
+        return tuple(fn(orig, pred, ref_sel, splitmv, quant, out)) + tuple(out)
+    return call
+
+
+# integer operations of the residue update: about 500 a 4x4 block (the
+# forward DCT's two passes, quantization, dequantization, the inverse
+# DCT's two passes, the add and clamp) and 400 a macroblock for Y2's
+# forward and inverse WHT and its quantization
+RESIDUE_OPS_BLOCK, RESIDUE_OPS_Y2 = 500, 400
+
+
+def residue_bound(orig, pred, ref_sel, splitmv, quant, recon):
+    """Least time for one call: the originals and predictions of the inter
+    macroblocks in and their reconstruction out (384 bytes a macroblock
+    each), the two maps in and the coefficients (800 bytes) and flags out
+    for every macroblock; RESIDUE_OPS_* operations an inter
+    macroblock."""
+    n = ref_sel.numel()
+    inter = int((ref_sel != 0).sum().item())
+    bytes_ = inter * 384 * 3 + n * (4 + 1 + 800 + 1)
+    return bound(bytes_, inter * (24 * RESIDUE_OPS_BLOCK + RESIDUE_OPS_Y2))
+
+
+def residue_case(label, args, repeats=3):
+    """The residue kernel against its plain version (kernel_case), with
+    the wrapper's own time on one set of planes beside it (``in_place_ms``:
+    the call the rebase makes, without the comparison's copies)."""
+    orig, pred, ref_sel, splitmv, quant, recon = args
+    planes = [p.clone() for p in recon]
+    in_place = time_ms(lambda: rebase_cuda.inter_residues(
+        orig, pred, ref_sel, splitmv, quant, planes), 20)
+    return kernel_case(
+        "inter_residues", label, residue_call(rebase_cuda.inter_residues),
+        residue_call(rebase.inter_residues_plain), args,
+        lambda: rebase_cuda.kernel_launches, residue_bound, repeats=repeats,
+        in_place_ms=in_place, mbs=ref_sel.numel(),
+        inter_mbs=int((ref_sel != 0).sum().item()),
+        splitmv_mbs=int(splitmv.sum().item()), quant=list(quant))
+
+
+def residue_synthetic(seed, width, height, qi, kind):
+    """Seeded residue-kernel arguments on the card: random references,
+    originals near LAST, K3's prediction.  ``kind`` "splitmv_extreme":
+    every macroblock inter and SPLITMV, vectors up to a frame width plus
+    64 pixels outside the frame; "mixed": intra macroblocks among
+    whole-vector and SPLITMV ones, short vectors."""
+    rng = np.random.default_rng(seed)
+    R, C = height // 16, width // 16
+    dims = ((height, width), (height // 2, width // 2),
+            (height // 2, width // 2))
+    refs = [torch.from_numpy(rng.integers(0, 256, (3,) + d, dtype=np.uint8))
+            .to(DEV) for d in dims]
+    orig = [torch.clamp(r[0].to(torch.int32) + torch.from_numpy(
+        rng.integers(-40, 41, d)).to(DEV), 0, 255).to(torch.uint8)
+        for r, d in zip(refs, dims)]
+    extreme = kind == "splitmv_extreme"
+    ref_sel = rng.integers(1 if extreme else 0, 4, (R, C)).astype(np.int32)
+    splitmv = np.ones((R, C), bool) if extreme else rng.random((R, C)) < 0.5
+    span = 8 * (width + 64) if extreme else 40
+    sub_mv = rng.integers(-span, span + 1, (R, C, 4, 4, 2)).astype(np.int32)
+    sub_mv[~splitmv] = sub_mv[~splitmv][:, 3:4, 3:4]
+    # the chroma vectors as the parser derives them (luma_to_chroma)
+    s = sub_mv.reshape(R, C, 2, 2, 2, 2, 2).sum(axis=(3, 5))
+    uv_mv = np.where(s >= 0, (s + 4) >> 3, -((-s + 4) >> 3)).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+    ref_sel, sub_mv, uv_mv = t(ref_sel), t(sub_mv), t(uv_mv)
+    pred = sixtap_cuda.predict_mb_tiles(
+        {p: tuple(r) for p, r in zip("yuv", refs)}, ref_sel[None],
+        sub_mv[None], uv_mv[None])
+    q = QuantIndices(y_ac_qi=qi).quantizer()
+    return (orig, [p[0] for p in pred], ref_sel, t(splitmv),
+            [int(q[k]) for k in QUANT_KEYS],
+            [torch.zeros_like(o) for o in orig])
+
+
+class FrameSink:
+    """An IVFWriter's stand-in that keeps the frames and, given an
+    encoder, its minihash after each."""
+
+    def __init__(self, encoder=None):
+        self.payloads, self.minihashes, self.encoder = [], [], encoder
+
+    @property
+    def frame_count(self):
+        return len(self.payloads)
+
+    def append_frame(self, payload):
+        self.payloads.append(payload)
+        if self.encoder is not None:
+            self.minihashes.append(self.encoder.minihash())
+
+
+def rebase_setup(frames, width, height):
+    """Chunk 0 (frames 0-2) and the independent prediction chunk (frames
+    3-5), each encoded at REBASE_QI by a new Encoder on the card: (chunk
+    0's exit state as .state bytes, the prediction's payloads)."""
+    enc0 = Encoder(width, height, device=DEV)
+    for k in range(REBASE_CHUNK):
+        enc0.encode_with_quantizer(frames[k], REBASE_QI)
+    encp = Encoder(width, height, device=DEV)
+    payloads = [encp.encode_with_quantizer(frames[k], REBASE_QI)
+                for k in range(REBASE_CHUNK, REBASE_FRAMES)]
+    return serdes.save_decoder(enc0.state, enc0.references), payloads
+
+
+def rebase_run(frames, width, height, state, pred, hashes=False):
+    """``reencode`` of frames 3-5 against ``state`` (.state bytes) with the
+    parsed prediction ``pred``, by a new Encoder on the card: (the
+    FrameSink, seconds of the reencode call, device drained at both
+    ends)."""
+    enc = Encoder(width, height, device=DEV)
+    enc.state, enc.references = serdes.load_decoder(state, device=DEV)
+    sink = FrameSink(enc if hashes else None)
+    t0 = sync_clock()
+    RB.reencode(enc, frames[REBASE_CHUNK:REBASE_FRAMES], pred,
+                REBASE_KF_WEIGHT, False, sink)
+    return sink, sync_clock() - t0
+
+
+def rebase_kernel_inputs(frames, width, height):
+    """The residue kernel's arguments for rebased frame 4 (the rebase's
+    first residue update), captured from a rebase run; the
+    reconstruction planes as the kernel received them (zeroed)."""
+    state, payloads = rebase_setup(frames, width, height)
+    pred = RB.parse_prediction(payloads, Decoder(width, height, device=DEV))
+    kept = []
+    real = reencode_device.inter_residues
+
+    def capture(orig, pred_tiles, ref_sel, splitmv, quant, recon):
+        if not kept:
+            kept.append((orig, pred_tiles, ref_sel, splitmv, list(quant),
+                         [p.clone() for p in recon]))
+        return real(orig, pred_tiles, ref_sel, splitmv, quant, recon)
+
+    reencode_device.inter_residues = capture
+    try:
+        rebase_run(frames, width, height, state, pred)
+    finally:
+        reencode_device.inter_residues = real
+    return kept[0]
+
+
+def fetch_ms(coeffs, nonzero, reps=20):
+    """The rebase's coefficient fetch (one device-to-host copy of the
+    coefficients and flags, as reencode_device makes it): median ms over
+    ``reps`` copies, the device drained before each."""
+    times = []
+    for _ in range(reps):
+        t0 = sync_clock()
+        torch.cat([coeffs.reshape(-1).view(torch.uint8),
+                   nonzero.reshape(-1).view(torch.uint8)]).cpu()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def write_y4m(path, frames, width, height):
+    with Y4MWriter(path, width, height) as w:
+        for y, u, v in frames:
+            w.append_frame(y, u, v)
+
+
+REBASE_SPANS = ("rebase.inputs", "rebase.kernel", "rebase.fetch",
+                "rebase.intra_host", "rebase.lf", "rebase.serialize",
+                "enc.inter_inputs", "enc.inter_kernel", "enc.inter_fetch",
+                "enc.inter_host")
+
+
+def rebase_phase(card, width, height, frames, fetch):
+    """The rebase phase: ExCamera's xc-enc -I/-O and -r through the port's
+    CLI on decoded frames 0-5 (see the module docstring); ``fetch``: the
+    coefficient fetch's ms from the kernels phase.  Returns its result
+    line."""
+    work = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    f = lambda name: os.path.join(work, name)
+    write_y4m(f("chunk0.y4m"), frames[:REBASE_CHUNK], width, height)
+    write_y4m(f("chunk1.y4m"), frames[REBASE_CHUNK:], width, height)
+    qi = str(REBASE_QI)
+    xc.main(["enc", f("chunk0.y4m"), "-y", qi, "-o", f("chunk0.ivf"),
+             "-O", f("chunk0.state")])
+    xc.main(["enc", f("chunk1.y4m"), "-y", qi, "-o", f("pred.ivf")])
+
+    # the rebase path: counters to 0 just before, read just after
+    zero_counts()
+    t0 = sync_clock()
+    xc.main(["enc", f("chunk1.y4m"), "-r", "-I", f("chunk0.state"),
+             "-p", f("pred.ivf"), "-w", str(REBASE_KF_WEIGHT),
+             "-o", f("rebased.ivf"), "-O", f("rebased.state")])
+    cli_s = sync_clock() - t0
+    calls, kernels = read_counts()
+    rebased = list(IVFReader(f("rebased.ivf")))
+    sha_ok = [hashlib.sha1(p).hexdigest() == want
+              for p, want in zip(rebased, REBASE_SHA1)]
+
+    # the same rebase through the API, the encoder's minihash after each
+    # frame; the port's Decoder re-decodes each rebased frame from chunk
+    # 0's state to it
+    with open(f("chunk0.state"), "rb") as fh:
+        state = fh.read()
+    pred = RB.parse_prediction(list(IVFReader(f("pred.ivf"))),
+                               Decoder(width, height, device=DEV))
+    sink, _ = rebase_run(frames, width, height, state, pred, hashes=True)
+    s0, r0 = serdes.load_decoder(state, device=DEV)
+    dec = Decoder(width, height, state=s0, references=r0, device=DEV)
+    decode_ok = []
+    for p, mh in zip(rebased, sink.minihashes):
+        dec.decode_frame(p)
+        decode_ok.append(dec.minihash() == mh)
+    s1, r1 = serdes.load_decoder(f("rebased.state"), device=DEV)
+    state_ok = Decoder(width, height, state=s1, references=r1,
+                       device=DEV).minihash() == sink.minihashes[-1]
+    intra_mbs = sum(int((a.ref == T.CURRENT_FRAME).sum())
+                    for kf, _, a in pred[1:] if not kf)
+
+    # speed: rebased frames per second (the reencode call; the prediction
+    # parsed before), better of three passes; spans from one traced pass
+    passes = [rebase_run(frames, width, height, state, pred)[1]
+              for _ in range(3)]
+    n = len(rebased)
+    tracing.enable(True)
+    tracing.snapshot()
+    rebase_run(frames, width, height, state, pred)
+    tracing.enable(False)
+    spans = tracing.snapshot()
+    line = dict(
+        card=card, frames=list(range(REBASE_CHUNK, REBASE_FRAMES)),
+        width=width, height=height, sha1_ok=sha_ok,
+        decode_minihash_ok=decode_ok, state_file_minihash_ok=state_ok,
+        encoder_minihash_ok=sink.minihashes == REBASE_MINIHASH,
+        api_payloads_equal_cli=sink.payloads == rebased,
+        launches=calls, kernel_launches=kernels, cli_s=cli_s,
+        intra_mbs_on_host=intra_mbs, pass_s=passes,
+        rebased_frames_per_s=n / min(passes),
+        ms_per_rebased_frame=min(passes) * 1e3 / n,
+        traced_spans={k: {"ms": spans[k]["seconds"] * 1e3,
+                          "count": spans[k]["count"]}
+                      for k in REBASE_SPANS if k in spans},
+        coefficient_fetch_ms=fetch,
+        device_profile=device_profile(
+            lambda: rebase_run(frames, width, height, state, pred)))
+    say("rebase", **line)
+    if len(rebased) != len(REBASE_SHA1) or not all(sha_ok):
+        raise SystemExit("rebased frames differ from REBASE_SHA1")
+    if not (all(decode_ok) and state_ok and line["api_payloads_equal_cli"]
+            and line["encoder_minihash_ok"]):
+        raise SystemExit("the rebased stream does not re-decode to the "
+                         "encoder's minihash, or that differs from "
+                         "REBASE_MINIHASH")
+    if calls["inter_residues"] != n - 1 or calls["encode_inter_frame"] != 1:
+        raise SystemExit("the rebase made other than one residue-kernel "
+                         "call a rebased interframe and one K8 call")
+    if calls["predict_mb_tiles"] <= 0 or calls["loop_filter"] <= 0 \
+            or calls["intra_frame"] <= 0:
+        raise SystemExit("the rebase path did not launch K3, K4 and K5")
+    return line
+
+
+def cluster_phase(card, width, height, frames):
+    """The cluster phase: xc enc-parallel with two worker processes on the
+    card, then the serial rebase (see the module docstring); returns its
+    result line."""
+    work = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    src, out = (os.path.join(work, n) for n in ("all.y4m", "cluster.ivf"))
+    write_y4m(src, frames, width, height)
+    zero_counts()
+    t0 = sync_clock()
+    xc.main(["enc-parallel", src, "-y", str(REBASE_QI), "-c",
+             str(REBASE_CHUNK), "-j", "2", "-w", str(REBASE_KF_WEIGHT),
+             "-o", out])
+    cli_s = sync_clock() - t0
+    calls, kernels = read_counts()
+    stitched = list(IVFReader(out))
+    sha_ok = [hashlib.sha1(p).hexdigest() == want
+              for p, want in zip(stitched, CLUSTER_SHA1)]
+    # the stitched stream decoded from scratch, frame for frame
+    player = FilePlayer(out, device=DEV)
+    minihashes = [player.decoder.minihash() for _ in player]
+
+    # the two phases' wall times: parallel_encode called directly, the
+    # clock read at its log line after phase 1
+    marks = []
+    sink = FrameSink()
+    t0 = sync_clock()
+    parallel_encode(frames, width, height, sink, y_ac_qi=REBASE_QI,
+                    chunk_frames=REBASE_CHUNK, workers=2,
+                    kf_q_weight=REBASE_KF_WEIGHT, device=DEV,
+                    log=lambda m: marks.append((m, sync_clock() - t0)))
+    total = sync_clock() - t0
+    phase1 = marks[0][1]
+    line = dict(card=card, frames=list(range(len(frames))), width=width,
+                height=height, workers=2, chunk_frames=REBASE_CHUNK,
+                sha1_ok=sha_ok, decode_minihash_ok=[
+                    a == b for a, b in zip(minihashes, CLUSTER_MINIHASH)],
+                api_payloads_equal_cli=sink.payloads == stitched,
+                launches_in_this_process=calls,
+                kernel_launches_in_this_process=kernels, cli_s=cli_s,
+                phase1_s=phase1, phase2_s=total - phase1, total_s=total,
+                frames_per_s=len(frames) / total)
+    say("cluster", **line)
+    if len(stitched) != len(CLUSTER_SHA1) or not all(sha_ok):
+        raise SystemExit("stitched frames differ from CLUSTER_SHA1")
+    if len(minihashes) != len(CLUSTER_MINIHASH) \
+            or not all(line["decode_minihash_ok"]) \
+            or not line["api_payloads_equal_cli"]:
+        raise SystemExit("the stitched stream does not decode to "
+                         "CLUSTER_MINIHASH")
+    if calls["inter_residues"] <= 0 or calls["encode_inter_frame"] <= 0:
+        raise SystemExit("the cluster's rebase did not launch K8 and the "
+                         "residue kernel")
+    return line
+
+
 # ----------------------------------------------------------- main path
 
 def decode_all(payloads, width, height, digest):
@@ -1502,7 +1870,8 @@ COUNTS = {"sixtap_mc": (sixtap_cuda, "launches", "kernel_launches"),
           "decide_inter_frame": (enc_decide_cuda, "launches",
                                  "kernel_launches"),
           "intra_fixup_frame": (enc_intra_fixup_cuda, "launches",
-                                "kernel_launches")}
+                                "kernel_launches"),
+          "inter_residues": (rebase_cuda, "launches", "kernel_launches")}
 
 
 def record_launches(mods):
@@ -1817,6 +2186,27 @@ def main():
         over_residency_blocks=rows10 * len(FAST_PAIR_QIS))
     k10.append(k10_case("176x%d over-residency scene cut pair" % (16 * rows10),
                         k10_scene_cut(48, 176, 16 * rows10, FAST_PAIR_QIS)))
+    # the rebase's residue kernel: rebased frame 4's arguments at 720p,
+    # seeded SPLITMV macroblocks with extreme vectors at qi 0 and 127, a
+    # seeded 176x144 mix with intra macroblocks
+    rframes = decoded_frames(CLIP, tuple(range(REBASE_FRAMES)))
+    rframes = [rframes[k].display() for k in range(REBASE_FRAMES)]
+    frame4 = rebase_kernel_inputs(rframes, ivf.width, ivf.height)
+    k11 = [residue_case("720p rebased frame 4 qi%d" % REBASE_QI, frame4),
+           residue_case("720p seeded SPLITMV extreme vectors qi0",
+                        residue_synthetic(51, 1280, 720, 0,
+                                          "splitmv_extreme")),
+           residue_case("720p seeded SPLITMV extreme vectors qi127",
+                        residue_synthetic(52, 1280, 720, 127,
+                                          "splitmv_extreme")),
+           residue_case("176x144 seeded mix with intra qi48",
+                        residue_synthetic(53, 176, 144, 48, "mixed"))]
+    co, nz = rebase_cuda.inter_residues(*frame4[:5],
+                                        [p.clone() for p in frame4[5]])
+    fetch = fetch_ms(co, nz)
+    say("kernels", kernel="inter_residues", coefficient_fetch_ms=fetch,
+        fetch_bytes=co.numel() * 2 + nz.numel())
+    del frame4, co, nz
     say("kernels", helpers=helper_plain_ms())
     if quick:
         return
@@ -1883,10 +2273,13 @@ def main():
                                       "encode_inter_frame": enc_inter_cuda,
                                       "decide_inter_frame": enc_decide_cuda,
                                       "intra_fixup_frame":
-                                          enc_intra_fixup_cuda})
+                                          enc_intra_fixup_cuda,
+                                      "inter_residues": rebase_cuda})
     try:
         single, kf, inter, fast = persistent_paths(card, payloads, want,
                                                    ivf.width, ivf.height)
+        rb = rebase_phase(card, ivf.width, ivf.height, rframes, fetch)
+        cl = cluster_phase(card, ivf.width, ivf.height, rframes)
     finally:
         undo()
     per_call.update(k1_calls)
@@ -1894,19 +2287,24 @@ def main():
                   for k, v in per_call.items()}
     say("persistent_launches", **persistent)
     if any(not v or set(v) != {1} for v in per_call.values()):
-        raise SystemExit("a K1, K3, K4, K5, K7, K8, K9, K10 or six-tap call "
-                         "of its paths issued other than one kernel launch")
-    # each kernel's calls on every path it runs on
-    calls_on_paths = {k: sum(line["launches"][k]
-                             for line in (single, kf, inter, fast))
+        raise SystemExit("a K1, K3, K4, K5, K7, K8, K9, K10, six-tap or "
+                         "residue-kernel call of its paths issued other than "
+                         "one kernel launch")
+    # each kernel's calls on every path it runs on (the cluster's: those
+    # of its rebase, in this process)
+    paths = (single["launches"], kf["launches"], inter["launches"],
+             fast["launches"], rb["launches"], cl["launches_in_this_process"])
+    calls_on_paths = {k: sum(line[k] for line in paths)
                       for k in ("predict_mb_tiles", "intra_frame",
-                                "loop_filter", "encode_kf_frame")}
+                                "loop_filter", "encode_kf_frame",
+                                "encode_inter_frame", "inter_residues")}
 
     def entry(name, source, replaces, launches, primary, all_cases):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max(c["max_abs_err"] for c in all_cases),
-                "ms": primary["kernel_ms"], "plain_ms": primary["plain_ms"],
+                "ms": primary.get("in_place_ms", primary["kernel_ms"]),
+                "plain_ms": primary["plain_ms"],
                 "bound_ms": primary["bound_ms"], "bound_by": primary["bound_by"],
                 "library_ms": None, "library": NO_LIBRARY,
                 "measured_on": primary["case"], "cases": all_cases}
@@ -1935,7 +2333,7 @@ def main():
         entry("encode_inter_frame", "alfalfa_tpu_torch/csrc/enc_inter.cu",
               "alfalfa_tpu/ops/enc_inter_pallas.py:1003 (with H1 "
               "enc_transforms_pallas.py and H2 trellis_pallas.py:322 inside)",
-              inter["launches"]["encode_inter_frame"], k8[0], k8),
+              calls_on_paths["encode_inter_frame"], k8[0], k8),
         entry("decide_inter_frame", "alfalfa_tpu_torch/csrc/enc_decide.cu",
               "alfalfa_tpu/ops/enc_decide_pallas.py:249",
               fast["launches"]["decide_inter_frame"], k9[0], k9),
@@ -1944,6 +2342,11 @@ def main():
               "alfalfa_tpu/ops/enc_intra_fixup_pallas.py:183 (with H1 "
               "enc_transforms_pallas.py inside)",
               fast["launches"]["intra_fixup_frame"], k10[0], k10),
+        entry("inter_residues", "alfalfa_tpu_torch/csrc/rebase_residues.cu",
+              "none: alfalfa_tpu/encoder/reencode_device.py:39 (_fn_core, "
+              "XLA around K3 sixtap_pallas.py:347 and H1 "
+              "enc_transforms_pallas.py)",
+              calls_on_paths["inter_residues"], k11[0], k11),
     ]}), flush=True)
     # again, so the end of the log has them
     say("throughput", **throughput)
@@ -1954,6 +2357,8 @@ def main():
                            if k != "device_profile"})
     say("fast_encode", **{k: v for k, v in fast.items()
                           if k != "device_profile"})
+    say("rebase", **{k: v for k, v in rb.items() if k != "device_profile"})
+    say("cluster", **cl)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
