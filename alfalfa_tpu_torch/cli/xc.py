@@ -9,6 +9,8 @@ programs).  So far:
                 prediction IVF against -I's state, ExCamera's)
   enc-parallel  y4m -> VP8 IVF by parallel chunk encodes and the serial
                 rebase (ExCamera's cluster encode)
+  run-contest   Salsify's sender -> a trace-shaped emulated link ->
+                Salsify's receiver, in one process (scripts/run-contest)
 
 Frames are reconstructed and encoded on ``--device`` (default ``cuda``;
 ``cpu`` runs the kernels' plain versions).  Run from the repository root:
@@ -19,6 +21,7 @@ Frames are reconstructed and encoded on ``--device`` (default ``cuda``;
         -o rebased.ivf in.y4m
     python -m alfalfa_tpu_torch.cli.xc enc-parallel -y 48 -c 6 -j 4 \
         -o out.ivf in.y4m
+    python -m alfalfa_tpu_torch.cli.xc run-contest --frames 30 in.y4m
 """
 import argparse
 import sys
@@ -198,6 +201,62 @@ def cmd_enc_parallel(args):
           file=sys.stderr)
 
 
+def cmd_run_contest(args):
+    """Salsify sender -> trace-emulated link -> receiver, in-process
+    (scripts/run-contest with mahimahi shells, reproduced natively); the
+    encoders and the receiver's decoder on --device."""
+    import threading
+    import time
+
+    import numpy as np
+
+    from alfalfa_tpu_torch.net.emulation import (EmulatedLink,
+                                                 lte_like_trace,
+                                                 load_mahimahi_trace)
+    from alfalfa_tpu_torch.salsify import SalsifyReceiver, SalsifySender
+    from alfalfa_tpu_torch.salsify.fake_webcam import Y4MInput
+    from alfalfa_tpu_torch.util.y4m import Y4MReader
+
+    rd = Y4MReader(args.input)
+    W, H = rd.width, rd.height
+    rd.close()
+    trace = (load_mahimahi_trace(args.trace) if args.trace
+             else lte_like_trace())
+    received = []
+    receiver = SalsifyReceiver(args.port, W, H, on_raster=received.append,
+                               device=args.device)
+    # --port 0: the port the system picked
+    link = EmulatedLink(0, receiver.socket.getsockname()[1], trace,
+                        delay_ms=args.delay, queue_limit=args.queue).start()
+    rt = threading.Thread(
+        target=lambda: receiver.run(timeout_ms=int(args.idle * 1000)),
+        daemon=True)
+    rt.start()
+
+    sender = SalsifySender("127.0.0.1", link.listen_port, 1337,
+                           Y4MInput(args.input, fps=args.fps),
+                           mode=args.mode, drop_frames_while_busy=False,
+                           device=args.device)
+    t0 = time.monotonic()
+    try:
+        sender.run(max_frames=args.frames)
+        deadline = time.monotonic() + 5
+        while rt.is_alive() and time.monotonic() < deadline:
+            rt.join(0.1)
+    finally:
+        sender.close()
+        receiver.close()
+        link.close()
+    wall = time.monotonic() - t0
+    sizes = [s for _, s, _, _, _ in sender.sent_log]
+    print(f"sent {len(sender.sent_log)} frames, received {len(received)}, "
+          f"wall {wall:.1f}s")
+    if sizes:
+        print(f"frame bytes: mean {np.mean(sizes):.0f} "
+              f"min {min(sizes)} max {max(sizes)}")
+    print(f"link: {link.stats}")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="xc", description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -266,6 +325,28 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device of the chunk encoders and the rebase")
     p.set_defaults(func=cmd_enc_parallel)
+
+    p = sub.add_parser("run-contest",
+                       help="salsify over an emulated cellular link "
+                            "(scripts/run-contest)")
+    p.add_argument("input", help="y4m input clip")
+    p.add_argument("--trace", help="mahimahi delivery trace file "
+                                   "(default: synthetic LTE-like)")
+    p.add_argument("--delay", type=int, default=20,
+                   help="one-way propagation delay ms")
+    p.add_argument("--queue", type=int, default=64,
+                   help="drop-tail queue limit (packets)")
+    p.add_argument("--fps", type=int, default=None, help="pace input at fps")
+    p.add_argument("--frames", type=int, default=None)
+    p.add_argument("--mode", default="s2",
+                   choices=["s1", "s2", "conventional"])
+    p.add_argument("--port", type=int, default=0,
+                   help="receiver's UDP port (0: any free port)")
+    p.add_argument("--idle", type=float, default=10.0,
+                   help="receiver idle timeout (s)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the encoders and the decoder")
+    p.set_defaults(func=cmd_run_contest)
 
     args = parser.parse_args(argv)
     return args.func(args)

@@ -57,15 +57,22 @@ tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
 - cluster: xc enc-parallel over frames 0-5 in chunks of 3, two worker
   processes on the card, then the serial rebase (CLUSTER_SHA1); FilePlayer
   decodes the stitched stream from scratch to CLUSTER_MINIHASH frame by
-  frame; the wall time of each phase.
+  frame; the wall time of each phase;
+- salsify: the port's SalsifySender and SalsifyReceiver on loopback UDP in
+  this process, both on the card (decoded frames 0-5 repeated to 30): s2
+  lossless (every frame sent is received, the receiver lands on the
+  sender's assumed state, its last raster equals the encoder's LAST), s2
+  with fragment 0 of frame 2 dropped once (concealed: the receiver keeps
+  displaying) and conventional mode over 12 frames; every payload sent,
+  decoded by a fresh Decoder from its advertised source state, reaches its
+  target minihash; encode ms p50/p95 beside Salsify's 33 ms design
+  point, frame gaps, bytes, skips and the receiver's decode ms.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after, and every K1 and six-tap call of the GOP path and every K3,
 K4, K5, K7, K8, K9, K10 and residue-kernel call of the single-frame,
-encode, rebase and cluster paths is
-checked to be one kernel launch (`main_path`, `persistent_launches`); the
-last
-lines are the `kernels` JSON line (one entry per kernel), the card's name
+encode, rebase, cluster and Salsify paths is checked to be one kernel
+launch (`main_path`, `persistent_launches`); the last lines are the `kernels` JSON line (one entry per kernel), the card's name
 and power limit, and the result line.
 Each phase prints JSON lines; any failure is a non-zero exit.  There is no
 CPU path: without a CUDA device main() raises before it prints anything
@@ -77,6 +84,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -96,7 +104,9 @@ from alfalfa_tpu_torch.encoder.costs import rd_multipliers
 from alfalfa_tpu_torch.encoder.encode_intra import QUANT_KEYS
 from alfalfa_tpu_torch.encoder.encoder import LF_CHUNK
 from alfalfa_tpu_torch.encoder.trellis import token_costs_pm
+from alfalfa_tpu_torch.input.frame_input import FrameInput
 from alfalfa_tpu_torch.native import bitwork
+from alfalfa_tpu_torch.net import Packet
 from alfalfa_tpu_torch.ops import enc_batch, enc_decide, enc_decide_cuda, \
     enc_inter, enc_inter_cuda, enc_intra, enc_intra_cuda, enc_intra_fixup, \
     enc_intra_fixup_cuda, enc_transforms, intra_cuda, lf_cuda, rebase, \
@@ -104,6 +114,7 @@ from alfalfa_tpu_torch.ops import enc_batch, enc_decide, enc_decide_cuda, \
     wavefront_cuda
 from alfalfa_tpu_torch.parallel import gop
 from alfalfa_tpu_torch.parallel.cluster import parallel_encode
+from alfalfa_tpu_torch.salsify import SalsifyReceiver, SalsifySender
 from alfalfa_tpu_torch.state import serdes
 from alfalfa_tpu_torch.state.decoder_state import Raster
 from alfalfa_tpu_torch.util import tracing
@@ -1811,6 +1822,191 @@ def cluster_phase(card, width, height, frames):
     return line
 
 
+# ------------------------------------------------------------- Salsify
+
+# the salsify phase: decoded frames 0-5 repeated to SALSIFY_FRAMES frames;
+# the lossy run drops SALSIFY_DROP (fragment 0 of frame 2) once, as
+# tests/test_salsify.py does; conventional mode over its own frame count
+SALSIFY_FRAMES, SALSIFY_CONVENTIONAL_FRAMES = 30, 12
+SALSIFY_DROP = (2, 0)
+
+
+class RepeatedFrames(FrameInput):
+    """The sender's frame source: ``frames`` in order, then None."""
+
+    def __init__(self, frames, width, height):
+        self.frames, self.i = frames, 0
+        self.width, self.height = width, height
+
+    def get_next_frame(self):
+        if self.i >= len(self.frames):
+            return None
+        self.i += 1
+        return self.frames[self.i - 1]
+
+    @property
+    def display_width(self):
+        return self.width
+
+    @property
+    def display_height(self):
+        return self.height
+
+
+def pct(values, q):
+    return float(np.percentile(values, q)) if len(values) else None
+
+
+def salsify_run(frames, width, height, mode, drop=None):
+    """The port's SalsifySender and SalsifyReceiver on loopback UDP in this
+    process, both on the card, both sockets on port 0.  Each frame sent is
+    logged with its source state (copied: prune_encoders drops old
+    encoders), payload and target minihash; the receiver's decode calls
+    are timed with the device drained.  Returns (sender, receiver,
+    received rasters, the log, decode ms, frames grabbed)."""
+    received, decode_ms, log = [], [], []
+    expect = len(frames) - (drop is not None)
+    receiver = SalsifyReceiver(0, width, height, host="127.0.0.1",
+                               on_raster=received.append, device=DEV)
+    decode = receiver.player.decode
+
+    def timed_decode(payload):
+        t0 = time.perf_counter()
+        raster = decode(payload)
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+        return raster
+    receiver.player.decode = timed_decode
+    dropped = []
+    if drop is not None:
+        recv = receiver.socket.recv
+
+        def lossy_recv(*a):
+            while True:
+                d = recv(*a)
+                p = Packet.parse(d.payload)
+                if (p.frame_no, p.fragment_no) == drop and not dropped:
+                    dropped.append(drop)
+                    continue
+                return d
+        receiver.socket.recv = lossy_recv
+
+    def serve():
+        try:
+            receiver.run(max_frames=expect, timeout_ms=60000)
+        except (OSError, ValueError):
+            pass                # its socket closed under it (below)
+
+    rt = threading.Thread(target=serve, daemon=True)
+    rt.start()
+    source = RepeatedFrames(frames, width, height)
+    sender = SalsifySender("127.0.0.1", receiver.socket.getsockname()[1],
+                           1337, source, mode=mode,
+                           drop_frames_while_busy=False, device=DEV)
+    send = sender._send_output
+
+    def logged(output):
+        src = sender.encoders[output.source_minihash]
+        log.append((output.source_minihash, src.state.copy(),
+                    src.references.copy(), bytes(output.frame),
+                    output.encoder.minihash(), output.job_name,
+                    output.y_ac_qi))
+        return send(output)
+    sender._send_output = logged
+    try:
+        sender.run(max_frames=len(frames))
+        # every frame sent is displayed but one that lost its fragment 0
+        # (its prefix is empty), or the receiver stops at ``expect``
+        shown = sender.frames_sent - sum(f == 0 for _, f in dropped)
+        deadline = time.monotonic() + 30
+        while rt.is_alive() and len(received) < shown \
+                and time.monotonic() < deadline:
+            rt.join(0.1)
+    finally:
+        sender.close()
+        receiver.close()
+        rt.join(5)
+    return sender, receiver, received, log, decode_ms, source.i
+
+
+def salsify_phase(card, width, height):
+    """The salsify phase: Salsify's sender and receiver through the port
+    at 720p on loopback (s2 lossless, s2 with a fragment dropped,
+    conventional); returns its result line."""
+    rasters = decoded_frames(CLIP, tuple(range(6)))
+    frames = [rasters[k % 6].display() for k in range(SALSIFY_FRAMES)]
+    zero_counts()
+    t0 = time.perf_counter()
+    runs = {"s2_lossless": salsify_run(frames, width, height, "s2"),
+            "s2_lossy": salsify_run(frames, width, height, "s2",
+                                    SALSIFY_DROP),
+            "conventional": salsify_run(
+                frames[:SALSIFY_CONVENTIONAL_FRAMES], width, height,
+                "conventional")}
+    wall = time.perf_counter() - t0
+    calls, kernels = read_counts()      # every thread joined
+    line = dict(card=card, width=width, height=height, runs_wall_s=wall,
+                launches=calls, kernel_launches=kernels,
+                salsify_design_point_ms=SALSIFY_MS, runs={})
+    ok = {}
+    for name, (snd, rcv, received, log, dec_ms, grabbed) in runs.items():
+        # each payload, decoded from the advertised source state by a
+        # fresh Decoder, reaches the advertised target minihash
+        reaches = []
+        for _src, state, refs, payload, target, _job, _q in log:
+            d = Decoder(width, height, state=state.copy(), references=refs,
+                        device=DEV)
+            d.decode_frame(payload)
+            reaches.append(d.minihash() == target)
+        enc_ms = [e[4] for e in snd.sent_log]
+        gaps = [(b[3] - a[3]) * 1e3
+                for a, b in zip(snd.sent_log, snd.sent_log[1:])]
+        sizes = [e[1] for e in snd.sent_log]
+        r = dict(frames_grabbed=grabbed, frames_sent=snd.frames_sent,
+                 frames_received=len(received),
+                 frames_skipped=grabbed - snd.frames_sent,
+                 next_frame_no=rcv.next_frame_no,
+                 state_agrees=rcv.current_state == snd.receiver_assumed_state,
+                 payloads_reach_target=reaches,
+                 jobs=[e[5] for e in log], quantizers=[e[6] for e in log],
+                 key_frame_encode_ms=enc_ms[:1],
+                 encode_ms_p50=pct(enc_ms[1:], 50),
+                 encode_ms_p95=pct(enc_ms[1:], 95),
+                 frame_gap_ms_p50=pct(gaps, 50),
+                 frame_gap_ms_p95=pct(gaps, 95),
+                 bytes_per_frame_mean=float(np.mean(sizes)) if sizes else None,
+                 bytes_per_frame_max=max(sizes, default=None),
+                 decode_ms_p50=pct(dec_ms, 50), decode_ms_p95=pct(dec_ms, 95),
+                 sent_log_encode_ms=enc_ms)
+        if name != "s2_lossy":
+            last = snd.encoders[snd.receiver_assumed_state].references.last
+            r["last_raster_equal"] = bool(received) and all(
+                torch.equal(a, b) for a, b in zip(
+                    (received[-1].y, received[-1].u, received[-1].v),
+                    (last.y, last.u, last.v)))
+            ok[name] = (r["frames_received"] == r["frames_sent"] > 0
+                        and r["state_agrees"] and r["last_raster_equal"]
+                        and all(reaches))
+        else:
+            ok[name] = (r["frames_sent"] >= 3
+                        and r["frames_received"] >= r["frames_sent"] - 2
+                        and r["next_frame_no"] >= 3 and all(reaches))
+        line["runs"][name] = r
+    line["gates_ok"] = ok
+    say("salsify", **line)
+    if not all(ok.values()):
+        raise SystemExit("a Salsify loopback run failed its gates: %s"
+                         % sorted(k for k, v in ok.items() if not v))
+    for k in ("predict_mb_tiles", "intra_frame", "loop_filter",
+              "encode_kf_frame", "decide_inter_frame", "intra_fixup_frame"):
+        if calls[k] <= 0:
+            raise SystemExit("the Salsify path did not launch %s" % k)
+    if calls["encode_inter_frame"]:
+        raise SystemExit("the Salsify path launched K8 (the fast path is "
+                         "its default)")
+    return line
+
+
 # ----------------------------------------------------------- main path
 
 def decode_all(payloads, width, height, digest):
@@ -2280,6 +2476,7 @@ def main():
                                                    ivf.width, ivf.height)
         rb = rebase_phase(card, ivf.width, ivf.height, rframes, fetch)
         cl = cluster_phase(card, ivf.width, ivf.height, rframes)
+        sal = salsify_phase(card, ivf.width, ivf.height)
     finally:
         undo()
     per_call.update(k1_calls)
@@ -2293,11 +2490,13 @@ def main():
     # each kernel's calls on every path it runs on (the cluster's: those
     # of its rebase, in this process)
     paths = (single["launches"], kf["launches"], inter["launches"],
-             fast["launches"], rb["launches"], cl["launches_in_this_process"])
+             fast["launches"], rb["launches"], cl["launches_in_this_process"],
+             sal["launches"])
     calls_on_paths = {k: sum(line[k] for line in paths)
                       for k in ("predict_mb_tiles", "intra_frame",
                                 "loop_filter", "encode_kf_frame",
-                                "encode_inter_frame", "inter_residues")}
+                                "encode_inter_frame", "decide_inter_frame",
+                                "intra_fixup_frame", "inter_residues")}
 
     def entry(name, source, replaces, launches, primary, all_cases):
         return {"name": name, "route": "cuda", "source": source,
@@ -2336,12 +2535,12 @@ def main():
               calls_on_paths["encode_inter_frame"], k8[0], k8),
         entry("decide_inter_frame", "alfalfa_tpu_torch/csrc/enc_decide.cu",
               "alfalfa_tpu/ops/enc_decide_pallas.py:249",
-              fast["launches"]["decide_inter_frame"], k9[0], k9),
+              calls_on_paths["decide_inter_frame"], k9[0], k9),
         entry("intra_fixup_frame",
               "alfalfa_tpu_torch/csrc/enc_intra_fixup.cu",
               "alfalfa_tpu/ops/enc_intra_fixup_pallas.py:183 (with H1 "
               "enc_transforms_pallas.py inside)",
-              fast["launches"]["intra_fixup_frame"], k10[0], k10),
+              calls_on_paths["intra_fixup_frame"], k10[0], k10),
         entry("inter_residues", "alfalfa_tpu_torch/csrc/rebase_residues.cu",
               "none: alfalfa_tpu/encoder/reencode_device.py:39 (_fn_core, "
               "XLA around K3 sixtap_pallas.py:347 and H1 "
@@ -2359,6 +2558,7 @@ def main():
                           if k != "device_profile"})
     say("rebase", **{k: v for k, v in rb.items() if k != "device_profile"})
     say("cluster", **cl)
+    say("salsify", **sal)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

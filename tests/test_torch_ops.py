@@ -340,7 +340,11 @@ def test_port_imports_no_jax():
             "alfalfa_tpu_torch/ops/lf_cuda.py",
             "alfalfa_tpu_torch/ops/enc_intra_cuda.py",
             "alfalfa_tpu_torch/encoder/encoder.py",
-            "alfalfa_tpu_torch/util/ssim.py"} <= names
+            "alfalfa_tpu_torch/util/ssim.py",
+            "alfalfa_tpu_torch/salsify/sender.py",
+            "alfalfa_tpu_torch/salsify/receiver.py",
+            "alfalfa_tpu_torch/net/packet.py",
+            "alfalfa_tpu_torch/input/camera.py"} <= names
     bad = [str(f.relative_to(REPO)) for f in files
            if pat.search(f.read_text())]
     assert bad == []
