@@ -1,7 +1,8 @@
 """Host (numpy) pieces of the decoder's reconstruction that the rebase's
 intra macroblocks need (encoder/reencode.py): intra prediction with the
 127/129 edge rules, dequantization, the inverse WHT and the 4x4 inverse
-DCT added into the plane, bit-exact to the reference (prediction.cc:99-643,
+DCT added into the plane (in C: native/enckernel.cc; ``idct_add_plain``
+is its numpy body), bit-exact to the reference (prediction.cc:99-643,
 quantization.cc:95-126, transform.cc:47-137, macroblock.cc:504-521).
 Copied from the JAX package's scalar reconstruction
 (decoder/reconstruct_np.py); intermediates stored as int16 by the
@@ -10,6 +11,7 @@ reference are int16 here too.
 import numpy as np
 
 from alfalfa_tpu_torch.bitstream import tables as T
+from alfalfa_tpu_torch.native import enckernel
 
 
 def clamp255(x):
@@ -58,8 +60,14 @@ def _mul_35468(a):
 
 
 def idct_add(coeffs16, target4x4):
-    """4x4 inverse DCT + add into the raster block (transform.cc:100-137).
-    Intermediates are stored as int16 exactly like the reference."""
+    """4x4 inverse DCT + add into the raster block (transform.cc:100-137),
+    in C (native/enckernel.cc, which must build)."""
+    enckernel.idct_add(coeffs16, target4x4)
+
+
+def idct_add_plain(coeffs16, target4x4):
+    """``idct_add`` in numpy.  Intermediates are stored as int16 exactly
+    like the reference."""
     c = coeffs16.astype(np.int32).reshape(4, 4)
     # first pass: over columns, intermediate transposed, stored int16
     t0 = c[0] + c[2]

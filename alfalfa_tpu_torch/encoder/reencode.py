@@ -8,7 +8,8 @@ the encoder's device.
   (drifted) references: every inter macroblock at once on the device
   (encoder/reencode_device.py: K3 and the residue kernel), then the intra
   macroblocks in raster order on the host, on host copies of the
-  reconstruction planes (one copy each way, only in a frame that has one).
+  reconstruction planes (one copy each way, only in a frame that has one),
+  their transforms and quantization in C (native/enckernel.cc).
 - ``finish_frame``: the loop filter at the prediction's level (K5), the
   serializer, the state and reference update.
 - ``reencode``: the chunk loop (kf_q_weight blending, extra-frame

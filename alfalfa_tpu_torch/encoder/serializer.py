@@ -8,7 +8,8 @@ import numpy as np
 
 from alfalfa_tpu_torch.bitstream import tables as T
 from alfalfa_tpu_torch.bitstream.boolcoder import BoolEncoder, tree_path
-from alfalfa_tpu_torch.decoder.parse import flipped_map_for
+from alfalfa_tpu_torch.bitstream.header import UncompressedChunk
+from alfalfa_tpu_torch.decoder.parse import FrameParser, flipped_map_for
 from alfalfa_tpu_torch.native import bitwork
 
 # precomputed tree paths: leaf -> [(bit, node_index), ...]
@@ -139,6 +140,26 @@ def serialize_frame(header, arrays, frame_probs, key_frame, width, height,
                     show=True):
     return FrameSerializer(header, arrays, frame_probs, key_frame, width,
                            height, show).serialize()
+
+
+def refresh_all_references(payload, state, width, height, show=None):
+    """``payload`` re-serialized so that it refreshes all three
+    references, nothing copied (xc-terminate-chunk.cc:82-106): how a chunk
+    is terminated, so that its exit state is its last frame.  A key frame
+    refreshes them all already and comes back as it is.  ``state``: the
+    DecoderState the frame parses against (the parse advances it).
+    ``show``: the frame tag's show bit (None: the payload's own)."""
+    chunk = UncompressedChunk(payload, width, height)
+    header, arrays, frame_probs = FrameParser(state).parse(chunk)
+    if chunk.key_frame:
+        return payload
+    header.refresh_last = True
+    header.refresh_golden_frame = True
+    header.refresh_alternate_frame = True
+    header.copy_buffer_to_golden = None
+    header.copy_buffer_to_alternate = None
+    return serialize_frame(header, arrays, frame_probs, False, width, height,
+                           chunk.show_frame if show is None else show)
 
 
 def count_token_branches(arrays, counts=None):

@@ -1,16 +1,26 @@
-"""Forward transforms and quantization of one 4x4 block (numpy, bit-exact
-to the reference dct.cc:45-163 and quantization.cc:149-157), for the
-rebase's intra macroblocks, which run on the host (encoder/reencode.py).
+"""Forward transforms and quantization of one 4x4 block (bit-exact to the
+reference dct.cc:45-163 and quantization.cc:149-157), for the rebase's
+intra macroblocks, which run on the host (encoder/reencode.py).
 
-Intermediates the reference stores in int16 coefficient arrays are
-wrapped to int16 here too.
+``subtract_fdct`` and ``quantize`` call the native encode kernels
+(native/enckernel.cc), which must build; ``subtract_fdct_plain`` and
+``quantize_plain`` are their numpy bodies, the plain versions the tests
+hold them against.  Intermediates the reference stores in int16
+coefficient arrays are wrapped to int16 here too.
 """
 import numpy as np
+
+from alfalfa_tpu_torch.native import enckernel
 
 
 def subtract_fdct(block4, pred4):
     """(original - prediction) -> forward 4x4 DCT coefficients, int16[16]
-    (vp8_short_fdct4x4).  block4, pred4: (4, 4) uint8."""
+    (vp8_short_fdct4x4), in C.  block4, pred4: (4, 4) uint8."""
+    return enckernel.subtract_fdct(block4, pred4)
+
+
+def subtract_fdct_plain(block4, pred4):
+    """``subtract_fdct`` in numpy."""
     inp = block4.astype(np.int32) - pred4.astype(np.int32)
 
     # pass 1: over input rows
@@ -66,7 +76,12 @@ def fwht(dc16):
 
 def quantize(coeffs16, dc_factor, ac_factor):
     """Truncating division: the DC factor at position 0, the AC factor
-    elsewhere -> int16[16]."""
+    elsewhere -> int16[16], in C."""
+    return enckernel.quantize(coeffs16, dc_factor, ac_factor)
+
+
+def quantize_plain(coeffs16, dc_factor, ac_factor):
+    """``quantize`` in numpy."""
     c = coeffs16.astype(np.int32)
     f = np.full(16, ac_factor, np.int32)
     f[0] = dc_factor

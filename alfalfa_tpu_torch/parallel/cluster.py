@@ -27,11 +27,9 @@ def _encode_one_chunk(args):
     """Worker: encode one chunk on its own and terminate it.  Returns
     (payloads, the exit state as .state bytes, the exit minihash)."""
     (frames, w, h, y_ac_qi, ssim_target, quality, two_pass, device) = args
-    from alfalfa_tpu_torch.bitstream.header import UncompressedChunk
     from alfalfa_tpu_torch.decoder.decoder import Decoder
-    from alfalfa_tpu_torch.decoder.parse import FrameParser
     from alfalfa_tpu_torch.encoder.encoder import Encoder
-    from alfalfa_tpu_torch.encoder.serializer import serialize_frame
+    from alfalfa_tpu_torch.encoder.serializer import refresh_all_references
     from alfalfa_tpu_torch.state import serdes
 
     enc = Encoder(w, h, quality=quality, two_pass=two_pass, device=device)
@@ -42,22 +40,15 @@ def _encode_one_chunk(args):
         else:
             payloads.append(enc.encode_with_quantizer(f, y_ac_qi))
 
-    # terminate the chunk: the last frame refreshes every reference; the
-    # chunk is decoded along for its exit state
+    # terminate the chunk: the last frame refreshes every reference (its
+    # tag shown, as the JAX package writes it); the chunk is decoded along
+    # for its exit state
     dec = Decoder(w, h, device=device)
     out = []
     for i, payload in enumerate(payloads):
-        chunk = UncompressedChunk(payload, w, h)
-        if i == len(payloads) - 1 and not chunk.key_frame:
-            header, arrays, frame_probs = FrameParser(
-                dec.state.copy()).parse(chunk)
-            header.refresh_last = True
-            header.refresh_golden_frame = True
-            header.refresh_alternate_frame = True
-            header.copy_buffer_to_golden = None
-            header.copy_buffer_to_alternate = None
-            payload = serialize_frame(header, arrays, frame_probs, False,
-                                      w, h)
+        if i == len(payloads) - 1:
+            payload = refresh_all_references(payload, dec.state.copy(), w, h,
+                                             show=True)
         dec.decode_frame(payload)
         out.append(payload)
 

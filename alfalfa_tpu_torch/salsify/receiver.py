@@ -169,6 +169,7 @@ def main(argv=None):
     parser.add_argument("port")
     parser.add_argument("width", type=int)
     parser.add_argument("height", type=int)
+    parser.add_argument("-f", "--fullscreen", action="store_true")
     parser.add_argument("-v", "--verbose", action="store_true")
     parser.add_argument("-o", "--output", default=None,
                         help="write received frames to a y4m file "
@@ -190,9 +191,14 @@ def main(argv=None):
             writer.append_frame(y, u, v)
             writer.f.flush()  # survive an unclean shutdown
     else:
-        # the port has no display module: -o is the only sink
-        print("display unavailable (alfalfa_tpu_torch has no display "
-              "module; use -o); frames decoded but dropped", file=sys.stderr)
+        try:
+            from alfalfa_tpu_torch.display import VideoDisplay
+            display = VideoDisplay(args.width, args.height,
+                                   fullscreen=args.fullscreen)
+            on_raster = display.draw
+        except Exception as e:
+            print(f"display unavailable ({e}); frames decoded but dropped",
+                  file=sys.stderr)
 
     receiver = SalsifyReceiver(args.port, args.width, args.height,
                                verbose=args.verbose, on_raster=on_raster,

@@ -54,6 +54,17 @@ tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
   key-frame weight 0.5 (REBASE_SHA1: the JAX package's frames); the
   port's Decoder re-decodes each rebased frame from chunk 0's state to
   the encoder's minihash; rebased frames/s with its spans;
+- xc_tools: ExCamera's chunk toolchain through the port's CLI on the
+  rebase phase's files: xc terminate-chunk -O on chunk 0 (CLUSTER_SHA1's
+  first frames), xc dump (the terminated state's bytes), xc diff and
+  comp-states, xc enc -r onto the terminated state (CLUSTER_SHA1's
+  rebased frames), xc merge and framesize, xc decode-bundle of the two
+  chunks (the merged stream's y4m; CLUSTER_MINIHASH after each frame), xc
+  ssim, zero-out-residues and dissect (XC_TOOLS_*: the JAX package's CLI's
+  output), xc --timings and --profile (a trace naming K3's, K4's and K5's
+  kernels); then rebase.intra_host ms a residue-update frame with the
+  native transforms (native/enckernel.cc) and with their numpy bodies, in
+  turns;
 - cluster: xc enc-parallel over frames 0-5 in chunks of 3, two worker
   processes on the card, then the serial rebase (CLUSTER_SHA1); FilePlayer
   decodes the stitched stream from scratch to CLUSTER_MINIHASH frame by
@@ -71,7 +82,7 @@ tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
 Each path runs with the launch counts set to 0 just before it and read
 just after, and every K1 and six-tap call of the GOP path and every K3,
 K4, K5, K7, K8, K9, K10 and residue-kernel call of the single-frame,
-encode, rebase, cluster and Salsify paths is checked to be one kernel
+encode, rebase, xc tools, cluster and Salsify paths is checked to be one kernel
 launch (`main_path`, `persistent_launches`); the last lines are the `kernels` JSON line (one entry per kernel), the card's name
 and power limit, and the result line.
 Each phase prints JSON lines; any failure is a non-zero exit.  There is no
@@ -105,7 +116,7 @@ from alfalfa_tpu_torch.encoder.encode_intra import QUANT_KEYS
 from alfalfa_tpu_torch.encoder.encoder import LF_CHUNK
 from alfalfa_tpu_torch.encoder.trellis import token_costs_pm
 from alfalfa_tpu_torch.input.frame_input import FrameInput
-from alfalfa_tpu_torch.native import bitwork
+from alfalfa_tpu_torch.native import bitwork, enckernel
 from alfalfa_tpu_torch.net import Packet
 from alfalfa_tpu_torch.ops import enc_batch, enc_decide, enc_decide_cuda, \
     enc_inter, enc_inter_cuda, enc_intra, enc_intra_cuda, enc_intra_fixup, \
@@ -1766,6 +1777,233 @@ def rebase_phase(card, width, height, frames, fetch):
     return line
 
 
+# ------------------------------------------------------------- xc tools
+
+# xc_tools: ExCamera's chunk toolchain through the port's CLI on the rebase
+# phase's files (chunk0.ivf and chunk0.state from xc enc -y 48 -O of
+# decoded frames 0-2, pred.ivf and chunk1.y4m of frames 3-5).  SHA-1 of
+# what the JAX package's CLI makes of the same files: XC_TOOLS_ZERO_SHA1,
+# each frame of xc zero-out-residues pred.ivf; XC_TOOLS_ZERO_DECODED_SHA1,
+# the y4m that xc decode writes of it; XC_TOOLS_TEXT_SHA1, (exit code,
+# SHA-1 of stdout) of xc diff and comp-states of chunk0.state against the
+# terminated chunk's state (chunk0t.state: the same bits, as the JAX CLI
+# finds too) and of the state after the terminated chunk's frame 0 (dump
+# -f 0) against it (they differ), xc ssim of the
+# merged stream against frames 0-5, xc dissect -m -p -C -f 1 pred.ivf and
+# xc dissect -s chunk0t.state -f 0 of the rebased chunk.  The terminated
+# and rebased chunks are CLUSTER_SHA1's frames.  Computed once on a CPU
+# host; tests/test_torch_xc_tools.py recomputes them (-m slow).
+XC_TOOLS_ZERO_SHA1 = ["2ecd986d30f7001fc9957f97419164bf527e3328",
+                      "7b7296b1d96c291f6276cd68ca675d817e72a5fe",
+                      "a2b1235bc734a1bac6b5b1eefdb9eaef40f02057"]
+XC_TOOLS_ZERO_DECODED_SHA1 = "1efb5a269012978cbe2b9309ff90c06542f65c57"
+XC_TOOLS_TEXT_SHA1 = {
+    "diff encoder terminated": [0, "1308c30e43ad584712eebf58f446a7c7817b9a16"],
+    "comp-states encoder terminated":
+        [0, "e32c47341384d100df9ad4b53e15ebce553d2574"],
+    "diff frame0 terminated": [1, "9d4db4636894a8f9ecc1706d458d301a17491da2"],
+    "comp-states frame0 terminated":
+        [1, "7e5b5626578f03ff71ab6d494aaa2696ae0e082f"],
+    "ssim": [0, "be6c604848e4cdaa860d3d4491cde3bc242a7fec"],
+    "dissect pred": [0, "74b36575c38969522d4009696358d3b0adc65f2c"],
+    "dissect rebased": [0, "22e7b344fd7ac50c0f9ffbafe8e199054445bf86"]}
+# the kernels of K3, K4 and K5, as torch.profiler names them
+PROFILE_KERNELS = ("mc_planes_kernel", "intra_row_kernel", "lf_row_kernel")
+
+
+def run_xc(argv, stdin=None):
+    """The port's xc.main(argv) in this process, on the card: (exit code,
+    stdout, stderr, wall ms with the device drained at both ends)."""
+    import contextlib
+    import io
+    out, err = io.StringIO(), io.StringIO()
+    saved = sys.stdin
+    if stdin is not None:
+        sys.stdin = io.StringIO(stdin)
+    t0 = sync_clock()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            try:
+                rc = xc.main(argv)
+            except SystemExit as e:
+                rc = e.code
+    finally:
+        sys.stdin = saved
+    return rc or 0, out.getvalue(), err.getvalue(), (sync_clock() - t0) * 1e3
+
+
+def frame_sha1(path):
+    return [hashlib.sha1(p).hexdigest() for p in IVFReader(path)]
+
+
+def text_sha1(rc, out):
+    return [rc, hashlib.sha1(out.encode()).hexdigest()]
+
+
+def intra_host_ms(frames, width, height, state, pred, numpy_bodies):
+    """One traced rebase of frames 3-5: (``rebase.intra_host`` ms per
+    residue-update frame, whether its frames are REBASE_SHA1's).  With
+    ``numpy_bodies`` the intra macroblocks' transforms run the numpy
+    bodies instead of native/enckernel.cc."""
+    from alfalfa_tpu_torch.decoder import reconstruct_np as RNP
+    from alfalfa_tpu_torch.encoder import transforms_np as FX
+    saved = FX.subtract_fdct, FX.quantize, RNP.idct_add
+    if numpy_bodies:
+        FX.subtract_fdct, FX.quantize = FX.subtract_fdct_plain, FX.quantize_plain
+        RNP.idct_add = RNP.idct_add_plain
+    tracing.enable(True)
+    tracing.snapshot()
+    try:
+        sink, _ = rebase_run(frames, width, height, state, pred)
+    finally:
+        tracing.enable(False)
+        FX.subtract_fdct, FX.quantize, RNP.idct_add = saved
+    span = tracing.snapshot().get("rebase.intra_host", {"seconds": 0.0})
+    n = REBASE_FRAMES - REBASE_CHUNK - 1
+    return (span["seconds"] * 1e3 / n,
+            [hashlib.sha1(p).hexdigest() for p in sink.payloads] == REBASE_SHA1)
+
+
+def xc_tools_phase(card, width, height, frames):
+    """The xc_tools phase: ExCamera's chunk workflow through the port's xc
+    on the card, on the rebase phase's files (see the module docstring);
+    then rebase.intra_host with the native transforms and with their numpy
+    bodies, in turns.  Returns its result line."""
+    work = os.path.join(REPO, "build", "chip_smoke")
+    f = lambda name: os.path.join(work, name)
+    write_y4m(f("all.y4m"), frames, width, height)
+    gates, ms = {}, {}
+    profile_dir = f("profile")
+    if os.path.isdir(profile_dir):
+        for old in os.listdir(profile_dir):
+            os.remove(os.path.join(profile_dir, old))
+
+    def step(name, argv, stdin=None):
+        rc, out, err, wall = run_xc(argv, stdin)
+        ms[name] = wall
+        return rc, out, err
+
+    # the path: counters to 0 just before, read just after
+    zero_counts()
+    step("terminate-chunk", ["terminate-chunk", f("chunk0.ivf"),
+                             f("chunk0t.ivf"), "-O", f("chunk0t.state")])
+    gates["terminate-chunk"] = (frame_sha1(f("chunk0t.ivf"))
+                                == CLUSTER_SHA1[:REBASE_CHUNK])
+    step("dump", ["dump", f("chunk0t.ivf"), f("dump.state")])
+    step("dump -f 0", ["dump", f("chunk0t.ivf"), f("dump0.state"), "-f", "0"])
+    with open(f("dump.state"), "rb") as a, open(f("chunk0t.state"), "rb") as b:
+        gates["dump"] = a.read() == b.read()
+    texts = {}
+    for a, key in (("dump", "dump"), ("chunk0", "encoder"),
+                   ("dump0", "frame0")):
+        for cmd in ("diff", "comp-states"):
+            name = f"{cmd} {key} terminated"
+            rc, out, _ = step(name, [cmd, f(a + ".state"),
+                                     f("chunk0t.state")])
+            texts[name] = (rc, out)
+    gates["diff and comp-states"] = (
+        texts["diff dump terminated"] == (0, "states are identical\n")
+        and texts["comp-states dump terminated"] == (0, "0 bits differ\n")
+        and all(text_sha1(*texts[k]) == XC_TOOLS_TEXT_SHA1[k]
+                for k in texts if "dump" not in k))
+    step("enc -r", ["enc", f("chunk1.y4m"), "-r", "-I", f("chunk0t.state"),
+                    "-p", f("pred.ivf"), "-w", str(REBASE_KF_WEIGHT),
+                    "-o", f("rebased_t.ivf")])
+    gates["enc -r"] = (frame_sha1(f("rebased_t.ivf"))
+                       == CLUSTER_SHA1[REBASE_CHUNK:])
+    step("merge", ["merge", f("chunk0t.ivf"), f("rebased_t.ivf"), "-o",
+                   f("merged.ivf")])
+    gates["merge"] = frame_sha1(f("merged.ivf")) == CLUSTER_SHA1
+    _, sizes, _ = step("framesize", ["framesize", f("merged.ivf")])
+    gates["framesize"] = sizes.split() == [
+        str(len(p)) for p in IVFReader(f("merged.ivf"))]
+    bundle = f("chunk0t.ivf") + "\n" + f("rebased_t.ivf") + "\n"
+    step("decode-bundle", ["decode-bundle", f("bundle.y4m")], bundle)
+    step("decode", ["decode", f("merged.ivf"), f("merged.y4m")])
+    with open(f("bundle.y4m"), "rb") as a, open(f("merged.y4m"), "rb") as b:
+        gates["decode-bundle"] = a.read() == b.read()
+    rc, out, _ = step("ssim", ["ssim", f("merged.ivf"), f("all.y4m")])
+    gates["ssim"] = text_sha1(rc, out) == XC_TOOLS_TEXT_SHA1["ssim"]
+    ssim_values = [float(l.split(", ")[1]) for l in out.splitlines()]
+    step("zero-out-residues", ["zero-out-residues", f("pred.ivf"),
+                               f("zero.ivf")])
+    step("decode zero", ["decode", f("zero.ivf"), f("zero.y4m")])
+    with open(f("zero.y4m"), "rb") as z:
+        gates["zero-out-residues"] = (
+            frame_sha1(f("zero.ivf")) == XC_TOOLS_ZERO_SHA1
+            and hashlib.sha1(z.read()).hexdigest()
+            == XC_TOOLS_ZERO_DECODED_SHA1)
+    dissect_ok = []
+    for name, argv in (("dissect pred", ["-m", "-p", "-C", "-f", "1",
+                                         f("pred.ivf")]),
+                       ("dissect rebased", ["-s", f("chunk0t.state"), "-f",
+                                            "0", f("rebased_t.ivf")])):
+        rc, out, _ = step(name, ["dissect"] + argv)
+        dissect_ok.append(text_sha1(rc, out) == XC_TOOLS_TEXT_SHA1[name])
+    gates["dissect"] = all(dissect_ok)
+
+    # the flags: the stage report of a bundle decode (the decoder's
+    # minihash recorded after each frame), a torch.profiler trace of a
+    # decode
+    minihashes = []
+    real = Decoder.decode_frame
+
+    def recording(self, payload):
+        shown_raster = real(self, payload)
+        minihashes.append(self.minihash())
+        return shown_raster
+
+    Decoder.decode_frame = recording
+    try:
+        _, _, report = step("--timings decode-bundle",
+                               ["--timings", "decode-bundle",
+                                f("bundle_t.y4m")], bundle)
+    finally:
+        Decoder.decode_frame = real
+    gates["decode-bundle minihash"] = minihashes == CLUSTER_MINIHASH
+    gates["--timings"] = ("-- stage timings --" in report
+                          and "decode.reconstruct" in report)
+    _, _, note = step("--profile decode", ["--profile", profile_dir,
+                                              "decode", f("merged.ivf"),
+                                              f("merged_p.y4m")])
+    traces = os.listdir(profile_dir)
+    with open(os.path.join(profile_dir, traces[0])) as fh:
+        names = {e.get("name", "") for e in json.load(fh)["traceEvents"]}
+    gates["--profile"] = (len(traces) == 1 and traces[0] in note and all(
+        any(k in n for n in names) for k in PROFILE_KERNELS))
+    calls, kernels = read_counts()
+
+    # rebase.intra_host with the native transforms and with the numpy
+    # bodies, in turns (native, numpy, numpy, native)
+    with open(f("chunk0.state"), "rb") as fh:
+        state = fh.read()
+    pred = RB.parse_prediction(list(IVFReader(f("pred.ivf"))),
+                               Decoder(width, height, device=DEV))
+    turns = [intra_host_ms(frames, width, height, state, pred, numpy)
+             for numpy in (False, True, True, False)]
+    gates["rebase with numpy bodies"] = all(ok for _, ok in turns)
+    line = dict(
+        card=card, width=width, height=height, gates=gates, wall_ms=ms,
+        total_ms=sum(ms.values()), ssim=ssim_values, launches=calls,
+        kernel_launches=kernels, stage_report=report.splitlines(),
+        intra_host_ms_per_residue_frame={
+            "enckernel": [turns[0][0], turns[3][0]],
+            "numpy": [turns[1][0], turns[2][0]]})
+    say("xc_tools", **line)
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise SystemExit("xc_tools gates failed: " + ", ".join(failed))
+    if min(calls[k] for k in ("predict_mb_tiles", "intra_frame",
+                              "loop_filter")) <= 0:
+        raise SystemExit("the xc tools did not launch K3, K4 and K5")
+    if calls["encode_inter_frame"] != 1 or calls["inter_residues"] != \
+            REBASE_FRAMES - REBASE_CHUNK - 1:
+        raise SystemExit("xc enc -r onto the terminated state made other "
+                         "than one K8 call and a residue-kernel call a "
+                         "residue update")
+    return line
+
+
 def cluster_phase(card, width, height, frames):
     """The cluster phase: xc enc-parallel with two worker processes on the
     card, then the serial rebase (see the module docstring); returns its
@@ -2208,6 +2446,7 @@ def main():
     t0 = time.perf_counter()
     bitwork._load()         # raises if the native parsers do not build:
     bitwork._load_mb()      # the Python token parser would hide the host cost
+    enckernel._load()       # the rebase's intra transforms: no fallback
     say("build", cuda_kernels_s=t_cuda, native_parsers_s=time.perf_counter() - t0,
         ptxas={k: [l for l in v.splitlines()
                    if "registers" in l or "spill" in l or "error" in l]
@@ -2475,6 +2714,7 @@ def main():
         single, kf, inter, fast = persistent_paths(card, payloads, want,
                                                    ivf.width, ivf.height)
         rb = rebase_phase(card, ivf.width, ivf.height, rframes, fetch)
+        xt = xc_tools_phase(card, ivf.width, ivf.height, rframes)
         cl = cluster_phase(card, ivf.width, ivf.height, rframes)
         sal = salsify_phase(card, ivf.width, ivf.height)
     finally:
@@ -2490,8 +2730,8 @@ def main():
     # each kernel's calls on every path it runs on (the cluster's: those
     # of its rebase, in this process)
     paths = (single["launches"], kf["launches"], inter["launches"],
-             fast["launches"], rb["launches"], cl["launches_in_this_process"],
-             sal["launches"])
+             fast["launches"], rb["launches"], xt["launches"],
+             cl["launches_in_this_process"], sal["launches"])
     calls_on_paths = {k: sum(line[k] for line in paths)
                       for k in ("predict_mb_tiles", "intra_frame",
                                 "loop_filter", "encode_kf_frame",
@@ -2557,6 +2797,7 @@ def main():
     say("fast_encode", **{k: v for k, v in fast.items()
                           if k != "device_profile"})
     say("rebase", **{k: v for k, v in rb.items() if k != "device_profile"})
+    say("xc_tools", **{k: v for k, v in xt.items() if k != "stage_report"})
     say("cluster", **cl)
     say("salsify", **sal)
     print(card, flush=True)
