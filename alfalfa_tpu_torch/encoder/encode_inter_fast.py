@@ -28,14 +28,25 @@ device, and the frame reuses the last SSIM.  The first fast frame, every
 ``_LF_RECLIMB_PERIOD``-th one, and any frame with segmentation re-climb the
 level through encode_inter.finish_interframe.
 
-Port of alfalfa_tpu/encoder/encode_inter_fast.py's fixup path, byte for
-byte.  Like it, it is not the serial encoder's frame: the intra screening
-reads source pixels, and intra macroblocks never take B_PRED.  Not ported:
-the host-patch variant (``ALFALFA_FAST_FIXUP=0``: ``_patch_intra_host``,
-``_scatter_patches``, ``ALFALFA_FAST_BPRED``), the sparse coefficient
-fetch (device_fetch.py), and the packed device references
-(``_lf_filter_and_pack_fn``, ``_cache_device_refs``): here the references
-are device tensors already.
+The host-patch variant (the encoder's ``fast_bpred=True``) leaves step 5
+out of a single frame: the intra macroblocks stay zero on the device (a
+pair runs K10 and patches over it, as the JAX package's does).  The copy
+brings the reconstruction back too, and the host intra encoder
+(encode_intra_np.encode_intra_mb) encodes the intra macroblocks in raster
+order, each against the patched reconstruction of the earlier ones,
+B_PRED tried; the patched tiles then go back into the device
+reconstruction before its loop filter.
+
+Port of alfalfa_tpu/encoder/encode_inter_fast.py, byte for byte (its
+``ALFALFA_FAST_FIXUP=0`` with ``ALFALFA_FAST_BPRED=1`` is the encoder's
+``fast_bpred`` here; its host patch without B_PRED makes K10's bytes, so
+the port has no such variant).  Like it, it is not the serial encoder's
+frame: the intra screening reads source pixels, and in the fixup variant
+intra macroblocks never take B_PRED.  Not ported: the sparse coefficient fetch
+(device_fetch.py), the packed device references (``_lf_filter_and_pack_fn``,
+``_cache_device_refs``: here the references are device tensors already),
+and the capacity buckets of ``_scatter_patches``, which only spare XLA a
+compile per intra count.
 """
 import numpy as np
 import torch
@@ -47,6 +58,8 @@ from alfalfa_tpu_torch.encoder.encode_inter import (_outputs_to_frame,
                                                     kernel_inputs,
                                                     make_inter_header,
                                                     scalars_for)
+from alfalfa_tpu_torch.encoder.costs import rd_multipliers
+from alfalfa_tpu_torch.encoder.encode_intra_np import encode_intra_mb
 from alfalfa_tpu_torch.encoder.serializer import (count_token_branches,
                                                   optimize_token_probs,
                                                   serialize_frame)
@@ -96,7 +109,7 @@ def frame_inputs(encoder, yuv, quant_list):
         [scalars_for(qi)[6:8] for qi in quant_list],)
 
 
-def fast_frame(oy, ou, ov, ly, lu, lv, scalars, tables, rd):
+def fast_frame(oy, ou, ov, ly, lu, lv, scalars, tables, rd, fixup=True):
     """The fast interframe of the padded original planes against the LAST
     planes (ops/enc_inter.encode_inter_frame_plain's shapes) at each
     quantizer of ``scalars`` ((Q, N_SCALARS) int32; ``tables``: K8's six
@@ -106,7 +119,8 @@ def fast_frame(oy, ou, ov, ly, lu, lv, scalars, tables, rd):
     Returns coeffs (Q, R, C, 25, 16) int16, modes (Q, R, C, MODE_WORDS)
     int32 = [ymode, uvmode, is_inter, has_nonzero, mvx, mvy, chroma mvx,
     mvy, 24 zero], and the unfiltered reconstruction (Q, 16R, 16C),
-    (Q, 8R, 8C), (Q, 8R, 8C) uint8."""
+    (Q, 8R, 8C), (Q, 8R, 8C) uint8.  Without ``fixup`` K10 does not run:
+    the intra macroblocks' coefficients, words and pixels are zero."""
     dev = oy.device
     R, C = oy.shape[0] // 16, oy.shape[1] // 16
     mbc, _ibc, mvc2p, pcost, sadcost, mvcost = tables
@@ -148,19 +162,21 @@ def fast_frame(oy, ou, ov, ly, lu, lv, scalars, tables, rd):
                              (preds[1], res[..., 16:20, :], 2),
                              (preds[2], res[..., 20:24, :], 2))]
 
-    co_fix, md2, y, u, v = intra_fixup_frame(oy, ou, ov, md, *recon, scalars,
-                                             mbc)
-    mi = is_inter[..., None, None]
-    coeffs = torch.where(mi, coeffs.to(torch.int16), co_fix)
-    inter32 = is_inter.to(torch.int32)
-    words = [torch.where(is_inter, md[..., 1], md2[..., 0]),
-             torch.where(is_inter, 0, md2[..., 1]), inter32,
-             torch.where(is_inter, nz.to(torch.int32), md2[..., 2]),
-             mvx, mvy, cmx, cmy]
+    coeffs = coeffs.to(torch.int16)
+    inter = is_inter.to(torch.int32)
+    ymode, uvmode, nz = md[..., 1] * inter, torch.zeros_like(inter), \
+        nz.to(torch.int32)
+    if fixup:
+        co_fix, md2, *recon = intra_fixup_frame(oy, ou, ov, md, *recon,
+                                                scalars, mbc)
+        coeffs = torch.where(is_inter[..., None, None], coeffs, co_fix)
+        ymode, uvmode, nz = (torch.where(is_inter, w, md2[..., k])
+                             for k, w in enumerate((ymode, uvmode, nz)))
+    words = [ymode, uvmode, inter, nz, mvx, mvy, cmx, cmy]
     modes = torch.cat([torch.stack(words, -1).to(torch.int32),
                        torch.zeros(md.shape[:3] + (MODE_WORDS - 8,),
                                    dtype=torch.int32, device=dev)], -1)
-    return coeffs, modes, y, u, v
+    return (coeffs, modes, *recon)
 
 
 _IMPLIED_B = np.array((0, 2, 3, 1), np.int8)   # DC/V/H/TM -> implied bmode
@@ -174,6 +190,37 @@ def _implied_bmodes(arrays):
     if intra.any():
         imp = _IMPLIED_B[np.clip(arrays.ymode, 0, 3).astype(np.int64)]
         arrays.bmode[intra] = imp[intra][:, None, None]
+
+
+def _patch_intra_host(arrays, recon, orig, quant_indices):
+    """The host-patch variant: the macroblocks K9 scored intra encoded by
+    the host intra encoder in raster order, B_PRED tried, each against the
+    patched reconstruction of the earlier ones (inter neighbours are final
+    already); ``recon`` and ``arrays`` are written in place.  Returns the
+    patched (row, col) list."""
+    q = {k: int(v) for k, v in quant_indices.quantizer().items()}
+    rate_mult, dist_mult = rd_multipliers(q["y_ac"])
+    planes = (orig.y, orig.u, orig.v)
+    patched = []
+    for r, c in zip(*np.nonzero(arrays.ref == T.CURRENT_FRAME)):
+        encode_intra_mb(planes, recon, arrays, int(r), int(c), q, rate_mult,
+                        dist_mult, interframe=True)
+        patched.append((int(r), int(c)))
+    return patched
+
+
+def _scatter_patches(host, patched, recon):
+    """The patched macroblocks of the host reconstruction ``host`` written
+    into the device reconstruction ``recon`` in place (one indexed
+    assignment a plane, the indices unique), so that the loop filter and
+    the next reference see decode-exact pixels."""
+    rc = torch.tensor(patched, dtype=torch.int64)
+    for src, dst, n in ((host.y, recon.y, 16), (host.u, recon.u, 8),
+                        (host.v, recon.v, 8)):
+        R, C = dst.shape[0] // n, dst.shape[1] // n
+        tiles = torch.from_numpy(src).view(R, n, C, n)[rc[:, 0], :, rc[:, 1]]
+        dst.view(R, n, C, n)[rc[:, 0].to(dst.device), :,
+                             rc[:, 1].to(dst.device)] = tiles.to(dst.device)
 
 
 def _take_reclimb(encoder):
@@ -250,36 +297,63 @@ def _encode(encoders, yuv, quant_list, update):
     enc0 = encoders[0]
     if any(e.quality != "rt" for e in encoders):
         raise ValueError("the fast interframe encode is the rt design point")
+    patch = enc0.fast_bpred
+    if any(e.fast_bpred != patch for e in encoders):
+        raise ValueError("the encoders of one fast call take one variant")
+    # The JAX package's pair runs K10 under the host patch too and patches
+    # over its output: a macroblock that then takes B_PRED keeps K10's Y2
+    # block among its coefficients (not coded, but counted in
+    # has_nonzero, so its skip flag and tokens differ).  The pair does the
+    # same, to stay byte-identical; a single frame runs no K10.
+    fixup = not patch or len(encoders) > 1
     W, H = enc0.width, enc0.height
     R, C = enc0.mb_rows, enc0.mb_cols
     with tracing.stage("enc.fast_inputs"):
         args = frame_inputs(enc0, yuv, quant_list)
         oy = args[0]
     with tracing.stage("enc.fast_kernel", sync=True):
-        coeffs, modes, y, u, v = fast_frame(*args)
+        coeffs, modes, *recon = fast_frame(*args, fixup=fixup)
     reclimbs = [_take_reclimb(e) for e in encoders]
     with tracing.stage("enc.fast_fetch"):
-        # one copy: the coefficients' bytes, then the mode words'
-        packed = torch.cat([coeffs.reshape(-1).view(torch.uint8),
-                            modes.reshape(-1).view(torch.uint8)]).cpu().numpy()
-    n = coeffs.numel() * 2
-    co_h = packed[:n].view(np.int16).reshape(-1, R, C, 25, 16)
-    md_h = packed[n:].view(np.int32).reshape(-1, R, C, MODE_WORDS)
+        # one copy: the coefficients' bytes, the mode words' and, for the
+        # host patch, the reconstruction's
+        parts = [coeffs, modes] + (recon if patch else [])
+        packed = torch.cat([t.reshape(-1).view(torch.uint8)
+                            for t in parts]).cpu().numpy()
+    host, off = [], 0
+    for t, dt in zip(parts, (np.int16, np.int32) + (np.uint8,) * 3):
+        n = t.numel() * t.element_size()
+        host.append(packed[off:off + n].view(dt).reshape(t.shape))
+        off += n
+    co_h, md_h = host[0], host[1]
+    if patch:
+        from .encoder import _pad_raster
+        orig = _pad_raster(*yuv, W, H)
     out = []
     with tracing.stage("enc.fast_host"):
         for i, (enc, qi) in enumerate(zip(encoders, quant_list)):
             header = make_inter_header(qi)
             arrays = _outputs_to_frame(co_h[i], md_h[i], R, C)
-            _implied_bmodes(arrays)
-            out.append(_finish_fast(enc, header, arrays,
-                                    Raster(W, H, y[i], u[i], v[i]), oy,
-                                    update, reclimbs[i]))
+            frame = Raster(W, H, *(p[i] for p in recon))
+            if not patch:
+                _implied_bmodes(arrays)
+            else:
+                with tracing.stage("enc.fast_patch_host"):
+                    patched_host = Raster(W, H, *(p[i] for p in host[2:]))
+                    patched = _patch_intra_host(arrays, patched_host, orig,
+                                                qi)
+                    if patched:
+                        _scatter_patches(patched_host, patched, frame)
+                enc.patched_mbs = len(patched)
+            out.append(_finish_fast(enc, header, arrays, frame, oy, update,
+                                    reclimbs[i]))
     return out
 
 
 def encode_interframe_fast(encoder, yuv, quant_indices, update):
-    """Encode one rt interframe through the fast path; returns (payload,
-    SSIM) and advances the state when ``update``."""
+    """Encode one rt interframe through the fast path (the encoder's
+    variant: K10's fixup, or the host patch); returns (payload, SSIM) and
+    advances the state when ``update``."""
     return _encode([encoder], yuv, [quant_indices], update)[0]
 
 
@@ -287,6 +361,7 @@ def encode_interframe_fast_multiqp(encoders, yuv, quant_list, update=True):
     """The Salsify speculative pair through the fast path
     (salsify-sender.cc:490-518): one fast_frame call over the quantizers,
     one K9 and one K10 call for all of them (the quantizer on the grid's
-    second axis).  encoders: one rt Encoder fork per quantizer, all in the
-    same state.  Returns [(payload, SSIM)] in ``quant_list`` order."""
+    second axis; in the host-patch variant too, as in the JAX package).  encoders: one rt Encoder fork
+    per quantizer, all in the same state and variant.  Returns [(payload,
+    SSIM)] in ``quant_list`` order."""
     return _encode(list(encoders), yuv, list(quant_list), update)

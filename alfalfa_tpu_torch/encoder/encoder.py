@@ -23,6 +23,11 @@ interframes through the fast path instead (encoder/encode_inter_fast.py:
 K9 decisions, dense math, K10 intra fixup, the loop filter at the persisted
 level), the Salsify sender's; it is byte-identical to the JAX package's
 fast path (``ALFALFA_FAST_INTER=1``), not to the serial encoder.
+``fast_bpred=True`` takes the fast path's host-patch variant instead of
+K10 (the JAX package's ``ALFALFA_FAST_FIXUP=0`` with
+``ALFALFA_FAST_BPRED=1``): the intra macroblocks are encoded by the host
+intra encoder, which may take B_PRED.  Without B_PRED the JAX package's
+host patch makes the same bytes as K10's fixup, so that variant is K10's.
 """
 import copy as _copy
 
@@ -85,7 +90,7 @@ def worker_pool():
 
 class Encoder:
     def __init__(self, width, height, quality="best", two_pass=False,
-                 device=None, fast=False):
+                 device=None, fast=False, fast_bpred=False):
         self.device = torch.device("cuda" if device is None else device)
         self.width, self.height = width, height
         self.mb_cols = (width + 15) // 16
@@ -101,6 +106,11 @@ class Encoder:
         self.last_ssim = None     # reference encode_stats_.ssim parity
         self.fast = bool(fast)    # rt interframes through the fast path
         self._fast_frame_no = 0   # fast encodes so far (re-climb period)
+        # the fast path's variant: K10's intra fixup, or the host patch
+        # with B_PRED; patched_mbs counts the host-patched macroblocks of
+        # the last host-patch frame
+        self.fast_bpred = bool(fast_bpred)
+        self.patched_mbs = 0
 
     # -- public API -----------------------------------------------------------
 
@@ -178,7 +188,8 @@ class Encoder:
                                   sub_rows, sub_cols)
         # the trial encoder runs on this encoder's device, one pass
         sub = Encoder(sub_cols * 16, sub_rows * 16, quality=self.quality,
-                      device=self.device, fast=self.fast)
+                      device=self.device, fast=self.fast,
+                      fast_bpred=self.fast_bpred)
         if not key_frame:
             # the current state against mosaic references, cut where the
             # reference lies (on the card: no copy to the host)
@@ -314,8 +325,9 @@ class Encoder:
 
     def _encode_interframe(self, yuv, quant_indices, update):
         if self.fast and self.quality == "rt":
-            # decisions (K9), dense math, intra fixup (K10): the Salsify
-            # design point; a best-quality encoder keeps K8
+            # decisions (K9), dense math, intra fixup (K10) or the host
+            # patch: the Salsify design point; a best-quality encoder
+            # keeps K8
             return encode_interframe_fast(self, yuv, quant_indices, update)
         # the macroblock loop (census, motion search, mode decision,
         # residues, reconstruction) on the device, K8 with realtime=True in

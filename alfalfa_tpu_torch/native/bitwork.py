@@ -3,9 +3,12 @@
 This copy binds the parse half (frame-header, MB-header and token
 parsers, the state hashes) and the serializer half (token partitions,
 key-frame and interframe MB headers, flagged-literal runs, token-branch
-counts).  The AVX-512 token engine of the JAX package is not bound here."""
+counts), and the AVX-512 8-lane token engine (tokensimd.cc), which a GOP
+token parse takes by its ``engine`` argument."""
 import ctypes
 import os
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -13,6 +16,18 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "bitwork.cc")
 
 _lib = None
+
+# the GOP token-parse engines: "scalar" (bitwork.cc's interleaved loop,
+# one OS thread per stream group), "simd" (tokensimd.cc's 8-lane AVX-512
+# engine), "auto" (scalar on hosts with more than 2 cores, where the
+# scalar fan-out over the G chains wins; on 1-2 cores the runtime
+# calibration in parse_tokens_gop picks per (G, R, C))
+ENGINES = ("auto", "scalar", "simd")
+# per-(G, R, C) calibration samples of the "auto" choice on 1-2 cores
+_ENGINE_CALIB = {}
+# GOP token parses each engine ran to the end (the SIMD engine's -1, for
+# inputs it does not take, lands in "scalar"): read by chip_smoke.py
+engine_calls = {"scalar": 0, "simd": 0}
 
 
 def _load():
@@ -155,6 +170,66 @@ def parse_tokens(partitions, mb_rows, mb_cols, coeff_probs, skip, y2_coded,
     return None
 
 
+_simdlib = None
+_SIMD_SRC = os.path.join(_HERE, "tokensimd.cc")
+
+
+def _load_simd():
+    """The AVX-512 engine's library, or None when the host lacks AVX-512
+    (the library builds everywhere and reports it).  A failed build
+    raises."""
+    global _simdlib
+    if _simdlib is None:
+        from alfalfa_tpu_torch.native._build import load_library
+        lib = load_library(_SIMD_SRC)
+        if lib.vp8_token_simd_supported():
+            lib.vp8_parse_tokens_gop_simd.restype = ctypes.c_int
+            lib.vp8_parse_tokens_gop_simd.argtypes = (
+                [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
+                + [ctypes.c_void_p] * 7)
+            _simdlib = lib
+        else:
+            _simdlib = False
+    return _simdlib or None
+
+
+def simd_supported():
+    """Whether the AVX-512 token engine runs on this host."""
+    return _load_simd() is not None
+
+
+def token_engine(engine):
+    """The SIMD library a GOP token parse under ``engine`` runs, or None
+    for the scalar parser.  "simd" raises where the host lacks AVX-512;
+    "auto" takes the engine only on hosts with 1-2 cores."""
+    if engine not in ENGINES:
+        raise ValueError("token engine %r is not one of %s"
+                         % (engine, ENGINES))
+    if engine == "scalar" or (engine == "auto"
+                              and (os.cpu_count() or 1) > 2):
+        return None
+    lib = _load_simd()
+    if lib is None and engine == "simd":
+        raise RuntimeError("the AVX-512 token engine is not supported on "
+                           "this host")
+    return lib
+
+
+def _simd_call(lib, threads, su, bufs, mb_rows, mb_cols):
+    """One SIMD engine invocation; the scalar call's return codes plus -1
+    for inputs the engine does not take (G > 32; the caller parses
+    them with the scalar engine)."""
+    return lib.vp8_parse_tokens_gop_simd(
+        max(1, int(threads)), su["G"], mb_rows, mb_cols, su["data"],
+        su["off1"].ctypes.data, su["probs"].ctypes.data,
+        su["skip_u8"].ctypes.data, su["y2_u8"].ctypes.data,
+        su["has_nonzero_out"].ctypes.data,
+        bufs["sp_delta"].ctypes.data, bufs["sp_val"].ctypes.data,
+        bufs["desc_pos"].ctypes.data, bufs["desc_extra"].ctypes.data,
+        bufs["vesc_pos"].ctypes.data, bufs["vesc_val"].ctypes.data,
+        bufs["seg_meta"].ctypes.data)
+
+
 def _gop_setup(frame_parts, coeff_probs_list, skip_all, y2_all,
                has_nonzero_out):
     """Shared input marshalling for the GOP token-parse entry points."""
@@ -179,9 +254,17 @@ def _gop_setup(frame_parts, coeff_probs_list, skip_all, y2_all,
     y2_u8 = np.ascontiguousarray(y2_all, np.uint8)
     assert has_nonzero_out.flags.c_contiguous
     frame_bytes = [sum(len(p) for p in parts) for parts in frame_parts]
+    # single-partition batches also carry plain per-stream offsets for the
+    # SIMD engine (streams are concatenated contiguously)
+    off1 = None
+    if all(int(n) == 1 for n in nparts):
+        off1 = np.zeros(G + 1, np.int64)
+        off1[:G] = offsets[0::2][:G]
+        off1[G] = len(data)
     return dict(G=G, data=data, nparts=nparts, part_base=part_base,
                 offsets=offsets, probs=probs, skip_u8=skip_u8, y2_u8=y2_u8,
-                has_nonzero_out=has_nonzero_out, frame_bytes=frame_bytes)
+                has_nonzero_out=has_nonzero_out, frame_bytes=frame_bytes,
+                off1=off1)
 
 
 def _gop_buffers(su, dense_g, scale):
@@ -273,7 +356,7 @@ def _gop_compact(G, felems, bufs):
 
 def parse_tokens_gop(frame_parts, mb_rows, mb_cols, coeff_probs_list,
                      skip_all, y2_all, has_nonzero_out, threads=1,
-                     _scales=(2, 8, 0)):
+                     engine="auto", _scales=(2, 8, 0)):
     """Token-parse G frames in one interleaved call (see bitwork.cc
     vp8_parse_tokens_gop).  frame_parts: list of G lists of partition byte
     strings; coeff_probs_list: G (4,8,3,11) u8 arrays; skip_all/y2_all/
@@ -291,23 +374,56 @@ def parse_tokens_gop(frame_parts, mb_rows, mb_cols, coeff_probs_list,
     threads > 1 splits the G independent streams over that many OS threads
     (vp8_parse_tokens_gop_mt) — bit-identical output, near-linear speedup
     on multi-core hosts (the range decoder is a serial dependency chain
-    that instruction-level interleaving alone cannot scale)."""
+    that instruction-level interleaving alone cannot scale).
+
+    ``engine`` ("auto", "scalar" or "simd", see ENGINES) picks the parser;
+    both give the same bytes.  Multi-partition frames always take the
+    scalar one."""
     lib = _load()
+    simd = token_engine(engine)
     su = _gop_setup(frame_parts, coeff_probs_list, skip_all, y2_all,
                     has_nonzero_out)
     G = su["G"]
     dense_g = mb_rows * mb_cols * 25 * 16
+    if su["off1"] is None:
+        simd = None
+    hist = None
+    if simd is not None and engine == "auto":
+        # a 1-2 core host: the scalar interleaved loop and the 8-lane
+        # engine trade wins with the exact core and batch width, so each
+        # runs two real steps and the faster one is kept per (G, R, C)
+        hist = _ENGINE_CALIB.setdefault((G, mb_rows, mb_cols),
+                                        {"scalar": [], "simd": []})
+        if len(hist["scalar"]) < 2 or (
+                len(hist["simd"]) >= 2
+                and min(hist["scalar"]) <= min(hist["simd"])):
+            simd = None
     for scale in _scales:
         bufs = _gop_buffers(su, dense_g, scale)
-        args = _gop_args(su, bufs, mb_rows, mb_cols)
-        if threads > 1:
-            rc = lib.vp8_parse_tokens_gop_mt(int(threads), *args)
-        else:
-            rc = lib.vp8_parse_tokens_gop(*args)
+        rc = None
+        ran = "scalar"
+        t0 = time.perf_counter()
+        if simd is not None:
+            ran = "simd"
+            rc = _simd_call(simd, threads, su, bufs, mb_rows, mb_cols)
+            if rc == -1:        # the engine declined: the scalar parser
+                rc = None
+                ran = "scalar"
+                t0 = time.perf_counter()
+        if rc is None:
+            args = _gop_args(su, bufs, mb_rows, mb_cols)
+            if threads > 1:
+                rc = lib.vp8_parse_tokens_gop_mt(int(threads), *args)
+            else:
+                rc = lib.vp8_parse_tokens_gop(*args)
         if rc == -2:
             continue
         if rc != 0:
             return None
+        if hist is not None and scale == _scales[0]:
+            # first-try runs only, so the samples compare
+            hist[ran].append(time.perf_counter() - t0)
+        engine_calls[ran] += 1
         return _gop_compact(G, dense_g, bufs)
     return None
 
@@ -330,6 +446,7 @@ class _TokenJob:
             ctypes.c_void_p(self._handle))
         self._handle = None
         if rc == 0:
+            engine_calls["scalar"] += 1
             G = self._su["G"]
             return _gop_compact(G, self._retry[1] * self._retry[2] * 400,
                                 self._bufs)
@@ -337,7 +454,44 @@ class _TokenJob:
             # capacity overflow (rare): re-run synchronously, larger
             return parse_tokens_gop(*self._retry[:7],
                                     threads=self._retry[7],
+                                    engine="scalar", _scales=(8, 0))
+        return None
+
+
+_simd_worker = None
+
+
+def _simd_thread():
+    """The one long-lived thread that runs every asynchronous SIMD parse
+    (ctypes releases the GIL), so that the engine's per-thread workspace
+    (tokensimd.cc) keeps its tables and buffers from call to call."""
+    global _simd_worker
+    if _simd_worker is None:
+        _simd_worker = ThreadPoolExecutor(1, "token-simd")
+    return _simd_worker
+
+
+class _SimdTokenJob:
+    """Handle for an in-flight SIMD token parse on _simd_thread(); the
+    buffers live until join."""
+
+    def __init__(self, future, su, bufs, retry, dense_g):
+        self._future = future
+        self._su, self._bufs = su, bufs
+        self._retry, self._dense_g = retry, dense_g
+
+    def join(self):
+        rc = self._future.result()
+        args, threads = self._retry[:7], self._retry[7]
+        if rc == 0:
+            engine_calls["simd"] += 1
+            return _gop_compact(self._su["G"], self._dense_g, self._bufs)
+        if rc == -2:        # capacity overflow: again, larger
+            return parse_tokens_gop(*args, threads=threads, engine="simd",
                                     _scales=(8, 0))
+        if rc == -1:        # the engine declined: the scalar parser
+            return parse_tokens_gop(*args, threads=threads,
+                                    engine="scalar")
         return None
 
 
@@ -347,25 +501,40 @@ class _SyncTokenJob:
     with the caller's packing work, so the serial interleaved call
     wins."""
 
-    def __init__(self, args, threads):
-        self._args, self._threads = args, threads
+    def __init__(self, args, threads, engine):
+        self._args, self._threads, self._engine = args, threads, engine
 
     def join(self):
-        return parse_tokens_gop(*self._args, threads=self._threads)
+        return parse_tokens_gop(*self._args, threads=self._threads,
+                                engine=self._engine)
 
 
 def parse_tokens_gop_async(frame_parts, mb_rows, mb_cols, coeff_probs_list,
-                           skip_all, y2_all, has_nonzero_out, threads=1):
+                           skip_all, y2_all, has_nonzero_out, threads=1,
+                           engine="auto"):
     """Start the GOP token parse on background OS threads and return a
     job whose join() yields parse_tokens_gop's result.  The caller
     overlaps its frame-packing work with the bit-serial decode.  Returns
     None if the native library rejects the inputs (caller falls back to
-    the synchronous path)."""
+    the synchronous path).  ``engine`` as parse_tokens_gop's."""
     _load()         # raise now (not at join) if the library is missing
-    if threads <= 1:
-        return _SyncTokenJob((frame_parts, mb_rows, mb_cols,
-                              coeff_probs_list, skip_all, y2_all,
-                              has_nonzero_out), threads)
+    args = (frame_parts, mb_rows, mb_cols, coeff_probs_list, skip_all,
+            y2_all, has_nonzero_out)
+    simd = token_engine(engine)
+    if simd is not None and (os.cpu_count() or 1) > 1:
+        su = _gop_setup(frame_parts, coeff_probs_list, skip_all, y2_all,
+                        has_nonzero_out)
+        if su["off1"] is not None:
+            # the engine packs 8 chains into one thread's zmm lanes; it
+            # runs on the worker thread so the caller's packing overlaps
+            dense_g = mb_rows * mb_cols * 25 * 16
+            bufs = _gop_buffers(su, dense_g, 2)
+            future = _simd_thread().submit(_simd_call, simd, threads, su,
+                                           bufs, mb_rows, mb_cols)
+            return _SimdTokenJob(future, su, bufs, args + (threads,),
+                                 dense_g)
+    if threads <= 1 or simd is not None:
+        return _SyncTokenJob(args, threads, engine)
     lib = _load()
     su = _gop_setup(frame_parts, coeff_probs_list, skip_all, y2_all,
                     has_nonzero_out)
@@ -375,9 +544,7 @@ def parse_tokens_gop_async(frame_parts, mb_rows, mb_cols, coeff_probs_list,
         max(1, int(threads)), *_gop_args(su, bufs, mb_rows, mb_cols))
     if not handle:
         return None
-    retry = (frame_parts, mb_rows, mb_cols, coeff_probs_list,
-             skip_all, y2_all, has_nonzero_out, threads)
-    return _TokenJob(lib, handle, su, bufs, retry)
+    return _TokenJob(lib, handle, su, bufs, args + (threads,))
 
 
 def parse_frame_header(data, key_frame):

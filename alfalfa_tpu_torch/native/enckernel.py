@@ -1,12 +1,15 @@
 """ctypes loader for the native encode kernels (enckernel.cc, built with
 g++ on first use): the forward DCT of a residual, quantization and the
 inverse DCT added into a plane, which the rebase's intra macroblocks run
-on the host (encoder/reencode.py).
+on the host (encoder/reencode.py), and the 4x4 intra prediction and
+B_PRED mode search of the host intra encoder
+(encoder/encode_intra_np.py).
 
 Unlike the JAX package's loader, this one has no quiet fallback: a failed
 build raises, and the numpy bodies (``transforms_np.subtract_fdct_plain``,
-``quantize_plain``, ``reconstruct_np.idct_add_plain``) serve only as the
-plain versions the tests hold these functions against."""
+``quantize_plain``, ``reconstruct_np.idct_add_plain``,
+``encode_intra_np.bpred_predict_plain``, ``bpred_search_plain``) serve
+only as the plain versions the tests hold these functions against."""
 import ctypes
 import os
 
@@ -34,6 +37,14 @@ def _load():
     lib.vp8_quantize.restype = None
     lib.vp8_quantize.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_void_p]
+    lib.vp8_bpred_search.restype = ctypes.c_int
+    lib.vp8_bpred_search.argtypes = (
+        [ctypes.c_void_p] + [ctypes.c_int] * 5
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+           ctypes.c_int64, ctypes.c_void_p])
+    lib.vp8_bpred_predict.restype = None
+    lib.vp8_bpred_predict.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 6
+                                      + [ctypes.c_void_p])
     _lib = lib
     return lib
 
@@ -77,3 +88,40 @@ def quantize(coeffs16, dc, ac):
     out = np.empty(16, np.int16)
     lib.vp8_quantize(c.ctypes.data, int(dc), int(ac), out.ctypes.data)
     return out
+
+
+def _plane(plane):
+    """A uint8 plane the C code may read by row stride."""
+    if plane.dtype != np.uint8 or plane.strides[1] != 1:
+        raise ValueError("the B_PRED kernels read a uint8 plane with "
+                         "adjacent bytes in a row")
+    return plane
+
+
+def bpred_predict(plane, col4, row4, mode):
+    """The 4x4 prediction (uint8) of b-mode ``mode`` at sub-block (row4,
+    col4) from the reconstructed ``plane``, which is not written."""
+    lib = _load()
+    plane = _plane(plane)
+    h, w = plane.shape
+    out = np.empty((4, 4), np.uint8)
+    lib.vp8_bpred_predict(plane.ctypes.data, h, w, plane.strides[0],
+                          int(col4), int(row4), int(mode), out.ctypes.data)
+    return out
+
+
+def bpred_search(plane, col4, row4, orig4, mode_costs, rate_mult, dist_mult):
+    """The b-mode of least RD cost (rate x mode cost + distortion x SSE;
+    the first of equal ones) for the 4x4 block ``orig4`` at (row4, col4)
+    predicted from ``plane``, and its prediction: (mode, (4, 4) uint8)."""
+    lib = _load()
+    plane, orig4 = _plane(plane), _rows(orig4)
+    h, w = plane.shape
+    pred = np.empty((4, 4), np.uint8)
+    costs = np.ascontiguousarray(mode_costs, np.int64)
+    mode = lib.vp8_bpred_search(plane.ctypes.data, h, w, plane.strides[0],
+                                int(col4), int(row4), orig4.ctypes.data,
+                                orig4.strides[0], costs.ctypes.data,
+                                int(rate_mult), int(dist_mult),
+                                pred.ctypes.data)
+    return mode, pred

@@ -130,9 +130,15 @@ class BatchedGopDecoder:
     All GOPs must have the same dimensions and the same per-position frame
     type (true for fixed-GOP encodes and for ExCamera chunks).  Decoded
     rasters stay on ``device``; fetch only what you need.
+    ``token_engine`` picks the host token parser (native/bitwork.py
+    ENGINES: "auto", "scalar", or "simd", the AVX-512 engine, which
+    raises here on a host without AVX-512).
     """
 
-    def __init__(self, width, height, n_gops, device=None):
+    def __init__(self, width, height, n_gops, device=None,
+                 token_engine="auto"):
+        bitwork.token_engine(token_engine)
+        self.token_engine = token_engine
         self.device = torch.device("cuda" if device is None else device)
         self.width, self.height = width, height
         self.G = n_gops
@@ -250,7 +256,8 @@ class BatchedGopDecoder:
                 token_job = bitwork.parse_tokens_gop_async(
                     frame_parts, R, C, [p[3].coeff_probs for p in per],
                     S["skip"], S["y2_coded"], hnz,
-                    threads=bitwork.parse_threads(G))
+                    threads=bitwork.parse_threads(G),
+                    engine=self.token_engine)
             except (AttributeError, OSError):
                 if self.device.type == "cuda":
                     raise
@@ -619,3 +626,372 @@ def decode_gops(gop_payloads, width, height, device=None):
             if show[g]:
                 out[g].append((y[g], u[g], v[g]))
     return out
+
+
+# ---------------------------------------------------------------------------
+# GOP-parallel steps over several devices (ExCamera-style chunks)
+#
+# The JAX package expresses these with shard_map over a device mesh: one
+# controller, a chunk (or a sub-batch of frames) per device, and the small
+# exit state exchanged by collectives.  Here one process drives the mesh
+# as well: a mesh is an ordered list of torch devices, each shard is
+# dispatched to its device in turn (launches are asynchronous, so separate
+# cards overlap), an all_gather is a copy onto every device, a pmean a
+# float32 mean of the shard means, and a ppermute a non-blocking copy to
+# the next device.  Every op is out of place, so a mesh that repeats a
+# device (["cuda:0"] * 4, ["cpu"] * 4) aliases nothing across shards.
+#
+# Results that the JAX package shards over the mesh come back as a list
+# over the shards, each on its device; replicated results as a list of
+# copies, one on each mesh device.
+# ---------------------------------------------------------------------------
+
+def make_gop_mesh(devices=None):
+    """The ordered list of torch devices a step runs over: ``devices``
+    (names or torch.device; repeats allowed), or every visible CUDA
+    device."""
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    mesh = [torch.device(d) for d in devices]
+    if not mesh:
+        raise ValueError("a GOP mesh needs at least one device")
+    return mesh
+
+
+def _shards(mesh, n):
+    """Split a leading axis of ``n`` items evenly over the mesh: the
+    (start, stop) of each shard."""
+    if n % len(mesh):
+        raise ValueError("%d items do not split over %d devices"
+                         % (n, len(mesh)))
+    b = n // len(mesh)
+    return [(d * b, (d + 1) * b) for d in range(len(mesh))]
+
+
+def _on(x, dev, dtype=None):
+    """A host array or tensor as a tensor on ``dev`` (a copy, never an
+    alias of the argument)."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.array(x))
+        return x.to(dev, dtype or x.dtype)
+    return x.to(dev, dtype or x.dtype, copy=True)
+
+
+def _gather(mesh, parts):
+    """all_gather: the parts (each on its shard's device) concatenated,
+    one copy on every mesh device."""
+    return [torch.cat([p.to(dev, non_blocking=True) for p in parts])
+            for dev in mesh]
+
+
+def gop_decode_step(mesh, mb_rows, mb_cols, key_frame=False):
+    """A sharded decode step (JAX parallel/gop.py gop_decode_step): a
+    batch of per-frame parse arrays, split over the mesh along its leading
+    (frame) axis, is reconstructed frame by frame on each shard's device
+    (reconstruct_torch.reconstruct_core: K3, K4, K5).
+
+    The returned function takes example_frame_batch's tuple (coeffs, qf,
+    y2c, nz, ym, uvm, bm, refsel, smv, uvmv, ry, ru, rv, lfp; ry, ru, rv
+    each frame's (4, H, W) reference stacks, slots 1-3 last, golden,
+    alternate) and returns (y, u, v, exit_y, mean_energy): the shards'
+    (b, H, W) / (b, H/2, W/2) uint8 planes; every shard's last luma plane
+    gathered as (n, H, W) onto every device (what a serial rebase pass
+    consumes); the mean |luma| of the whole batch, float32, a scalar on
+    every device (the mean of the shard means)."""
+    R, C = mb_rows, mb_cols
+
+    def step(coeffs, qf, y2c, nz, ym, uvm, bm, refsel, smv, uvmv, ry, ru,
+             rv, lfp):
+        outs = []
+        for dev, (a, b) in zip(mesh, _shards(mesh, len(coeffs))):
+            planes = []
+            for f in range(a, b):
+                at = lambda x, dt=None: _on(x[f], dev, dt)
+                refs = None if key_frame else {
+                    p: tuple(at(s)[1:4].unbind(0))
+                    for p, s in (("y", ry), ("u", ru), ("v", rv))}
+                planes.append(_RT.reconstruct_core(
+                    key_frame, at(coeffs, torch.int32),
+                    {k: at(q, torch.int32) for k, q in qf.items()},
+                    at(y2c, torch.bool), at(nz, torch.bool),
+                    at(ym, torch.int32), at(uvm, torch.int32),
+                    at(bm, torch.uint8).reshape(R, C, 16),
+                    at(refsel, torch.int32), at(smv, torch.int32),
+                    at(uvmv, torch.int32), refs,
+                    tuple(at(x) for x in lfp)))
+            outs.append([torch.stack(p) for p in zip(*planes)])
+        y, u, v = ([o[k] for o in outs] for k in range(3))
+        exit_y = _gather(mesh, [p[-1:] for p in y])
+        means = [p.to(torch.float32).abs().mean() for p in y]
+        mean_energy = [torch.stack([m.to(dev) for m in means]).mean()
+                       for dev in mesh]
+        return y, u, v, exit_y, mean_energy
+
+    return step
+
+
+def example_frame_batch(n_frames, mb_rows, mb_cols, seed=0):
+    """A valid batch of parse arrays for dry runs (JAX parallel/gop.py
+    example_frame_batch, the same numbers from the same seed)."""
+    rng = np.random.RandomState(seed)
+    R, C, B = mb_rows, mb_cols, n_frames
+    coeffs = rng.randint(-80, 80, (B, R, C, 25, 16)).astype(np.int32)
+    qf = {k: np.full((B, R, C), v, np.int32)
+          for k, v in (("y_dc", 8), ("y_ac", 6), ("y2_dc", 16),
+                       ("y2_ac", 9), ("uv_dc", 8), ("uv_ac", 6))}
+    y2c = rng.rand(B, R, C) < 0.7
+    nz = np.ones((B, R, C), bool)
+    ym = np.where(y2c, 0, 4).astype(np.int32)   # DC_PRED / B_PRED mix
+    uvm = rng.randint(0, 4, (B, R, C)).astype(np.int32)
+    bm = rng.randint(0, 10, (B, R, C, 4, 4)).astype(np.int32)
+    refsel = rng.randint(1, 4, (B, R, C)).astype(np.int32)
+    smv = rng.randint(-64, 64, (B, R, C, 4, 4, 2)).astype(np.int32)
+    uvmv = rng.randint(-64, 64, (B, R, C, 2, 2, 2)).astype(np.int32)
+    H, W = R * 16, C * 16
+    ry = rng.randint(0, 256, (B, 4, H, W)).astype(np.uint8)
+    ru = rng.randint(0, 256, (B, 4, H // 2, W // 2)).astype(np.uint8)
+    rv = rng.randint(0, 256, (B, 4, H // 2, W // 2)).astype(np.uint8)
+    lvl = np.full((B, R, C), 20, np.int32)
+    lfp = (lvl, np.full((B, R, C), 9, np.int32),
+           np.full((B, R, C), 53, np.int32),
+           np.full((B, R, C), 49, np.int32), np.full((B, R, C), 2, np.int32),
+           np.zeros((B, R, C), bool))
+    return (coeffs, qf, y2c, nz, ym, uvm, bm, refsel, smv, uvmv,
+            ry, ru, rv, lfp)
+
+
+def encode_step_inputs(mb_rows, mb_cols, n_chunks, seed=0):
+    """gop_encode_step's arguments to K7 (the JAX package's, from the same
+    seed): the chunks' (n, H, W), (n, H/2, W/2), (n, H/2, W/2) uint8
+    planes, the six quantizer factors of qi 48 and its RD multipliers."""
+    from alfalfa_tpu_torch.bitstream.header import QuantIndices
+    from alfalfa_tpu_torch.encoder.costs import rd_multipliers
+    from alfalfa_tpu_torch.encoder.encode_intra import QUANT_KEYS
+
+    H, W = mb_rows * 16, mb_cols * 16
+    rng = np.random.RandomState(seed)
+    oy = rng.randint(0, 256, (n_chunks, H, W)).astype(np.uint8)
+    ou = rng.randint(0, 256, (n_chunks, H // 2, W // 2)).astype(np.uint8)
+    ov = rng.randint(0, 256, (n_chunks, H // 2, W // 2)).astype(np.uint8)
+    q = QuantIndices(y_ac_qi=48).quantizer()
+    quant = [int(q[k]) for k in QUANT_KEYS]
+    return (oy, ou, ov), quant, rd_multipliers(quant[1])
+
+
+def gop_encode_step(mesh, mb_rows, mb_cols, n_chunks, seed=0):
+    """GOP-parallel key-frame encode (JAX parallel/gop.py gop_encode_step,
+    the same seeded planes at qi 48, encode_step_inputs): each chunk's
+    first frame through K7 (ops/enc_intra_cuda.encode_kf_frame) on its
+    shard's device, the exit reconstructions gathered onto every device
+    (what a pipelined rebase consumes; reencode.cc:305-381).  Returns
+    (exit_y: (n, H, W) uint8 on every device, coeffs: the shards' (b, R, C,
+    400) int16)."""
+    R, C = mb_rows, mb_cols
+    (oy, ou, ov), quant, (rm, dm) = encode_step_inputs(R, C, n_chunks, seed)
+    # after encoder.encode_intra, which imports this module back
+    from alfalfa_tpu_torch.ops.enc_intra_cuda import encode_kf_frame
+    coeffs, recon = [], []
+    for dev, (a, b) in zip(mesh, _shards(mesh, n_chunks)):
+        out = [encode_kf_frame(_on(oy[f], dev), _on(ou[f], dev),
+                               _on(ov[f], dev), quant, rm, dm)
+               for f in range(a, b)]
+        coeffs.append(torch.stack([o[0].reshape(R, C, 400) for o in out]))
+        recon.append(out[-1][2][None])
+    return _gather(mesh, recon), coeffs
+
+
+def gop_rebase_chain(mesh, mb_rows, mb_cols, n_frames):
+    """The pipelined chunk rebase over the mesh (JAX parallel/gop.py
+    gop_rebase_chain; reencode.cc:305-381 and ExCamera's pipeline): shard
+    d holds chunk d's frames (originals and fixed prediction modes and
+    vectors); the exit references go around the ring, one hop a chunk.
+
+    Each frame is the rebase's residue update (K3, then the residue
+    kernel R, as encoder/reencode_device.py calls them) and refreshes
+    LAST; a chunk's final reconstruction leaves as all three references
+    and hops to the next shard's device.  Only the active shard runs at
+    each ring step (the JAX package computes on every device and masks,
+    as SPMD requires; the result is the same).
+
+    The returned function takes (oy, ou, ov, refsel, smv, uvmv, splitmv,
+    qs, ry0, ru0, rv0) as the JAX one does (the chunk axis first; qs (N,
+    8) the six quantizer factors and two zeros; ry0, ru0, rv0 the entry
+    (4, H, W) reference stacks, slots 1-3 last, golden, alternate) and
+    returns (coeffs: the shards' (1, F, n_mb, 400) int16, nz: the shards'
+    (1, F, n_mb) bool, exit_y: the last chunk's exit luma stack (4, H, W)
+    on every device, as the ring leaves it back on the first)."""
+    from alfalfa_tpu_torch.ops.rebase_cuda import inter_residues
+    from alfalfa_tpu_torch.ops.sixtap_cuda import predict_mb_tiles
+
+    R, C = mb_rows, mb_cols
+
+    def chain(oy, ou, ov, refsel, smv, uvmv, splitmv, qs, ry0, ru0, rv0):
+        spans = _shards(mesh, len(oy))
+        if any(b - a != 1 for a, b in spans):
+            raise ValueError("the rebase ring takes one chunk a device")
+        dev = mesh[0]
+        refs = {p: tuple(_on(s, dev, torch.uint8)[1:4].unbind(0))
+                for p, s in (("y", ry0), ("u", ru0), ("v", rv0))}
+        coeffs, nonzero = [], []
+        for d, dev in enumerate(mesh):
+            # the ppermute: the exit references hop onto this shard
+            refs = {p: tuple(s.to(dev, non_blocking=True) for s in slots)
+                    for p, slots in refs.items()}
+            quant = [int(x) for x in np.asarray(qs[d])[:6]]
+            co_f, nz_f = [], []
+            for f in range(n_frames):
+                at = lambda x, dt: _on(x[d][f], dev, dt)
+                orig = [at(x, torch.uint8) for x in (oy, ou, ov)]
+                sel = at(refsel, torch.int32)
+                pred = predict_mb_tiles(refs, sel[None],
+                                        at(smv, torch.int32)[None],
+                                        at(uvmv, torch.int32)[None])
+                recon = [torch.zeros_like(o) for o in orig]
+                co, nz = inter_residues(orig, [x[0] for x in pred], sel,
+                                        at(splitmv, torch.bool), quant,
+                                        recon)
+                co_f.append(co.reshape(R * C, 400))
+                nz_f.append(nz.reshape(R * C))
+                # refresh LAST; golden and alternate carry on
+                refs = {p: (r,) + refs[p][1:]
+                        for p, r in zip(("y", "u", "v"), recon)}
+            coeffs.append(torch.stack(co_f)[None])
+            nonzero.append(torch.stack(nz_f)[None])
+            # chunk exit: the final reconstruction as all three references
+            refs = {p: (s[0],) * 3 for p, s in refs.items()}
+        # the last hop brings the exit references back to the first device
+        exit_y = refs["y"][0].to(mesh[0], non_blocking=True)[None] \
+            .repeat(4, 1, 1)
+        return coeffs, nonzero, [exit_y.to(dev, copy=True) for dev in mesh]
+
+    return chain
+
+
+def rebase_chain_inputs_from_ivf(path, n_chunks, n_frames, device=None):
+    """gop_rebase_chain's inputs from a real stream (JAX parallel/gop.py
+    rebase_chain_inputs_from_ivf, the same arrays): decoded rasters as the
+    chunks' content, the stream's own reference selections, sub-vectors,
+    SPLITMV layout and quantizer as the fixed prediction, and the key
+    frame's reconstruction as the entry references.  Intra macroblocks
+    become ZEROMV from LAST, as the chain's residue update is inter-only.
+    The frames are decoded by the port's Decoder on ``device`` (CUDA by
+    default) and parsed by its FrameParser on the host; returns numpy
+    arrays."""
+    from alfalfa_tpu_torch.decoder.decoder import Decoder
+    from alfalfa_tpu_torch.util.ivf import IVFReader
+
+    ivf = IVFReader(path)
+    W, H = ivf.width, ivf.height
+    R, C = (H + 15) // 16, (W + 15) // 16
+    dec = Decoder(W, H, device=device)
+    rasters, metas, qis = [], [], []
+    for i in range(len(ivf)):
+        payload = ivf.frame(i)
+        chunk = UncompressedChunk(payload, W, H)
+        header, arrays, _ = FrameParser(dec.state.copy()).parse(chunk)
+        _show, raster = dec.decode_frame(payload)
+        rasters.append(raster.to_host())
+        if not chunk.key_frame:
+            metas.append((arrays.ref.copy(), arrays.sub_mv.copy(),
+                          arrays.uv_mv.copy(),
+                          (arrays.splitmv_pid >= 0).copy()))
+            qis.append(header.quant_indices)
+    kf_y, kf_u, kf_v = rasters[0]
+
+    def stack4(p):
+        return np.broadcast_to(p[None], (4,) + p.shape).copy()
+
+    oy = np.zeros((n_chunks, n_frames, R * 16, C * 16), np.int32)
+    ou = np.zeros((n_chunks, n_frames, R * 8, C * 8), np.int32)
+    ov = np.zeros((n_chunks, n_frames, R * 8, C * 8), np.int32)
+    refsel = np.zeros((n_chunks, n_frames, R, C), np.int32)
+    smv = np.zeros((n_chunks, n_frames, R, C, 4, 4, 2), np.int32)
+    uvmv = np.zeros((n_chunks, n_frames, R, C, 2, 2, 2), np.int32)
+    splitmv = np.zeros((n_chunks, n_frames, R, C), bool)
+    for d in range(n_chunks):
+        for f in range(n_frames):
+            k = (d * n_frames + f) % len(metas)
+            oy[d, f], ou[d, f], ov[d, f] = rasters[k + 1]
+            ref, sub_mv, uv_mv, sp = metas[k]
+            intra = ref == 0
+            refsel[d, f] = np.where(intra, 1, ref)      # intra -> LAST
+            smv[d, f] = np.where(intra[:, :, None, None, None], 0, sub_mv)
+            uvmv[d, f] = np.where(intra[:, :, None, None, None], 0, uv_mv)
+            splitmv[d, f] = sp & ~intra
+    qs = np.zeros((n_chunks, 8), np.int32)
+    for d in range(n_chunks):
+        qv = qis[d % len(qis)].quantizer()
+        qs[d] = [qv["y_dc"], qv["y_ac"], qv["y2_dc"], qv["y2_ac"],
+                 qv["uv_dc"], qv["uv_ac"], 0, 0]
+    return (oy, ou, ov, refsel, smv, uvmv, splitmv, qs), \
+        (stack4(kf_y), stack4(kf_u), stack4(kf_v))
+
+
+def dryrun_multichip(n_devices, devices=None):
+    """Run the three steps over an ``n_devices``-shard mesh (``devices``,
+    or every visible CUDA device) at tiny shapes and check them: the
+    decode step on example_frame_batch, and on a real interframe
+    (inter_176x144_q96.ivf's frame 1) replicated on every shard against
+    the single-frame Decoder; the encode step; the rebase ring on
+    inter_320x240_q40.ivf's real content.  The counterpart of the JAX
+    package's __graft_entry__.dryrun_multichip."""
+    import os
+    from alfalfa_tpu_torch.decoder.decoder import Decoder
+    from alfalfa_tpu_torch.decoder.lf_params import frame_lf_params
+    from alfalfa_tpu_torch.util.ivf import IVFReader
+
+    mesh = make_gop_mesh(devices)
+    n = len(mesh)
+    if n != n_devices:
+        raise ValueError("need %d devices, the mesh has %d" % (n_devices, n))
+    fixtures = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))), "tests", "fixtures")
+    R, C = 3, 4
+    y, _u, _v, exit_y, energy = gop_decode_step(mesh, R, C)(
+        *example_frame_batch(n, R, C))
+    assert [tuple(t.shape) for t in y] == [(1, R * 16, C * 16)] * n
+    assert all(e.shape[0] == n for e in exit_y)
+    assert all(torch.isfinite(e) for e in energy)
+
+    # a real interframe on every shard equals the serial decoder's
+    ivf = IVFReader(os.path.join(fixtures, "inter_176x144_q96.ivf"))
+    dec = Decoder(ivf.width, ivf.height, device=mesh[0])
+    dec.decode_frame(ivf.frame(0))
+    refs = [r.to_host() for r in (dec.references.last, dec.references.last,
+                                  dec.references.golden,
+                                  dec.references.alternative)]
+    _show, want = dec.copy().decode_frame(ivf.frame(1))
+    header, arrays, _ = FrameParser(dec.state).parse(
+        UncompressedChunk(ivf.frame(1), ivf.width, ivf.height))
+    R, C = arrays.mb_rows, arrays.mb_cols
+    qf = _RT._frame_quant_factors(header, dec.state, arrays.segment)
+    lfp = frame_lf_params(header, arrays, dec.state, False)
+
+    def rep(x):
+        return np.broadcast_to(np.asarray(x)[None], (n,) + np.shape(x))
+
+    stacks = [rep(np.stack([r[p] for r in refs])) for p in range(3)]
+    y, u, v, exit_y, _ = gop_decode_step(mesh, R, C)(
+        rep(arrays.densify_coeffs()), {k: rep(q) for k, q in qf.items()},
+        rep(arrays.y2_coded), rep(arrays.has_nonzero), rep(arrays.ymode),
+        rep(arrays.uvmode), rep(arrays.bmode), rep(arrays.ref),
+        rep(arrays.sub_mv), rep(arrays.uv_mv), *stacks,
+        tuple(rep(x) for x in lfp))
+    want = want.to_host()
+    for d in range(n):
+        for got, w, name in zip((y[d][0], u[d][0], v[d][0]), want, "YUV"):
+            if not np.array_equal(got.cpu().numpy(), w):
+                raise AssertionError("mesh shard %d: %s differs" % (d, name))
+    assert all(e.shape[0] == n for e in exit_y)
+
+    # the encode step, then the rebase ring on real 320x240 content
+    ey, eco = gop_encode_step(mesh, R, C, n)
+    assert all(e.shape == (n, R * 16, C * 16) for e in ey)
+    assert sum(c.shape[0] for c in eco) == n
+    inputs, refs0 = rebase_chain_inputs_from_ivf(
+        os.path.join(fixtures, "inter_320x240_q40.ivf"), n, 2,
+        device=mesh[0])
+    co, _nz, exit_y = gop_rebase_chain(mesh, 15, 20, 2)(*inputs, *refs0)
+    assert all(tuple(c.shape) == (1, 2, 300, 400) for c in co)
+    assert all(tuple(e.shape) == (4, 240, 320) for e in exit_y)

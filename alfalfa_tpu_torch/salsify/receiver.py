@@ -12,6 +12,7 @@ share their rasters (and one pinned upload buffer: decoding stays on one
 thread, the receiver's).
 """
 import sys
+import threading
 
 from alfalfa_tpu_torch.decoder import FramePlayer
 from alfalfa_tpu_torch.net import (AckPacket, FragmentedFrame, Packet, Poller,
@@ -39,6 +40,11 @@ class AverageInterPacketDelay:
         return int(self.value)
 
 
+# the longest single poll of SalsifyReceiver.run, and so the longest that
+# close() waits on an idle socket
+_STOP_POLL_MS = 100
+
+
 class SalsifyReceiver:
     def __init__(self, port, width, height, connection_id=1337,
                  on_raster=None, verbose=False, host="0.0.0.0",
@@ -62,6 +68,10 @@ class SalsifyReceiver:
         self.complete_states = []
         self.decoders = {self.current_state: self.player.current_decoder().copy()}
         self.frames_displayed = 0
+        # run() reads the flag before each poll; close() sets it and
+        # waits for run() before the socket goes
+        self._stop = threading.Event()
+        self._runner = None
 
     def _display(self, payload):
         """Decode and hand the raster to the display hook
@@ -142,22 +152,46 @@ class SalsifyReceiver:
         return ResultType.Continue
 
     def run(self, max_frames=None, timeout_ms=-1):
+        """Receive until ``max_frames`` are displayed, ``timeout_ms`` pass
+        without a packet (never if negative), or close() is called.  The
+        polls last at most _STOP_POLL_MS each, so close() never waits on
+        an idle socket."""
         poller = Poller()
         poller.add_action(Action(self.socket, Direction.In,
                                  self.handle_packet))
-        while max_frames is None or self.frames_displayed < max_frames:
-            result = poller.poll(timeout_ms)
-            if result.result == result.Type.Exit:
-                return result.exit_status
-            if result.result == result.Type.Timeout and timeout_ms >= 0:
-                return 0
-        return 0
+        self._runner = threading.current_thread()
+        idle_ms = 0
+        try:
+            while (max_frames is None
+                   or self.frames_displayed < max_frames):
+                if self._stop.is_set():
+                    return 0
+                step = _STOP_POLL_MS if timeout_ms < 0 else \
+                    min(_STOP_POLL_MS, timeout_ms - idle_ms)
+                result = poller.poll(step)
+                if result.result == result.Type.Exit:
+                    return result.exit_status
+                if result.result != result.Type.Timeout:
+                    idle_ms = 0
+                elif timeout_ms >= 0:
+                    idle_ms += step
+                    if idle_ms >= timeout_ms:
+                        return 0
+            return 0
+        finally:
+            self._runner = None
 
     def _log(self, msg):
         if self.verbose:
             print(f"[receiver] {msg}", file=sys.stderr)
 
     def close(self):
+        """Stop run() (on whichever thread it runs), then close the
+        socket it polls."""
+        self._stop.set()
+        runner = self._runner
+        if runner is not None and runner is not threading.current_thread():
+            runner.join()
         self.socket.close()
 
 

@@ -32,7 +32,11 @@ drives the paths over
 tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
 
 - main_path: 16 lockstep GOPs through BatchedGopDecoder.decode_stream
-  (against tests/fixtures/manifest.json);
+  (against tests/fixtures/manifest.json); then the same with the AVX-512
+  token engine (token_engine="simd", two or more parse threads), with
+  gop.parse ms a frame position for the scalar parser and the engine in
+  turns (main_path_simd; left out, on a line saying so, where the host
+  CPU has no AVX-512);
 - single_frame: the port's FilePlayer (Decoder.decode_frame), and a
   state file written after frame 3, loaded onto the card, decoding the rest
   (against the manifest);
@@ -48,6 +52,11 @@ tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
   Salsify pair over five frames (FAST_ENCODE_SHA1: the JAX package's fast
   path's frames); the Decoder re-decodes every frame to the encoder's
   minihash, and the stream stays within the serial rt encoder's RD band;
+  then the host-patch variant with B_PRED (Encoder(fast_bpred=True)), the
+  stream and the pair (FAST_PATCH_SHA1), under the same gates, with no K10
+  launch in the stream (the pair runs K10 once a call and patches over
+  it, as the JAX package's does), its patched macroblocks per frame and
+  enc.fast_patch_host;
 - rebase: ExCamera's xc-enc -I/-O and -r through the port's CLI: chunk 0
   (decoded frames 0-2) and an independent prediction chunk (frames 3-5)
   encoded at qi 48, then the prediction rebased onto chunk 0's state at
@@ -77,14 +86,22 @@ tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
   displaying) and conventional mode over 12 frames; every payload sent,
   decoded by a fresh Decoder from its advertised source state, reaches its
   target minihash; encode ms p50/p95 beside Salsify's 33 ms design
-  point, frame gaps, bytes, skips and the receiver's decode ms.
+  point, frame gaps, bytes, skips and the receiver's decode ms;
+- mesh: parallel/gop.py's multi-device steps in this one process, on the
+  visible cards and on a 4-shard mesh over cuda:0 (four ring hops):
+  gop_decode_step on frames 1-4 against the single-frame Decoder's SHA-1s,
+  gop_encode_step against one K7 call a chunk, gop_rebase_chain over
+  rebase_chain_inputs_from_ivf (4 chunks of 2 frames) against the same
+  chain run serially through the rebase's residue update; ms a step and
+  a hop.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after, and every K1 and six-tap call of the GOP path and every K3,
 K4, K5, K7, K8, K9, K10 and residue-kernel call of the single-frame,
-encode, rebase, xc tools, cluster and Salsify paths is checked to be one kernel
-launch (`main_path`, `persistent_launches`); the last lines are the `kernels` JSON line (one entry per kernel), the card's name
-and power limit, and the result line.
+encode, rebase, xc tools, cluster, Salsify and mesh paths is checked to
+be one kernel launch (`main_path`, `persistent_launches`); the last lines
+are the `kernels` JSON line (one entry per kernel), the card's name and
+power limit, and the result line.
 Each phase prints JSON lines; any failure is a non-zero exit.  There is no
 CPU path: without a CUDA device main() raises before it prints anything
 (the module itself imports on a CPU host, for its constants).
@@ -700,6 +717,74 @@ FAST_ENCODE_SHA1 = {
     "fast_qi48_16_frame4": "508c42e9860e7a08924e2d31a3ad40fc4f0a1fa5",
     "fast_qi48_17_frame5": "713ba0d6757d266efbaaad12509f4deed38dd9a3",
 }
+
+
+# fast_encode, the host-patch variant: SHA-1 of each frame the JAX
+# package's fast path makes with ALFALFA_FAST_FIXUP=0 and
+# ALFALFA_FAST_BPRED=1 (the intra macroblocks encoded by its host intra
+# encoder, B_PRED tried), of the frames and quantizers of
+# FAST_ENCODE_SHA1: "patch_bpred" a key frame and the 17 fast interframes
+# of FAST_ORDER, "patch_bpred_pair" the pair over frames 1-5.  (Without
+# B_PRED its frames are FAST_ENCODE_SHA1's: K10 is that whole-mode
+# encode.)  Computed once on a CPU host; tests/test_torch_fast_patch.py
+# recomputes them (-m slow).
+FAST_PATCH_SHA1 = {
+    "patch_bpred_pair_key_qi56_frame0": "2443209548e97f850ac24a542efecf7a7c98facb",
+    "patch_bpred_pair_qi40_frame1": "c80ea2bbb227a7ac4842ee5aebda0741862d4c1c",
+    "patch_bpred_pair_qi40_frame2": "c44bb4982538cafd62b1a752b5092106c1b6bca9",
+    "patch_bpred_pair_qi40_frame3": "44749e8a147b2c6a7b513dfe2774ad672241d72c",
+    "patch_bpred_pair_qi40_frame4": "94e522a1ad19ffec92da3565aa7a6ac8fc94a263",
+    "patch_bpred_pair_qi40_frame5": "5e5dd2f882a5533b96291c1570c34886209d361a",
+    "patch_bpred_pair_qi72_frame1": "a8b7bc9153637bf2cf0ef19b5762de91b11c69e2",
+    "patch_bpred_pair_qi72_frame2": "ab57a70b210a899e17463f3dd0a616ed63228f32",
+    "patch_bpred_pair_qi72_frame3": "391fd003537fda500de3ea887607ded26078b731",
+    "patch_bpred_pair_qi72_frame4": "1a735f9e061060b55fe38652314e401448dc2195",
+    "patch_bpred_pair_qi72_frame5": "b87e31d30bb8004b9bc6dc91ddec98a8189fb04e",
+    "patch_bpred_qi48_00_frame0": "8fd62474aaaa54eb38fe34967290b0be424d977d",
+    "patch_bpred_qi48_01_frame1": "1ea38e6ec7549a3e0498647e1b6bf05343a0e13e",
+    "patch_bpred_qi48_02_frame2": "4bd4cba6127b8de224604e85d60d9ed248edd171",
+    "patch_bpred_qi48_03_frame3": "b394ad016930d650ba411c9cc4dbee22f6854fdc",
+    "patch_bpred_qi48_04_frame4": "e7eaebfddd1888cb265486836ab283ee188348f8",
+    "patch_bpred_qi48_05_frame5": "753b15fe6c6f4424cc560d4cc71f35fc60a7d74c",
+    "patch_bpred_qi48_06_frame0": "07f5bac4af38aa37e955e2a535c0b89617a48367",
+    "patch_bpred_qi48_07_frame1": "6b30b97ee1069dced3d4ec12dc646148815a2e49",
+    "patch_bpred_qi48_08_frame2": "c42c5874469afbbbc65c1f6ad15d967f158b9110",
+    "patch_bpred_qi48_09_frame3": "81250acab9f6218c5ad561199fc8fcc5abe73f74",
+    "patch_bpred_qi48_10_frame4": "0089307acf82e6c8d73093a32bb462b656f9e2b1",
+    "patch_bpred_qi48_11_frame5": "2dac0f32183d143542bed929259165eec6244e5f",
+    "patch_bpred_qi48_12_frame0": "b5ce18c28a56c4358bcec1db1013896bc9968106",
+    "patch_bpred_qi48_13_frame1": "f487eb1bad6a8f86051cd4de01c8d3b9b7b92f2d",
+    "patch_bpred_qi48_14_frame2": "6affeec8a813a0de67fe32926c38d9e9c55e1281",
+    "patch_bpred_qi48_15_frame3": "900122c2e611c57725b84bba732c7b79a51f373a",
+    "patch_bpred_qi48_16_frame4": "a23f7ab6161c1328509de734e4e802a0e7bdf0d6",
+    "patch_bpred_qi48_17_frame5": "b0ea4c4213aa385fef04428d054d87c9a47dfc45",
+}
+
+
+def patch_labels(pair=False):
+    """The FAST_PATCH_SHA1 keys of a host-patch run, in payload order."""
+    if pair:
+        return ["patch_bpred_pair_key_qi%d_frame0" % FAST_PAIR_KEY_QI] + [
+            "patch_bpred_pair_qi%d_frame%d" % (q, k)
+            for k in range(1, FAST_PAIR_FRAMES + 1) for q in FAST_PAIR_QIS]
+    return ["patch_bpred_qi%d_%02d_frame%d" % (FAST_QI, i, k)
+            for i, k in enumerate((0,) + FAST_ORDER)]
+
+
+# the fast_encode phase's runs: (the host patch with B_PRED, the pair)
+FAST_RUNS = {"fast": (False, False), "fast_pair": (False, True),
+             "patch_bpred": (True, False), "patch_bpred_pair": (True, True)}
+
+
+def run_digests(name):
+    """The run's expected SHA-1 by label."""
+    return FAST_PATCH_SHA1 if FAST_RUNS[name][0] else FAST_ENCODE_SHA1
+
+
+def run_labels(name):
+    """The expected-digest keys of a fast_encode run, in payload order."""
+    bpred, pair = FAST_RUNS[name]
+    return patch_labels(pair) if bpred else fast_labels(name)
 
 
 def fast_labels(name):
@@ -1318,54 +1403,154 @@ RECORDED_SERIAL_RT_MS = 36.10
 SALSIFY_MS = 33.0
 
 
-def fast_encode_runs(frames, width, height, modes=None, hashes=True,
-                     quality=False):
-    """The fast_encode phase's encodes ("fast" and "fast_pair", all by
-    default or those named in ``modes``), as FAST_ENCODE_SHA1 describes.
-    Returns [(name, [payload], [minihash after each], [loop-filter level of
-    each], [luma SSIM of LAST against the source after each], seconds of
-    the interframes (device drained at both ends), interframes
-    delivered)] (minihashes only if ``hashes``, SSIM only if
-    ``quality``)."""
+def fast_encode_runs(frames, width, height, modes=("fast", "fast_pair"),
+                     hashes=True, quality=False):
+    """The fast_encode phase's encodes, the FAST_RUNS named in ``modes``,
+    as FAST_ENCODE_SHA1 and FAST_PATCH_SHA1 describe.  Returns [(name,
+    [payload], [minihash after each], [loop-filter level of each], [luma
+    SSIM of LAST against the source after each], seconds of the
+    interframes (device drained at both ends), interframes delivered,
+    [host-patched macroblocks of each])] (minihashes only if ``hashes``,
+    SSIM only if ``quality``)."""
     runs = []
     src = {k: torch.from_numpy(np.ascontiguousarray(f[0])).to(DEV)
            for k, f in frames.items()} if quality else None
 
     def kept(out, payload, enc, k):
-        pls, mhs, lfs, ss = out
+        pls, mhs, lfs, ss, pm = out
         pls.append(payload)
         mhs.append(enc.minihash() if hashes else None)
         lfs.append(enc.last_loop_filter_level)
         ss.append(float(ssim(enc.references.last.y[:height, :width], src[k]))
                   if quality else None)
+        pm.append(enc.patched_mbs if len(pls) > 1 else 0)
 
-    if modes is None or "fast" in modes:
-        e = Encoder(width, height, quality="rt", fast=True, device=DEV)
-        out = ([], [], [], [])
-        kept(out, e.encode_with_quantizer(frames[0], FAST_QI,
-                                          key_frame=True), e, 0)
+    for name in modes:
+        bpred, pair = FAST_RUNS[name]
+        e = Encoder(width, height, quality="rt", fast=True, fast_bpred=bpred,
+                    device=DEV)
+        out = ([], [], [], [], [])
+        kept(out, e.encode_with_quantizer(
+            frames[0], FAST_PAIR_KEY_QI if pair else FAST_QI,
+            key_frame=True), e, 0)
         t0 = sync_clock()
-        for k in FAST_ORDER:
-            kept(out, e.encode_with_quantizer(frames[k], FAST_QI), e, k)
-        runs.append(("fast", *out, sync_clock() - t0, len(FAST_ORDER)))
-    if modes is None or "fast_pair" in modes:
-        e = Encoder(width, height, quality="rt", fast=True, device=DEV)
-        out = ([], [], [], [])
-        kept(out, e.encode_with_quantizer(frames[0], FAST_PAIR_KEY_QI,
-                                          key_frame=True), e, 0)
-        t0 = sync_clock()
-        for k in range(1, FAST_PAIR_FRAMES + 1):
-            forks = [e.fork() for _ in FAST_PAIR_QIS]
-            res = encode_inter_fast.encode_interframe_fast_multiqp(
-                forks, frames[k], [QuantIndices(y_ac_qi=q)
-                                   for q in FAST_PAIR_QIS])
-            for (payload, _), f in zip(res, forks):
-                kept(out, payload, f, k)
-            e = forks[0]            # on with the first quantizer's stream
-        runs.append(("fast_pair", *out, sync_clock() - t0,
-                     FAST_PAIR_FRAMES * len(FAST_PAIR_QIS)))
-    torch.cuda.synchronize()
+        if not pair:
+            for k in FAST_ORDER:
+                kept(out, e.encode_with_quantizer(frames[k], FAST_QI), e, k)
+            n_if = len(FAST_ORDER)
+        else:
+            for k in range(1, FAST_PAIR_FRAMES + 1):
+                forks = [e.fork() for _ in FAST_PAIR_QIS]
+                res = encode_inter_fast.encode_interframe_fast_multiqp(
+                    forks, frames[k], [QuantIndices(y_ac_qi=q)
+                                       for q in FAST_PAIR_QIS])
+                for (payload, _), f in zip(res, forks):
+                    kept(out, payload, f, k)
+                e = forks[0]        # on with the first quantizer's stream
+            n_if = FAST_PAIR_FRAMES * len(FAST_PAIR_QIS)
+        t = sync_clock() - t0
+        runs.append((name, *out[:4], t, n_if, out[4]))
     return runs
+
+
+def fast_sha1_ok(runs):
+    """{label: payload SHA-1 equals its recorded digest} over the runs."""
+    return {key: hashlib.sha1(p).hexdigest() == run_digests(name).get(key)
+            for name, pls, *_ in runs
+            for key, p in zip(run_labels(name), pls)}
+
+
+def fast_decode_ok(runs, width, height):
+    """Every frame of the runs re-decoded by the port's Decoder on the card
+    to its encoder's minihash (the pair: each of its frames by a copy of
+    the decoder of the first stream)."""
+    decode_ok = []
+    for name, pls, mhs, *_ in runs:
+        dec = Decoder(width, height, device=DEV)
+        dec.decode_frame(pls[0])
+        decode_ok.append(dec.minihash() == mhs[0])
+        step = len(FAST_PAIR_QIS) if FAST_RUNS[name][1] else 1
+        for i in range(1, len(pls), step):
+            for j in range(step):
+                d = dec.copy() if step > 1 else dec
+                d.decode_frame(pls[i + j])
+                decode_ok.append(d.minihash() == mhs[i + j])
+            if step > 1:
+                dec.decode_frame(pls[i])
+    return decode_ok
+
+
+def rd_parity(run, s_sizes, s_quals):
+    """RD parity of a single-quantizer run against the serial rt encoder
+    (tests/test_fast_inter.py's gate): total size at most 1.15x, mean SSIM
+    at least the serial one minus 0.01.  Returns (numbers, met)."""
+    sizes = [len(p) for p in run[1][1:]]
+    quals = run[4][1:]
+    parity = {"fast_bytes": sum(sizes), "serial_bytes": sum(s_sizes),
+              "size_ratio": sum(sizes) / sum(s_sizes),
+              "fast_mean_ssim": float(np.mean(quals)),
+              "serial_mean_ssim": float(np.mean(s_quals))}
+    return parity, bool(sum(sizes) <= 1.15 * sum(s_sizes)
+                        and np.mean(quals) >= np.mean(s_quals) - 0.01)
+
+
+PATCH_SPANS = FAST_SPANS + ("enc.fast_patch_host",)
+
+
+def fast_patch_runs(frames, width, height, serial):
+    """fast_encode's host-patch variant (Encoder(fast_bpred=True)): the
+    stream and the pair against FAST_PATCH_SHA1, re-decoded, the stream
+    held to the serial rt encoder's RD band (``serial``: its sizes and
+    SSIMs); K10 must not launch in the stream, and once a call in the
+    pair.  Then one traced pass of the stream for the spans.  Returns
+    (result line, [failures])."""
+    modes = ("patch_bpred", "patch_bpred_pair")
+    zero_counts()
+    runs = fast_encode_runs(frames, width, height, modes, quality=True)
+    calls, kernels = read_counts()
+    sha_ok = fast_sha1_ok(runs)
+    decode_ok = fast_decode_ok(runs, width, height)
+    parity = {r[0]: rd_parity(r, *serial) for r in runs
+              if not FAST_RUNS[r[0]][1]}
+    speed = {}
+    for mode in modes[:1]:
+        tracing.enable(True)
+        tracing.snapshot()
+        ((*_, t, n_if, _),) = fast_encode_runs(frames, width, height,
+                                               [mode], hashes=False)
+        tracing.enable(False)
+        spans = tracing.snapshot()
+        speed[mode] = {"traced_ms_per_interframe": t * 1e3 / n_if, **{
+            k: spans[k]["seconds"] * 1e3 / n_if
+            for k in PATCH_SPANS if k in spans}}
+    line = dict(sha1_ok=sha_ok, decode_minihash_ok=decode_ok,
+                rd_parity={k: v[0] for k, v in parity.items()},
+                rd_parity_ok={k: v[1] for k, v in parity.items()},
+                patched_mbs_per_frame={r[0]: r[7] for r in runs},
+                ms_per_interframe={r[0]: r[5] * 1e3 / r[6] for r in runs},
+                sizes={r[0]: [len(p) for p in r[1]] for r in runs},
+                loop_filter_levels={r[0]: r[3] for r in runs},
+                launches=calls, kernel_launches=kernels, spans=speed)
+    n_calls = len(FAST_ORDER) + FAST_PAIR_FRAMES
+    fails = []
+    if set(sha_ok) != set(FAST_PATCH_SHA1) or not all(sha_ok.values()):
+        fails.append("host-patch payloads differ from FAST_PATCH_SHA1")
+    if not all(decode_ok):
+        fails.append("a host-patch frame's minihash differs from the "
+                     "Decoder's")
+    if not all(v[1] for v in parity.values()):
+        fails.append("the host patch left the serial rt encoder's RD band")
+    if calls["intra_fixup_frame"] != FAST_PAIR_FRAMES \
+            or calls["encode_inter_frame"]:
+        fails.append("the host-patch variant launched K8, or K10 other "
+                     "than once a pair call (%d)" % FAST_PAIR_FRAMES)
+    if calls["decide_inter_frame"] != n_calls \
+            or calls["predict_mb_tiles"] != n_calls:
+        fails.append("K9 or K3 ran other than once per host-patch "
+                     "interframe (%d)" % n_calls)
+    if not sum(sum(r[7]) for r in runs):
+        fails.append("the host-patch runs patched no macroblock")
+    return line, fails
 
 
 def serial_rt_reference(frames, width, height):
@@ -1414,39 +1599,12 @@ def fast_encode_phase(card, width, height, serial_rt_ms):
     finally:
         for m, fn in saved.items():
             setattr(m, names[m], fn)
-    sha_ok = {}
-    for name, pls, *_ in runs:
-        for key, p in zip(fast_labels(name), pls):
-            sha_ok[key] = hashlib.sha1(p).hexdigest() == \
-                FAST_ENCODE_SHA1.get(key)
-    # every frame re-decoded by the port's Decoder on the card (the pair:
-    # each of its frames by a copy of the decoder of the first stream)
-    decode_ok = []
-    for name, pls, mhs, *_ in runs:
-        dec = Decoder(width, height, device=DEV)
-        dec.decode_frame(pls[0])
-        decode_ok.append(dec.minihash() == mhs[0])
-        step = len(FAST_PAIR_QIS) if name == "fast_pair" else 1
-        for i in range(1, len(pls), step):
-            for j in range(step):
-                d = dec.copy() if step > 1 else dec
-                d.decode_frame(pls[i + j])
-                decode_ok.append(d.minihash() == mhs[i + j])
-            if step > 1:
-                dec.decode_frame(pls[i])
-    # RD parity against the serial rt encoder (tests/test_fast_inter.py's
-    # gate): total size at most 1.15x, mean SSIM at least the serial one
-    # minus 0.01
-    fast_run = runs[0]
-    sizes = [len(p) for p in fast_run[1][1:]]
-    quals = fast_run[4][1:]
-    s_sizes, s_quals = serial_rt_reference(frames, width, height)
-    parity = {"fast_bytes": sum(sizes), "serial_bytes": sum(s_sizes),
-              "size_ratio": sum(sizes) / sum(s_sizes),
-              "fast_mean_ssim": float(np.mean(quals)),
-              "serial_mean_ssim": float(np.mean(s_quals))}
-    parity_ok = (sum(sizes) <= 1.15 * sum(s_sizes)
-                 and np.mean(quals) >= np.mean(s_quals) - 0.01)
+    sha_ok = fast_sha1_ok(runs)
+    decode_ok = fast_decode_ok(runs, width, height)
+    serial = serial_rt_reference(frames, width, height)
+    s_sizes = serial[0]
+    parity, parity_ok = rd_parity(runs[0], *serial)
+    sizes = [len(p) for p in runs[0][1][1:]]
 
     # speed per mode: interframes delivered per second (the key frame not
     # counted; the pair delivers two per call), better of two passes;
@@ -1455,7 +1613,7 @@ def fast_encode_phase(card, width, height, serial_rt_ms):
     for mode in ("fast", "fast_pair"):
         passes = []
         for _ in range(2):
-            ((_, _, _, _, _, t, n_if),) = fast_encode_runs(
+            ((_, _, _, _, _, t, n_if, _),) = fast_encode_runs(
                 frames, width, height, [mode], hashes=False)
             passes.append(t)
         best = min(passes)
@@ -1485,7 +1643,11 @@ def fast_encode_phase(card, width, height, serial_rt_ms):
                         "serial_rt_ms_recorded": RECORDED_SERIAL_RT_MS,
                         "salsify_design_point_ms": SALSIFY_MS},
                 device_profile=profile)
+    line["host_patch"], patch_fails = fast_patch_runs(frames, width, height,
+                                                      serial)
     say("fast_encode", **line)
+    if patch_fails:
+        raise SystemExit("; ".join(patch_fails))
     n_calls = len(FAST_ORDER) + FAST_PAIR_FRAMES
     if set(sha_ok) != set(FAST_ENCODE_SHA1) or not all(sha_ok.values()):
         raise SystemExit("fast payloads differ from FAST_ENCODE_SHA1")
@@ -2245,10 +2407,193 @@ def salsify_phase(card, width, height):
     return line
 
 
+# ------------------------------------------------------------ the mesh
+
+MESH_SHARDS = 4          # the 4-shard mesh over cuda:0: four ring hops
+MESH_CHAIN_FRAMES = 2
+
+
+def plane_sha1(planes):
+    return hashlib.sha1(b"".join(
+        np.ascontiguousarray(p.cpu().numpy()).tobytes()
+        for p in planes)).hexdigest()
+
+
+def mesh_decode_inputs(payloads, width, height, frames):
+    """gop_decode_step's batch for ``frames`` (interframes) of the clip:
+    each frame's parse arrays and its reference stacks (on the card) as the
+    single-frame Decoder holds them before it, and the SHA-1 of the planes
+    that Decoder then decodes."""
+    from alfalfa_tpu_torch.bitstream.header import UncompressedChunk
+    from alfalfa_tpu_torch.decoder.lf_params import frame_lf_params
+    from alfalfa_tpu_torch.decoder.parse import FrameParser
+    dec = Decoder(width, height, device=DEV)
+    per, want = [], []
+    for f, p in enumerate(payloads[:max(frames) + 1]):
+        if f in frames:
+            st = dec.state.copy()
+            header, arrays, _ = FrameParser(st).parse(
+                UncompressedChunk(p, width, height))
+            r = dec.references
+            stack = [torch.stack([getattr(x, c) for x in (
+                r.last, r.last, r.golden, r.alternative)]) for c in "yuv"]
+            per.append((arrays, RT._frame_quant_factors(
+                header, st, arrays.segment),
+                frame_lf_params(header, arrays, st, False), stack))
+        _, raster = dec.decode_frame(p)
+        if f in frames:
+            want.append(plane_sha1((raster.y, raster.u, raster.v)))
+    a = [x[0] for x in per]
+    field = lambda k: np.stack([getattr(x, k) for x in a])
+    batch = (np.stack([x.densify_coeffs() for x in a]),
+             {k: np.stack([x[1][k] for x in per])
+                               for k in per[0][1]},
+             field("y2_coded"), field("has_nonzero"), field("ymode"),
+             field("uvmode"), field("bmode"), field("ref"), field("sub_mv"),
+             field("uv_mv"),
+             *(torch.stack([x[3][c] for x in per]) for c in range(3)),
+             tuple(np.stack([x[2][i] for x in per]) for i in range(6)))
+    return batch, want
+
+
+def serial_chain(inputs, refs0, width, height):
+    """gop_rebase_chain's chain computed serially, frame by frame, through
+    the rebase's residue update (encoder/reencode_device.
+    apply_inter_residues_device) on the card: (coeffs (N, F, n_mb, 400),
+    nz (N, F, n_mb), exit_y (4, H, W))."""
+    from alfalfa_tpu_torch.decoder.parse import FrameArrays
+    from alfalfa_tpu_torch.state.decoder_state import References
+    oy, ou, ov, refsel, smv, uvmv, splitmv, qs = inputs
+    R, C = refsel.shape[2:]
+    dev_raster = lambda planes: Raster(width, height, *(
+        torch.from_numpy(np.ascontiguousarray(p)).to(DEV) for p in planes))
+    refs = References(*(dev_raster([s[k] for s in refs0])
+                        for k in (1, 2, 3)))
+    co, nz = [], []
+    for d in range(len(oy)):
+        q = dict(zip(QUANT_KEYS, (int(x) for x in qs[d][:6])))
+        for f in range(oy.shape[1]):
+            arrays = FrameArrays(R, C)
+            arrays.ref[:] = refsel[d, f]
+            arrays.sub_mv[:] = smv[d, f]
+            arrays.uv_mv[:] = uvmv[d, f]
+            arrays.ymode[:] = np.where(splitmv[d, f], T.SPLITMV, T.NEWMV)
+            orig = [torch.from_numpy(x[d, f].astype(np.uint8)).to(DEV)
+                    for x in (oy, ou, ov)]
+            recon = Raster(width, height,
+                           *(torch.zeros_like(o) for o in orig))
+            reencode_device.apply_inter_residues_device(orig, recon, arrays,
+                                                        q, refs)
+            co.append(arrays.coeffs.reshape(R * C, 400).copy())
+            nz.append(arrays.has_nonzero.reshape(R * C).copy())
+            refs = References(recon, refs.golden, refs.alternative)
+        refs = References(recon, recon, recon)
+    n, F = oy.shape[:2]
+    return (torch.from_numpy(np.stack(co).reshape(n, F, R * C, 400)),
+            torch.from_numpy(np.stack(nz).reshape(n, F, R * C)),
+            refs.last.y[None].repeat(4, 1, 1))
+
+
+def mesh_run(mesh, width, height, dec_batch, dec_want, enc_want, chain_in,
+             chain_want):
+    """The three steps on one mesh, timed (device drained at both ends),
+    each held to its serial counterpart.  Returns (result, gates met)."""
+    R, C = height // 16, width // 16
+    n = len(mesh)
+    t0 = sync_clock()
+    y, u, v, exit_y, energy = gop.gop_decode_step(mesh, R, C)(*dec_batch)
+    t_dec = sync_clock() - t0
+    got = [plane_sha1(p) for s in zip(y, u, v) for p in zip(*s)]
+    t0 = sync_clock()
+    eexit, eco = gop.gop_encode_step(mesh, R, C, MESH_SHARDS)
+    t_enc = sync_clock() - t0
+    t0 = sync_clock()
+    co, nz, cexit = gop.gop_rebase_chain(mesh, R, C, MESH_CHAIN_FRAMES)(
+        *chain_in)
+    t_chain = sync_clock() - t0
+    ok = {"decode_sha1": got == dec_want,
+          "decode_exit_y": all(torch.equal(e.cpu(), torch.cat(
+              [p[-1:] for p in y]).cpu()) for e in exit_y),
+          "decode_energy_finite": all(bool(torch.isfinite(m))
+                                      for m in energy),
+          "encode_coeffs": torch.equal(torch.cat(eco).cpu(), enc_want[0]),
+          # gathered: the last chunk of each shard
+          "encode_exit_y": all(torch.equal(
+              e.cpu(), enc_want[1][MESH_SHARDS // n - 1::MESH_SHARDS // n])
+              for e in eexit),
+          "chain_coeffs": torch.equal(torch.cat(co).cpu(), chain_want[0]),
+          "chain_nz": torch.equal(torch.cat(nz).cpu(), chain_want[1]),
+          "chain_exit_y": all(torch.equal(e.cpu(), chain_want[2].cpu())
+                              for e in cexit)}
+    return dict(devices=[str(d) for d in mesh], shards=n, chain_chunks=n,
+                decode_step_ms=t_dec * 1e3, encode_step_ms=t_enc * 1e3,
+                rebase_chain_ms=t_chain * 1e3,
+                rebase_ms_per_hop=t_chain * 1e3 / n,
+                mean_energy=float(energy[0]), gates=ok), all(ok.values())
+
+
+def mesh_phase(card, width, height, payloads):
+    """The multi-device GOP steps (parallel/gop.py) at 720p on the visible
+    cards and on a 4-shard mesh over cuda:0: the decode step on frames 1-4
+    against the single-frame Decoder's SHA-1s, the encode step (4 chunks)
+    against one K7 call a chunk, the rebase ring over
+    rebase_chain_inputs_from_ivf (a chunk of 2 frames a shard) against the
+    serial residue update.  Counters to 0 just before each mesh's steps,
+    read just after; returns the result line."""
+    R, C = height // 16, width // 16
+    dec_batch, dec_want = mesh_decode_inputs(payloads, width, height,
+                                             (1, 2, 3, 4))
+    (oy, ou, ov), quant, (rm, dm) = gop.encode_step_inputs(R, C,
+                                                           MESH_SHARDS)
+    one = [enc_intra_cuda.encode_kf_frame(
+        *(torch.from_numpy(p[k]).to(DEV) for p in (oy, ou, ov)), quant,
+        rm, dm) for k in range(MESH_SHARDS)]
+    enc_want = (torch.stack([o[0].reshape(R, C, 400) for o in one]).cpu(),
+                torch.stack([o[2] for o in one]).cpu())
+    meshes = {"visible": gop.make_gop_mesh(),
+              "cuda0_x%d" % MESH_SHARDS: gop.make_gop_mesh(
+                  ["cuda:0"] * MESH_SHARDS)}
+    runs, launches = {}, {}
+    for name, mesh in meshes.items():
+        # the ring takes one chunk a shard
+        chain_in = sum(gop.rebase_chain_inputs_from_ivf(
+            CLIP, len(mesh), MESH_CHAIN_FRAMES, device=DEV), ())
+        chain_want = serial_chain(chain_in[:8], chain_in[8:], width, height)
+        args = (mesh, width, height, dec_batch, dec_want, enc_want,
+                chain_in, chain_want)
+        warm = mesh_run(*args)      # first calls: allocator, libraries
+        zero_counts()
+        runs[name] = mesh_run(*args)
+        launches[name] = read_counts()
+        runs[name][0]["first_pass_gates_met"] = warm[1]
+    calls = {k: sum(c[k] for c, _ in launches.values()) for k in COUNTS}
+    kernels = {k: sum(n[k] for _, n in launches.values()) for k in COUNTS}
+    line = dict(card=card, width=width, height=height,
+                decode_frames=[1, 2, 3, 4], encode_chunks=MESH_SHARDS,
+                chain_frames=MESH_CHAIN_FRAMES,
+                runs={k: r for k, (r, _) in runs.items()},
+                launches_by_mesh={k: c for k, (c, _) in launches.items()},
+                launches=calls, kernel_launches=kernels)
+    say("mesh", **line)
+    if not all(ok and r["first_pass_gates_met"] for r, ok in runs.values()):
+        raise SystemExit("a mesh step differs from its serial counterpart")
+    for name, mesh in meshes.items():
+        chain = len(mesh) * MESH_CHAIN_FRAMES
+        want = {"predict_mb_tiles": 4 + chain, "intra_frame": 4,
+                "loop_filter": 4, "encode_kf_frame": MESH_SHARDS,
+                "inter_residues": chain}
+        got = launches[name][0]
+        if any(got[k] != v for k, v in want.items()):
+            raise SystemExit("the %s mesh made other kernel calls than %s: "
+                             "%s" % (name, want, got))
+    return line
+
+
 # ----------------------------------------------------------- main path
 
-def decode_all(payloads, width, height, digest):
-    dec = gop.BatchedGopDecoder(width, height, G, device=DEV)
+def decode_all(payloads, width, height, digest, engine="auto"):
+    dec = gop.BatchedGopDecoder(width, height, G, device=DEV,
+                                token_engine=engine)
     digests = [hashlib.sha1() for _ in range(G)]
     last = None
     for (y, u, v), show in dec.decode_stream([p] * G for p in payloads):
@@ -2261,6 +2606,60 @@ def decode_all(payloads, width, height, digest):
                                              va[g]).dump_bytes())
     torch.cuda.synchronize()
     return [d.hexdigest() for d in digests], last
+
+
+def host_cpu():
+    """The host CPU's model name and AVX-512 flags (/proc/cpuinfo) and its
+    core count."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for l in fh:
+                k, _, v = l.partition(":")
+                info.setdefault(k.strip(), v.strip())
+    except OSError:
+        pass
+    return {"model": info.get("model name"), "cores": os.cpu_count(),
+            "avx512": sorted(f for f in info.get("flags", "").split()
+                             if f.startswith("avx512"))}
+
+
+def simd_main_path(card, payloads, width, height, want):
+    """main_path with the AVX-512 token engine (token_engine="simd") on at
+    least two parse threads: the manifest SHA-1 of every GOP, each
+    engine's calls, and gop.parse ms a frame position for the scalar
+    parser (its threads) and the engine in turns (scalar, SIMD, SIMD,
+    scalar).  Returns the result line, or None where the host CPU has no
+    AVX-512 (said on a line of its own)."""
+    if not bitwork.simd_supported():
+        print("main_path_simd: left out, the host CPU has no AVX-512 (%s)"
+              % host_cpu()["model"], flush=True)
+        return None
+    before = dict(bitwork.engine_calls)
+    got, _ = decode_all(payloads, width, height, digest=True, engine="simd")
+    engine_calls = {k: bitwork.engine_calls[k] - before[k] for k in before}
+    ok = [d == want for d in got]
+    parse_ms = {"scalar": [], "simd": []}
+    for engine in ("scalar", "simd", "simd", "scalar"):
+        tracing.enable(True)
+        tracing.snapshot()
+        decode_all(payloads, width, height, digest=False, engine=engine)
+        tracing.enable(False)
+        parse_ms[engine].append(tracing.snapshot()["gop.parse"]["seconds"]
+                                * 1e3 / len(payloads))
+    line = dict(card=card, host_cpu=host_cpu(), gops=G,
+                parse_threads=bitwork.parse_threads(G), sha1_ok=ok,
+                engine_calls=engine_calls,
+                gop_parse_ms_per_frame_position=parse_ms)
+    say("main_path_simd", **line)
+    if not all(ok):
+        raise SystemExit("the SIMD token engine's frames differ from the "
+                         "manifest SHA-1")
+    if engine_calls != {"scalar": 0, "simd": len(payloads)} \
+            or line["parse_threads"] < 2:
+        raise SystemExit("the SIMD case did not parse every frame position "
+                         "with the engine on two or more threads")
+    return line
 
 
 def device_profile(fn):
@@ -2697,6 +3096,7 @@ def main():
 
     say("device_profile", **device_profile(
         lambda: decode_all(payloads, ivf.width, ivf.height, digest=False)))
+    simd = simd_main_path(card, payloads, ivf.width, ivf.height, want)
 
     # every K3, K4, K5, K7, K8, K9 and K10 call of the single-frame and
     # encode paths, and every K1 and six-tap call of the main path: one
@@ -2717,6 +3117,7 @@ def main():
         xt = xc_tools_phase(card, ivf.width, ivf.height, rframes)
         cl = cluster_phase(card, ivf.width, ivf.height, rframes)
         sal = salsify_phase(card, ivf.width, ivf.height)
+        mesh = mesh_phase(card, ivf.width, ivf.height, payloads)
     finally:
         undo()
     per_call.update(k1_calls)
@@ -2730,8 +3131,10 @@ def main():
     # each kernel's calls on every path it runs on (the cluster's: those
     # of its rebase, in this process)
     paths = (single["launches"], kf["launches"], inter["launches"],
-             fast["launches"], rb["launches"], xt["launches"],
-             cl["launches_in_this_process"], sal["launches"])
+             fast["launches"], fast["host_patch"]["launches"],
+             rb["launches"], xt["launches"],
+             cl["launches_in_this_process"], sal["launches"],
+             mesh["launches"])
     calls_on_paths = {k: sum(line[k] for line in paths)
                       for k in ("predict_mb_tiles", "intra_frame",
                                 "loop_filter", "encode_kf_frame",
@@ -2800,6 +3203,9 @@ def main():
     say("xc_tools", **{k: v for k, v in xt.items() if k != "stage_report"})
     say("cluster", **cl)
     say("salsify", **sal)
+    say("mesh", **mesh)
+    if simd is not None:
+        say("main_path_simd", **simd)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -627,3 +627,28 @@ def test_xc_run_contest_runs(tmp_path, capsys):
     assert line and line[0].startswith("sent %d frames, received " % N_FRAMES)
     assert int(line[0].split("received ")[1].split(",")[0]) >= 1
     assert "link: {" in out
+
+
+def test_receiver_close_ends_run():
+    """close() from another thread stops a run() that would poll forever,
+    waits for it, then closes the socket: the thread ends with run()'s 0
+    and no exception (xc run-contest closes its receiver this way)."""
+    rcv = preceiver.SalsifyReceiver(0, W, H, host="127.0.0.1", device="cpu")
+    result = []
+
+    def run():
+        try:
+            result.append(rcv.run())
+        except BaseException as e:      # noqa: BLE001 - the test's subject
+            result.append(e)
+
+    t = threading.Thread(target=run)
+    t.start()
+    time.sleep(0.3)                     # run() is polling now
+    t0 = time.monotonic()
+    rcv.close()
+    assert not t.is_alive()
+    assert time.monotonic() - t0 < 2
+    assert result == [0]
+    assert rcv.socket.fileno() == -1
+    rcv.close()                         # a second close is harmless
