@@ -1,5 +1,5 @@
-"""Host (numpy) pieces of the decoder's reconstruction that the rebase's
-intra macroblocks need (encoder/reencode.py): intra prediction with the
+"""Host (numpy) pieces of the decoder's reconstruction that the host intra
+encoder needs (encoder/encode_intra_np.py): intra prediction with the
 127/129 edge rules, dequantization, the inverse WHT and the 4x4 inverse
 DCT added into the plane (in C: native/enckernel.cc; ``idct_add_plain``
 is its numpy body), bit-exact to the reference (prediction.cc:99-643,

@@ -6,8 +6,7 @@ Copied from the JAX package's encoder/encode_intra_np.py (encode_intra.cc:
 (the DC moves into Y2), B_PRED sub-blocks by SSE with reconstruction in
 the loop, chroma by SSE over both planes.  The fast path's host-patch
 variant encodes its intra macroblocks with encode_intra_mb
-(encoder/encode_inter_fast.py); the rebase predicts its intra macroblocks
-with _predict_whole and _predict_b (encoder/reencode.py).  The JAX
+(encoder/encode_inter_fast.py).  The JAX
 package's key-frame loop and trellis option are not here: the port's key
 frames are K7's (encoder/encode_intra.py).
 
@@ -53,14 +52,10 @@ def _predict_whole(plane, col, row, size, mode):
     return pred
 
 
-def _predict_b(plane, col4, row4, mode):
-    """The 4x4 prediction of b-mode ``mode`` at sub-block (row4, col4)
-    (native/enckernel.cc vp8_bpred_predict)."""
-    return enckernel.bpred_predict(plane, col4, row4, mode)
-
-
 def bpred_predict_plain(plane, col4, row4, mode):
-    """_predict_b's numpy body, the plane left as it was."""
+    """The 4x4 prediction of b-mode ``mode`` at sub-block (row4, col4),
+    the plane left as it was: native/enckernel.cc's vp8_bpred_predict in
+    numpy."""
     block = plane[row4 * 4:row4 * 4 + 4, col4 * 4:col4 * 4 + 4]
     saved = block.copy()
     R.intra_predict_b(plane, col4, row4, mode)

@@ -1,5 +1,5 @@
-// Native host encode kernels of the rebase's intra macroblocks
-// (encoder/reencode.py): the forward 4x4 DCT of a residual, truncating
+// Native host encode kernels of the host intra encoder
+// (encoder/encode_intra_np.py): the forward 4x4 DCT of a residual, truncating
 // quantization and the 4x4 inverse DCT added into a plane, C++ equivalents
 // of the reference's encoder SIMD (dct_sse2.asm, idctllm_mmx.asm).
 // Semantics match the numpy bodies in alfalfa_tpu_torch/encoder/

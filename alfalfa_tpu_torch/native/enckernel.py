@@ -1,9 +1,8 @@
 """ctypes loader for the native encode kernels (enckernel.cc, built with
 g++ on first use): the forward DCT of a residual, quantization and the
-inverse DCT added into a plane, which the rebase's intra macroblocks run
-on the host (encoder/reencode.py), and the 4x4 intra prediction and
-B_PRED mode search of the host intra encoder
-(encoder/encode_intra_np.py).
+inverse DCT added into a plane, the 4x4 intra prediction and the B_PRED
+mode search of the host intra encoder (encoder/encode_intra_np.py), which
+the fast path's host patch runs.
 
 Unlike the JAX package's loader, this one has no quiet fallback: a failed
 build raises, and the numpy bodies (``transforms_np.subtract_fdct_plain``,

@@ -34,14 +34,17 @@ def row_order(R, C, lag, seed):
     """[([r], [c])]: an order of the R x C macroblocks, one at a time, that
     row walkers under the progress-flag rule of csrc/row_sched.cuh could
     produce: each row in column order, macroblock (r, c) only after row
-    r - 1 has done min(c + lag, C), the rows interleaved at random (numpy
+    r - 1 has done min(c + lag, C) (``lag`` an int, or an (R, C) array of
+    each macroblock's own), the rows interleaved at random (numpy
     generator ``seed``).  In the same form as ``diagonals``."""
     rng = np.random.default_rng(seed)
+    lags = np.broadcast_to(np.asarray(lag), (R, C))
     done = [0] * R
     out = []
     while len(out) < R * C:
         ready = [r for r in range(R) if done[r] < C and
-                 (r == 0 or done[r - 1] >= min(done[r] + lag, C))]
+                 (r == 0 or done[r - 1] >= min(done[r] + int(lags[r, done[r]]),
+                                               C))]
         r = ready[int(rng.integers(len(ready)))]
         out.append(([r], [done[r]]))
         done[r] += 1

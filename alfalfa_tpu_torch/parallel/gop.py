@@ -807,8 +807,8 @@ def gop_rebase_chain(mesh, mb_rows, mb_cols, n_frames):
     d holds chunk d's frames (originals and fixed prediction modes and
     vectors); the exit references go around the ring, one hop a chunk.
 
-    Each frame is the rebase's residue update (K3, then the residue
-    kernel R, as encoder/reencode_device.py calls them) and refreshes
+    Each frame is the rebase's residue update (one call of the residue
+    kernel, as encoder/reencode_device.py makes it) and refreshes
     LAST; a chunk's final reconstruction leaves as all three references
     and hops to the next shard's device.  Only the active shard runs at
     each ring step (the JAX package computes on every device and masks,
@@ -821,8 +821,8 @@ def gop_rebase_chain(mesh, mb_rows, mb_cols, n_frames):
     returns (coeffs: the shards' (1, F, n_mb, 400) int16, nz: the shards'
     (1, F, n_mb) bool, exit_y: the last chunk's exit luma stack (4, H, W)
     on every device, as the ring leaves it back on the first)."""
-    from alfalfa_tpu_torch.ops.rebase_cuda import inter_residues
-    from alfalfa_tpu_torch.ops.sixtap_cuda import predict_mb_tiles
+    from alfalfa_tpu_torch.ops.rebase import mb_words, split_out
+    from alfalfa_tpu_torch.ops.rebase_cuda import rebase_frame
 
     R, C = mb_rows, mb_cols
 
@@ -843,14 +843,17 @@ def gop_rebase_chain(mesh, mb_rows, mb_cols, n_frames):
             for f in range(n_frames):
                 at = lambda x, dt: _on(x[d][f], dev, dt)
                 orig = [at(x, torch.uint8) for x in (oy, ou, ov)]
-                sel = at(refsel, torch.int32)
-                pred = predict_mb_tiles(refs, sel[None],
-                                        at(smv, torch.int32)[None],
-                                        at(uvmv, torch.int32)[None])
-                recon = [torch.zeros_like(o) for o in orig]
-                co, nz = inter_residues(orig, [x[0] for x in pred], sel,
-                                        at(splitmv, torch.bool), quant,
-                                        recon)
+                # the chain is inter-only: a whole-vector or SPLITMV mode
+                host = lambda x: np.asarray(x[d][f])
+                ymode = np.where(host(splitmv), _T.SPLITMV, _T.NEWMV)
+                zero = np.zeros((R, C), np.int32)
+                words = _on(mb_words(host(refsel), ymode, zero,
+                                     np.zeros((R, C, 4, 4), np.int32),
+                                     host(smv), host(uvmv)), dev,
+                            torch.int32)
+                recon = [torch.empty_like(o) for o in orig]
+                co, nz, _ = split_out(rebase_frame(orig, refs, words, quant,
+                                                   recon))
                 co_f.append(co.reshape(R * C, 400))
                 nz_f.append(nz.reshape(R * C))
                 # refresh LAST; golden and alternate carry on

@@ -13,6 +13,11 @@
                                               # K1's and K10's steps undone,
                                               # the machine code, the pairs
     python3 chip_ablation.py --kernels k7     # K7's clocked phases only
+    python3 chip_ablation.py --kernels rebase --parent DIR
+                                              # the residue kernel's steps
+                                              # undone; the residue update
+                                              # and rebased frames/s, DIR's
+                                              # tree against this one's
 
 Writes variants of alfalfa_tpu_torch/csrc/ into build/ablation/<variant>/,
 each the sources with one step of a redesign undone (or, for "separable",
@@ -47,6 +52,16 @@ timing; the parent's six-tap calls also timed one by one and summed).
 The spans (kernels spans, with --parent): enc.fast_kernel a fast rt
 interframe and decode.reconstruct a frame at 720p, traced, in DIR's tree
 and this one's, a fresh process each, in the order DIR, this, this, DIR.
+The rebase (kernels rebase): the residue kernel (rebase_frame) on 720p
+rebased frames 4 and 5's arguments, a frame of inter macroblocks and one
+of intra ones, kept, with the inter pairs on the R row walkers alone
+(rows_only: a block a row, no other blocks), with two blocks an SM
+(two_blocks: registers held to 128), and with every intra macroblock
+waiting at lag 2 (lag_two: ROW_LAG_WHOLE = 2), kept first and last; with --parent, chip_smoke's 720p rebase of frames 3-5 onto chunk 0
+in DIR's tree and this one's the same way, a fresh process each (DIR,
+this, this, DIR): rebased frames/s over five passes, then three traced
+passes with each update_residues call timed (the device drained at both
+ends) and the residue update's own spans summed.
 Prints JSON lines; exits non-zero without a CUDA device or if a variant
 does not build or its output differs.
 
@@ -72,8 +87,8 @@ sys.path.insert(0, REPO)
 import chip_smoke as cs  # noqa: E402
 from alfalfa_tpu_torch import _build  # noqa: E402
 from alfalfa_tpu_torch.ops import enc_decide_cuda, enc_inter_cuda, \
-    enc_intra_cuda, enc_intra_fixup_cuda, intra_cuda, lf_cuda, sixtap_cuda, \
-    wavefront_cuda  # noqa: E402
+    enc_intra_cuda, enc_intra_fixup_cuda, intra_cuda, lf_cuda, rebase_cuda, \
+    sixtap_cuda, wavefront_cuda  # noqa: E402
 
 OUT = os.path.join(REPO, "build", "ablation")
 SOURCES = ("enc_inter", "enc_decide")
@@ -1397,7 +1412,9 @@ def main():
                          "K1 timed from the parent's library and this one's "
                          "in alternation), spans (with --parent: "
                          "enc.fast_kernel and decode.reconstruct in the "
-                         "parent's tree and this one's, four processes)")
+                         "parent's tree and this one's, four processes), "
+                         "rebase (with --parent: the residue update and "
+                         "rebased frames/s, likewise)")
     ap.add_argument("--pairs", type=int, default=12,
                     help="readings of each side in the pairs")
     args = ap.parse_args()
@@ -1425,6 +1442,10 @@ def main():
         ok &= parent_pairs(card, args.parent, args.pairs)
     if "spans" in kernels and args.parent:
         run_spans(card, os.path.abspath(args.parent))
+    if "rebase" in kernels:
+        ok &= run_rebase_variants(card)
+        if args.parent:
+            run_rebase(card, os.path.abspath(args.parent))
     if not ok:
         raise SystemExit("a variant's output differs from the kept form's "
                          "(or, in the pairs, from the parent's)")
@@ -1566,6 +1587,159 @@ def run_spans(card, parent):
             line["%s_%s" % (tag, k)] = vals
             line["%s_%s_median" % (tag, k)] = statistics.median(vals)
     cs.say("ablation_spans", card=card, **line)
+
+
+# ---- the residue kernel: each step of its design undone
+
+def rebase_rows_only(s):
+    """The frame's inter macroblocks on the R row walkers alone: one block
+    a row, as before the pair tickets spread them over the card."""
+    return rep(s, "rebase_row_kernel<<<R > blocks ? R : blocks, 256, 0,",
+               "rebase_row_kernel<<<R, 256, 0,")
+
+
+def rebase_two_blocks(s):
+    """Two blocks an SM: the registers held to 128 a thread, twice the
+    blocks launched."""
+    s = rep(s, "__launch_bounds__(256) rebase_row_kernel(",
+            "__launch_bounds__(256, 2) rebase_row_kernel(")
+    return rep(s, "rebase_row_kernel<<<R > blocks ? R : blocks, 256, 0,",
+               "rebase_row_kernel<<<R > 2 * blocks ? R : 2 * blocks, 256, 0,")
+
+
+VARIANTS_REBASE = {"rows_only": {"rebase_residues.cu": rebase_rows_only},
+                   "two_blocks": {"rebase_residues.cu": rebase_two_blocks}}
+
+
+def rebase_cases():
+    """[(case, args)]: the residue kernel on 720p rebased frames 4 and 5's
+    arguments, captured from chip_smoke's rebase, on every macroblock
+    inter and on every one intra."""
+    ivf = cs.IVFReader(cs.CLIP)
+    frames = cs.decoded_frames(cs.CLIP, tuple(range(cs.REBASE_FRAMES)))
+    frames = [frames[k].display() for k in range(cs.REBASE_FRAMES)]
+    out = [("720p rebased frame %d" % (cs.REBASE_CHUNK + 1 + i), a)
+           for i, a in enumerate(cs.rebase_kernel_inputs(frames, ivf.width,
+                                                         ivf.height))]
+    return out + [("720p all inter", cs.rebase_synthetic(
+        54, 1280, 720, 48, "whole")), ("720p all intra", cs.rebase_synthetic(
+            55, 1280, 720, 48, "intra"))]
+
+
+def run_rebase_variants(card):
+    """Time the residue kernel kept, rows_only, two_blocks and lag_two,
+    kept first and last, each output held to the first's."""
+    write_variants(VARIANTS_REBASE)
+    t0 = time.perf_counter()
+    logs = build([(os.path.join(OUT, n, "librebase_residues.so"),
+                   os.path.join(OUT, n, "rebase_residues.cu"))
+                  for n in VARIANTS_REBASE])
+    cs.say("ablation_build", seconds=time.perf_counter() - t0,
+           ptxas={os.path.relpath(k, OUT): v for k, v in logs.items()})
+    cases = rebase_cases()
+    libs = {n: lib_entry(os.path.join(OUT, n, "librebase_residues.so"),
+                         "rebase_frame_launch", rebase_cuda.ARGTYPES)
+            for n in VARIANTS_REBASE}
+    saved = rebase_cuda._entry, rebase_cuda.ROW_LAG_WHOLE
+    ref, ok = {}, True
+    try:
+        for name in ("kept", "rows_only", "two_blocks", "lag_two", "kept"):
+            rebase_cuda._entry = saved[0] if name not in libs \
+                else (lambda f=libs[name]: f)
+            rebase_cuda.ROW_LAG_WHOLE = 2 if name == "lag_two" else saved[1]
+            ms, equal = {}, {}
+            for case, (orig, refs, words, quant, recon) in cases:
+                out = cs.residue_call(rebase_cuda.rebase_frame)(
+                    orig, refs, words, quant, recon)
+                ref.setdefault(case, out)
+                equal[case] = all(torch.equal(x, y)
+                                  for x, y in zip(out, ref[case]))
+                planes = [p.clone() for p in recon]
+                ms[case] = cs.time_ms(lambda: rebase_cuda.rebase_frame(
+                    orig, refs, words, quant, planes), 20)
+            ok &= all(equal.values())
+            cs.say("ablation", variant=name, card=card, ms=ms, equal=equal)
+    finally:
+        rebase_cuda._entry, rebase_cuda.ROW_LAG_WHOLE = saved
+    return ok
+
+
+# run as ``python -c REBASE_CHILD TREE`` from TREE's root: TREE's own
+# package rebases frames 3-5 of the 720p clip onto chunk 0 as chip_smoke's
+# rebase phase does (its rebase_setup and rebase_run): a warm-up, five
+# passes for rebased frames/s, then three traced passes with every
+# update_residues call timed (the device drained at both ends) and the
+# residue update's own spans summed (rebase.inputs, .kernel, .fetch and,
+# where it exists, .intra_host; not the token counts and probabilities
+# both trees compute alike); one JSON line
+REBASE_CHILD = r"""
+import json, os, sys, time
+root = os.path.abspath(sys.argv[1])
+sys.path.insert(0, root)
+os.chdir(root)
+import torch
+import chip_smoke as cs
+from alfalfa_tpu_torch import _build
+from alfalfa_tpu_torch.decoder import Decoder
+from alfalfa_tpu_torch.encoder import reencode as RB
+from alfalfa_tpu_torch.util import tracing
+
+_build.build_all()
+ivf = cs.IVFReader(cs.CLIP)
+W, H = ivf.width, ivf.height
+frames = cs.decoded_frames(cs.CLIP, tuple(range(cs.REBASE_FRAMES)))
+frames = [frames[k].display() for k in range(cs.REBASE_FRAMES)]
+state, payloads = cs.rebase_setup(frames, W, H)
+pred = RB.parse_prediction(payloads, Decoder(W, H, device=cs.DEV))
+n = cs.REBASE_FRAMES - cs.REBASE_CHUNK
+cs.rebase_run(frames, W, H, state, pred)
+fps = [n / cs.rebase_run(frames, W, H, state, pred)[1] for _ in range(5)]
+real, whole, own = RB.update_residues, [], []
+
+def timed(*a):
+    t0 = cs.sync_clock()
+    out = real(*a)
+    whole.append((cs.sync_clock() - t0) * 1e3)
+    return out
+
+RB.update_residues = timed
+tracing.enable(True)
+for _ in range(3):
+    tracing.snapshot()
+    cs.rebase_run(frames, W, H, state, pred)
+    spans = tracing.snapshot()
+    own.append(sum(spans[k]["seconds"] for k in (
+        "rebase.inputs", "rebase.kernel", "rebase.fetch", "rebase.intra_host")
+        if k in spans) * 1e3 / (n - 1))
+tracing.enable(False)
+print(json.dumps({"tree": sys.argv[1], "rebased_frames_per_s": fps,
+                  "update_residues_ms": whole, "residue_update_ms": own,
+                  "spans_ms_per_residue_frame": {
+                      k: v["seconds"] * 1e3 / (n - 1) for k, v in spans.items()
+                      if k.startswith("rebase.")}}), flush=True)
+"""
+
+
+def run_rebase(card, parent):
+    """REBASE_CHILD in the parent's tree and this one's, in the order
+    parent, this, this, parent (each a fresh process): the readings and
+    their medians per tree."""
+    got = {"parent": [], "here": []}
+    for tag, tree in (("parent", parent), ("here", REPO), ("here", REPO),
+                      ("parent", parent)):
+        res = subprocess.run([sys.executable, "-c", REBASE_CHILD, tree],
+                             capture_output=True, text=True, check=True)
+        got[tag].append(json.loads(res.stdout.strip().splitlines()[-1]))
+    line = {}
+    for tag, runs in got.items():
+        for k in ("residue_update_ms", "update_residues_ms",
+                  "rebased_frames_per_s"):
+            vals = [v for r in runs for v in r[k]]
+            line["%s_%s" % (tag, k)] = vals
+            line["%s_%s_median" % (tag, k)] = statistics.median(vals)
+        line["%s_spans" % tag] = [r["spans_ms_per_residue_frame"]
+                                  for r in runs]
+    cs.say("ablation_rebase", card=card, **line)
 
 
 # ---- the kernels this redesign holds to the parent: each case timed from

@@ -18,14 +18,17 @@ two-pass, K8 (encode_inter_frame) at 720p and 176x144 in best, rt and
 two-pass, as the fused 2-QP pair and on seeded extreme motion, and K9
 (decide_inter_frame) and K10 (intra_fixup_frame) on what the fast path
 hands them at 720p (one quantizer, the pair, a scene cut) and 176x144,
-and the rebase's residue kernel (inter_residues, no TPU counterpart: XLA
-there) on rebased frame 4's arguments, on seeded SPLITMV macroblocks with
-extreme vectors at qi 0 and 127 and on a seeded 176x144 mix, on
-decoded frames of the fixtures; K5 also on the encoders' 8-level
-loop-filter search call and at G=16 on the GOP clip.  K1, K4, K5, K7, K8,
-K9 and K10 are persistent (one launch a call, blocks walking rows behind
-progress flags): each of their 720p cases runs 10 (K5, K7) or REPEATS (K1,
-K4, K8, K9, K10) times more, every run held to the plain output, since a
+and the rebase's residue kernel (rebase_frame: K3's prediction, the inter
+residues and the intra macroblocks in one row walk; no TPU counterpart,
+XLA and a host loop there) on rebased frames 4 and 5's arguments, on
+seeded SPLITMV macroblocks with extreme vectors at qi 0 and 127, a frame
+of inter macroblocks, a frame of intra ones (the longest chain) and
+seeded mixes at 176x144, on decoded frames of the fixtures; K5 also on
+the encoders' 8-level loop-filter search call and at G=16 on the GOP
+clip.  K1, K4, K5, K7, K8, K9, K10 and the residue kernel are persistent
+(one launch a call, blocks walking rows behind progress flags): each of
+their 720p cases runs 10 (K5, K7) or REPEATS (K1, K4, K8, K9, K10, the
+residue kernel) times more, every run held to the plain output, since a
 race between rows would show only now and then, and each runs once more
 with more (row, frame or quantizer) blocks than the card holds at once.  Then it
 drives the paths over
@@ -62,7 +65,8 @@ tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
   encoded at qi 48, then the prediction rebased onto chunk 0's state at
   key-frame weight 0.5 (REBASE_SHA1: the JAX package's frames); the
   port's Decoder re-decodes each rebased frame from chunk 0's state to
-  the encoder's minihash; rebased frames/s with its spans;
+  the encoder's minihash; rebased frames/s with its spans, the residue
+  updates' intra macroblocks and longest intra chains;
 - xc_tools: ExCamera's chunk toolchain through the port's CLI on the
   rebase phase's files: xc terminate-chunk -O on chunk 0 (CLUSTER_SHA1's
   first frames), xc dump (the terminated state's bytes), xc diff and
@@ -71,9 +75,8 @@ tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
   chunks (the merged stream's y4m; CLUSTER_MINIHASH after each frame), xc
   ssim, zero-out-residues and dissect (XC_TOOLS_*: the JAX package's CLI's
   output), xc --timings and --profile (a trace naming K3's, K4's and K5's
-  kernels); then rebase.intra_host ms a residue-update frame with the
-  native transforms (native/enckernel.cc) and with their numpy bodies, in
-  turns;
+  kernels); then the residue update's ms a frame (its upload, the
+  residue kernel and the coefficient fetch), four turns;
 - cluster: xc enc-parallel over frames 0-5 in chunks of 3, two worker
   processes on the card, then the serial rebase (CLUSTER_SHA1); FilePlayer
   decodes the stitched stream from scratch to CLUSTER_MINIHASH frame by
@@ -1679,55 +1682,100 @@ def fast_encode_phase(card, width, height, serial_rt_ms):
 
 def residue_call(fn):
     """``fn`` (the residue wrapper or its plain version) on copies of the
-    reconstruction planes; returns (coefficients, nonzero, y, u, v)."""
-    def call(orig, pred, ref_sel, splitmv, quant, recon):
+    reconstruction planes; returns (output words, y, u, v)."""
+    def call(orig, refs, words, quant, recon):
         out = [p.clone() for p in recon]
-        return tuple(fn(orig, pred, ref_sel, splitmv, quant, out)) + tuple(out)
+        return (fn(orig, refs, words, quant, out),) + tuple(out)
     return call
 
 
 # integer operations of the residue update: about 500 a 4x4 block (the
 # forward DCT's two passes, quantization, dequantization, the inverse
-# DCT's two passes, the add and clamp) and 400 a macroblock for Y2's
-# forward and inverse WHT and its quantization
-RESIDUE_OPS_BLOCK, RESIDUE_OPS_Y2 = 500, 400
+# DCT's two passes, the add and clamp), 400 a macroblock for Y2's forward
+# and inverse WHT and its quantization, and an intra macroblock's
+# prediction (4 a pixel: edges, the mode's average, the clamp)
+RESIDUE_OPS_BLOCK, RESIDUE_OPS_Y2, RESIDUE_OPS_PRED = 500, 400, 384 * 4
 
 
-def residue_bound(orig, pred, ref_sel, splitmv, quant, recon):
-    """Least time for one call: the originals and predictions of the inter
-    macroblocks in and their reconstruction out (384 bytes a macroblock
-    each), the two maps in and the coefficients (800 bytes) and flags out
-    for every macroblock; RESIDUE_OPS_* operations an inter
-    macroblock."""
-    n = ref_sel.numel()
-    inter = int((ref_sel != 0).sum().item())
-    bytes_ = inter * 384 * 3 + n * (4 + 1 + 800 + 1)
-    return bound(bytes_, inter * (24 * RESIDUE_OPS_BLOCK + RESIDUE_OPS_Y2))
+def intra_chain(ref, ymode):
+    """The longest chain of intra macroblocks of a frame's (R, C)
+    references and luma modes (host numpy), each after its intra
+    neighbours left, above-left, above and (B_PRED) above-right: the
+    macroblocks the residue kernel must do one after another."""
+    intra = ref == T.CURRENT_FRAME
+    bpred = ymode == T.B_PRED
+    R, C = intra.shape
+    depth = np.zeros((R + 1, C + 2), np.int64)     # padded: row -1, cols
+    for r in range(R):
+        for c in range(C):
+            if intra[r, c]:
+                up = depth[r, c:c + 2 + bool(bpred[r, c])].max()
+                depth[r + 1, c + 1] = 1 + max(up, depth[r + 1, c])
+    return int(depth.max())
 
 
-def residue_case(label, args, repeats=3):
+def rebase_bound(orig, refs, words, quant, recon):
+    """Least time for one rebase_frame call: the originals, the words and
+    each inter macroblock's 384 reference pixels in, the output words and
+    the reconstruction out for every macroblock; per macroblock 24
+    transform chains, Y2, and an intra one's prediction or an inter one's
+    six-tap passes (2 operations a tap of the passes its vectors' phases
+    need, as mc_bound counts them)."""
+    R, C = words.shape[:2]
+    n = R * C
+    inter_mask = words[..., rebase.W_REF] != 0
+    inter = int(inter_mask.sum().item())
+    bytes_ = n * (384 + rebase.MB_WORDS * 4 + rebase.OUT_WORDS * 2 + 384) \
+        + inter * 384
+    mv = words[inter_mask]
+    taps = 0
+    for w, blocks_per_vec in ((mv[:, rebase.W_MV:rebase.W_MV + 16], 1),
+                              (mv[:, rebase.W_UVMV:rebase.W_UVMV + 4], 2)):
+        fx = ((w << 16) >> 16) & 7
+        fy = (w >> 16) & 7
+        taps += int(((fx != 0).sum() * 9 * 4 * 6 + (fy != 0).sum() * 16 * 6)
+                    .item()) * blocks_per_vec
+    ops = n * (24 * RESIDUE_OPS_BLOCK + RESIDUE_OPS_Y2) \
+        + (n - inter) * RESIDUE_OPS_PRED + 2 * taps
+    return bound(bytes_, ops)
+
+
+def rebase_case(label, args, repeats=0):
     """The residue kernel against its plain version (kernel_case), with
     the wrapper's own time on one set of planes beside it (``in_place_ms``:
-    the call the rebase makes, without the comparison's copies)."""
-    orig, pred, ref_sel, splitmv, quant, recon = args
+    the call the rebase makes, without the comparison's copies), the
+    longest intra chain and the coefficient fetch's ms (one copy of the
+    output words, as reencode_device makes it)."""
+    orig, refs, words, quant, recon = args
     planes = [p.clone() for p in recon]
-    in_place = time_ms(lambda: rebase_cuda.inter_residues(
-        orig, pred, ref_sel, splitmv, quant, planes), 20)
+    call = lambda: rebase_cuda.rebase_frame(orig, refs, words, quant, planes)
+    in_place = time_ms(call, 20)
+    host = words.cpu().numpy()
+    intra = host[..., rebase.W_REF] == 0
     return kernel_case(
-        "inter_residues", label, residue_call(rebase_cuda.inter_residues),
-        residue_call(rebase.inter_residues_plain), args,
-        lambda: rebase_cuda.kernel_launches, residue_bound, repeats=repeats,
-        in_place_ms=in_place, mbs=ref_sel.numel(),
-        inter_mbs=int((ref_sel != 0).sum().item()),
-        splitmv_mbs=int(splitmv.sum().item()), quant=list(quant))
+        "rebase_frame", label, residue_call(rebase_cuda.rebase_frame),
+        residue_call(rebase.rebase_frame_plain), args,
+        lambda: rebase_cuda.kernel_launches, rebase_bound, repeats=repeats,
+        in_place_ms=in_place, fetch_ms=fetch_ms(call()),
+        mbs=int(intra.size), intra_mbs=int(intra.sum()),
+        bpred_mbs=int((intra & (host[..., rebase.W_YMODE] == T.B_PRED))
+                      .sum()),
+        splitmv_mbs=int((~intra & (host[..., rebase.W_YMODE] == T.SPLITMV))
+                        .sum()),
+        intra_chain=intra_chain(host[..., rebase.W_REF],
+                                host[..., rebase.W_YMODE]),
+        quant=list(quant))
 
 
-def residue_synthetic(seed, width, height, qi, kind):
-    """Seeded residue-kernel arguments on the card: random references,
-    originals near LAST, K3's prediction.  ``kind`` "splitmv_extreme":
-    every macroblock inter and SPLITMV, vectors up to a frame width plus
-    64 pixels outside the frame; "mixed": intra macroblocks among
-    whole-vector and SPLITMV ones, short vectors."""
+def rebase_synthetic(seed, width, height, qi, kind):
+    """Seeded rebase_frame arguments on the card: random references,
+    originals near LAST.  ``kind`` "splitmv_extreme": every macroblock inter
+    and SPLITMV, vectors up to a frame width plus 64 pixels outside the
+    frame; "whole": every macroblock inter, one short vector each;
+    "intra": every macroblock intra (the longest chain), the luma modes
+    cycling DC, V, H, TM, B_PRED with random b-modes, the chroma modes
+    DC, V, H, TM; "mixed": 60 % intra as "intra", the rest as "whole" or
+    SPLITMV."""
     rng = np.random.default_rng(seed)
     R, C = height // 16, width // 16
     dims = ((height, width), (height // 2, width // 2),
@@ -1737,22 +1785,25 @@ def residue_synthetic(seed, width, height, qi, kind):
     orig = [torch.clamp(r[0].to(torch.int32) + torch.from_numpy(
         rng.integers(-40, 41, d)).to(DEV), 0, 255).to(torch.uint8)
         for r, d in zip(refs, dims)]
-    extreme = kind == "splitmv_extreme"
-    ref_sel = rng.integers(1 if extreme else 0, 4, (R, C)).astype(np.int32)
-    splitmv = np.ones((R, C), bool) if extreme else rng.random((R, C)) < 0.5
-    span = 8 * (width + 64) if extreme else 40
-    sub_mv = rng.integers(-span, span + 1, (R, C, 4, 4, 2)).astype(np.int32)
-    sub_mv[~splitmv] = sub_mv[~splitmv][:, 3:4, 3:4]
+    intra = np.full((R, C), kind == "intra") if kind != "mixed" \
+        else rng.random((R, C)) < 0.6
+    ref = np.where(intra, 0, rng.integers(1, 4, (R, C)))
+    split = np.full((R, C), kind == "splitmv_extreme") if kind != "mixed" \
+        else rng.random((R, C)) < 0.5
+    k = np.cumsum(intra).reshape(R, C)
+    ymode = np.where(intra, k % 5, np.where(split, T.SPLITMV, T.NEWMV))
+    uvmode = np.where(intra, k % 4, 0)
+    bmode = rng.integers(0, 10, (R, C, 4, 4))
+    span = 8 * (width + 64) if kind == "splitmv_extreme" else 40
+    sub_mv = rng.integers(-span, span + 1, (R, C, 4, 4, 2))
+    sub_mv[~split] = sub_mv[~split][:, :1, :1]
     # the chroma vectors as the parser derives them (luma_to_chroma)
     s = sub_mv.reshape(R, C, 2, 2, 2, 2, 2).sum(axis=(3, 5))
-    uv_mv = np.where(s >= 0, (s + 4) >> 3, -((-s + 4) >> 3)).astype(np.int32)
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
-    ref_sel, sub_mv, uv_mv = t(ref_sel), t(sub_mv), t(uv_mv)
-    pred = sixtap_cuda.predict_mb_tiles(
-        {p: tuple(r) for p, r in zip("yuv", refs)}, ref_sel[None],
-        sub_mv[None], uv_mv[None])
+    uv_mv = np.where(s >= 0, (s + 4) >> 3, -((-s + 4) >> 3))
+    words = torch.from_numpy(rebase.mb_words(ref, ymode, uvmode, bmode,
+                                             sub_mv, uv_mv)).to(DEV)
     q = QuantIndices(y_ac_qi=qi).quantizer()
-    return (orig, [p[0] for p in pred], ref_sel, t(splitmv),
+    return (orig, {p: tuple(r) for p, r in zip("yuv", refs)}, words,
             [int(q[k]) for k in QUANT_KEYS],
             [torch.zeros_like(o) for o in orig])
 
@@ -1802,37 +1853,35 @@ def rebase_run(frames, width, height, state, pred, hashes=False):
 
 
 def rebase_kernel_inputs(frames, width, height):
-    """The residue kernel's arguments for rebased frame 4 (the rebase's
-    first residue update), captured from a rebase run; the
-    reconstruction planes as the kernel received them (zeroed)."""
+    """The residue kernel's arguments for rebased frames 4 and 5 (the
+    rebase's residue updates), captured from a rebase run; the
+    reconstruction planes as the kernel received them."""
     state, payloads = rebase_setup(frames, width, height)
     pred = RB.parse_prediction(payloads, Decoder(width, height, device=DEV))
     kept = []
-    real = reencode_device.inter_residues
+    real = reencode_device.rebase_frame
 
-    def capture(orig, pred_tiles, ref_sel, splitmv, quant, recon):
-        if not kept:
-            kept.append((orig, pred_tiles, ref_sel, splitmv, list(quant),
-                         [p.clone() for p in recon]))
-        return real(orig, pred_tiles, ref_sel, splitmv, quant, recon)
+    def capture(orig, refs, words, quant, recon):
+        kept.append((orig, refs, words, list(quant),
+                     [p.clone() for p in recon]))
+        return real(orig, refs, words, quant, recon)
 
-    reencode_device.inter_residues = capture
+    reencode_device.rebase_frame = capture
     try:
         rebase_run(frames, width, height, state, pred)
     finally:
-        reencode_device.inter_residues = real
-    return kept[0]
+        reencode_device.rebase_frame = real
+    return kept
 
 
-def fetch_ms(coeffs, nonzero, reps=20):
+def fetch_ms(out, reps=20):
     """The rebase's coefficient fetch (one device-to-host copy of the
-    coefficients and flags, as reencode_device makes it): median ms over
-    ``reps`` copies, the device drained before each."""
+    output words, as reencode_device makes it): median ms over ``reps``
+    copies, the device drained before each."""
     times = []
     for _ in range(reps):
         t0 = sync_clock()
-        torch.cat([coeffs.reshape(-1).view(torch.uint8),
-                   nonzero.reshape(-1).view(torch.uint8)]).cpu()
+        out.cpu()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
@@ -1844,7 +1893,7 @@ def write_y4m(path, frames, width, height):
 
 
 REBASE_SPANS = ("rebase.inputs", "rebase.kernel", "rebase.fetch",
-                "rebase.intra_host", "rebase.lf", "rebase.serialize",
+                "rebase.lf", "rebase.serialize",
                 "enc.inter_inputs", "enc.inter_kernel", "enc.inter_fetch",
                 "enc.inter_host")
 
@@ -1893,8 +1942,10 @@ def rebase_phase(card, width, height, frames, fetch):
     s1, r1 = serdes.load_decoder(f("rebased.state"), device=DEV)
     state_ok = Decoder(width, height, state=s1, references=r1,
                        device=DEV).minihash() == sink.minihashes[-1]
-    intra_mbs = sum(int((a.ref == T.CURRENT_FRAME).sum())
-                    for kf, _, a in pred[1:] if not kf)
+    # the residue updates' intra macroblocks and their longest chains
+    residue = [a for kf, _, a in pred[1:] if not kf]
+    intra_mbs = [int((a.ref == T.CURRENT_FRAME).sum()) for a in residue]
+    chains = [intra_chain(a.ref, a.ymode) for a in residue]
 
     # speed: rebased frames per second (the reencode call; the prediction
     # parsed before), better of three passes; spans from one traced pass
@@ -1913,7 +1964,8 @@ def rebase_phase(card, width, height, frames, fetch):
         encoder_minihash_ok=sink.minihashes == REBASE_MINIHASH,
         api_payloads_equal_cli=sink.payloads == rebased,
         launches=calls, kernel_launches=kernels, cli_s=cli_s,
-        intra_mbs_on_host=intra_mbs, pass_s=passes,
+        intra_mbs_on_card=intra_mbs, longest_intra_chain=chains,
+        pass_s=passes,
         rebased_frames_per_s=n / min(passes),
         ms_per_rebased_frame=min(passes) * 1e3 / n,
         traced_spans={k: {"ms": spans[k]["seconds"] * 1e3,
@@ -1930,9 +1982,9 @@ def rebase_phase(card, width, height, frames, fetch):
         raise SystemExit("the rebased stream does not re-decode to the "
                          "encoder's minihash, or that differs from "
                          "REBASE_MINIHASH")
-    if calls["inter_residues"] != n - 1 or calls["encode_inter_frame"] != 1:
+    if calls["rebase_frame"] != n - 1 or calls["encode_inter_frame"] != 1:
         raise SystemExit("the rebase made other than one residue-kernel "
-                         "call a rebased interframe and one K8 call")
+                         "call a residue update and one K8 call")
     if calls["predict_mb_tiles"] <= 0 or calls["loop_filter"] <= 0 \
             or calls["intra_frame"] <= 0:
         raise SystemExit("the rebase path did not launch K3, K4 and K5")
@@ -2002,35 +2054,29 @@ def text_sha1(rc, out):
     return [rc, hashlib.sha1(out.encode()).hexdigest()]
 
 
-def intra_host_ms(frames, width, height, state, pred, numpy_bodies):
-    """One traced rebase of frames 3-5: (``rebase.intra_host`` ms per
-    residue-update frame, whether its frames are REBASE_SHA1's).  With
-    ``numpy_bodies`` the intra macroblocks' transforms run the numpy
-    bodies instead of native/enckernel.cc."""
-    from alfalfa_tpu_torch.decoder import reconstruct_np as RNP
-    from alfalfa_tpu_torch.encoder import transforms_np as FX
-    saved = FX.subtract_fdct, FX.quantize, RNP.idct_add
-    if numpy_bodies:
-        FX.subtract_fdct, FX.quantize = FX.subtract_fdct_plain, FX.quantize_plain
-        RNP.idct_add = RNP.idct_add_plain
+def residue_update_ms(frames, width, height, state, pred):
+    """One traced rebase of frames 3-5: (the residue update's ms per
+    residue-update frame, its ``rebase.inputs``, ``rebase.kernel`` and
+    ``rebase.fetch`` spans summed; whether its frames are REBASE_SHA1's)."""
     tracing.enable(True)
     tracing.snapshot()
     try:
         sink, _ = rebase_run(frames, width, height, state, pred)
     finally:
         tracing.enable(False)
-        FX.subtract_fdct, FX.quantize, RNP.idct_add = saved
-    span = tracing.snapshot().get("rebase.intra_host", {"seconds": 0.0})
+    spans = tracing.snapshot()
     n = REBASE_FRAMES - REBASE_CHUNK - 1
-    return (span["seconds"] * 1e3 / n,
-            [hashlib.sha1(p).hexdigest() for p in sink.payloads] == REBASE_SHA1)
+    ms = sum(spans[k]["seconds"] for k in ("rebase.inputs", "rebase.kernel",
+                                           "rebase.fetch")) * 1e3 / n
+    return ms, [hashlib.sha1(p).hexdigest() for p in sink.payloads] \
+        == REBASE_SHA1
 
 
 def xc_tools_phase(card, width, height, frames):
     """The xc_tools phase: ExCamera's chunk workflow through the port's xc
     on the card, on the rebase phase's files (see the module docstring);
-    then rebase.intra_host with the native transforms and with their numpy
-    bodies, in turns.  Returns its result line."""
+    then the residue update's ms a frame, four turns.  Returns its result
+    line."""
     work = os.path.join(REPO, "build", "chip_smoke")
     f = lambda name: os.path.join(work, name)
     write_y4m(f("all.y4m"), frames, width, height)
@@ -2135,22 +2181,20 @@ def xc_tools_phase(card, width, height, frames):
         any(k in n for n in names) for k in PROFILE_KERNELS))
     calls, kernels = read_counts()
 
-    # rebase.intra_host with the native transforms and with the numpy
-    # bodies, in turns (native, numpy, numpy, native)
+    # the residue update's ms a frame (the kernel with its upload and
+    # fetch), four turns
     with open(f("chunk0.state"), "rb") as fh:
         state = fh.read()
     pred = RB.parse_prediction(list(IVFReader(f("pred.ivf"))),
                                Decoder(width, height, device=DEV))
-    turns = [intra_host_ms(frames, width, height, state, pred, numpy)
-             for numpy in (False, True, True, False)]
-    gates["rebase with numpy bodies"] = all(ok for _, ok in turns)
+    turns = [residue_update_ms(frames, width, height, state, pred)
+             for _ in range(4)]
+    gates["rebase turns"] = all(ok for _, ok in turns)
     line = dict(
         card=card, width=width, height=height, gates=gates, wall_ms=ms,
         total_ms=sum(ms.values()), ssim=ssim_values, launches=calls,
         kernel_launches=kernels, stage_report=report.splitlines(),
-        intra_host_ms_per_residue_frame={
-            "enckernel": [turns[0][0], turns[3][0]],
-            "numpy": [turns[1][0], turns[2][0]]})
+        residue_update_ms_per_frame=[ms for ms, _ in turns])
     say("xc_tools", **line)
     failed = [k for k, ok in gates.items() if not ok]
     if failed:
@@ -2158,7 +2202,7 @@ def xc_tools_phase(card, width, height, frames):
     if min(calls[k] for k in ("predict_mb_tiles", "intra_frame",
                               "loop_filter")) <= 0:
         raise SystemExit("the xc tools did not launch K3, K4 and K5")
-    if calls["encode_inter_frame"] != 1 or calls["inter_residues"] != \
+    if calls["encode_inter_frame"] != 1 or calls["rebase_frame"] != \
             REBASE_FRAMES - REBASE_CHUNK - 1:
         raise SystemExit("xc enc -r onto the terminated state made other "
                          "than one K8 call and a residue-kernel call a "
@@ -2216,7 +2260,7 @@ def cluster_phase(card, width, height, frames):
             or not line["api_payloads_equal_cli"]:
         raise SystemExit("the stitched stream does not decode to "
                          "CLUSTER_MINIHASH")
-    if calls["inter_residues"] <= 0 or calls["encode_inter_frame"] <= 0:
+    if calls["rebase_frame"] <= 0 or calls["encode_inter_frame"] <= 0:
         raise SystemExit("the cluster's rebase did not launch K8 and the "
                          "residue kernel")
     return line
@@ -2459,7 +2503,7 @@ def mesh_decode_inputs(payloads, width, height, frames):
 def serial_chain(inputs, refs0, width, height):
     """gop_rebase_chain's chain computed serially, frame by frame, through
     the rebase's residue update (encoder/reencode_device.
-    apply_inter_residues_device) on the card: (coeffs (N, F, n_mb, 400),
+    apply_residues_device) on the card: (coeffs (N, F, n_mb, 400),
     nz (N, F, n_mb), exit_y (4, H, W))."""
     from alfalfa_tpu_torch.decoder.parse import FrameArrays
     from alfalfa_tpu_torch.state.decoder_state import References
@@ -2482,8 +2526,8 @@ def serial_chain(inputs, refs0, width, height):
                     for x in (oy, ou, ov)]
             recon = Raster(width, height,
                            *(torch.zeros_like(o) for o in orig))
-            reencode_device.apply_inter_residues_device(orig, recon, arrays,
-                                                        q, refs)
+            reencode_device.apply_residues_device(orig, recon, arrays, q,
+                                                  refs)
             co.append(arrays.coeffs.reshape(R * C, 400).copy())
             nz.append(arrays.has_nonzero.reshape(R * C).copy())
             refs = References(recon, refs.golden, refs.alternative)
@@ -2579,9 +2623,9 @@ def mesh_phase(card, width, height, payloads):
         raise SystemExit("a mesh step differs from its serial counterpart")
     for name, mesh in meshes.items():
         chain = len(mesh) * MESH_CHAIN_FRAMES
-        want = {"predict_mb_tiles": 4 + chain, "intra_frame": 4,
+        want = {"predict_mb_tiles": 4, "intra_frame": 4,
                 "loop_filter": 4, "encode_kf_frame": MESH_SHARDS,
-                "inter_residues": chain}
+                "rebase_frame": chain}
         got = launches[name][0]
         if any(got[k] != v for k, v in want.items()):
             raise SystemExit("the %s mesh made other kernel calls than %s: "
@@ -2704,7 +2748,7 @@ COUNTS = {"sixtap_mc": (sixtap_cuda, "launches", "kernel_launches"),
                                  "kernel_launches"),
           "intra_fixup_frame": (enc_intra_fixup_cuda, "launches",
                                 "kernel_launches"),
-          "inter_residues": (rebase_cuda, "launches", "kernel_launches")}
+          "rebase_frame": (rebase_cuda, "launches", "kernel_launches")}
 
 
 def record_launches(mods):
@@ -2845,7 +2889,7 @@ def main():
     t0 = time.perf_counter()
     bitwork._load()         # raises if the native parsers do not build:
     bitwork._load_mb()      # the Python token parser would hide the host cost
-    enckernel._load()       # the rebase's intra transforms: no fallback
+    enckernel._load()       # the host patch's intra transforms: no fallback
     say("build", cuda_kernels_s=t_cuda, native_parsers_s=time.perf_counter() - t0,
         ptxas={k: [l for l in v.splitlines()
                    if "registers" in l or "spill" in l or "error" in l]
@@ -3020,27 +3064,38 @@ def main():
         over_residency_blocks=rows10 * len(FAST_PAIR_QIS))
     k10.append(k10_case("176x%d over-residency scene cut pair" % (16 * rows10),
                         k10_scene_cut(48, 176, 16 * rows10, FAST_PAIR_QIS)))
-    # the rebase's residue kernel: rebased frame 4's arguments at 720p,
-    # seeded SPLITMV macroblocks with extreme vectors at qi 0 and 127, a
-    # seeded 176x144 mix with intra macroblocks
+    # the rebase's residue kernel: rebased frames 4 and 5's arguments at
+    # 720p, seeded SPLITMV macroblocks with extreme vectors at qi 0 and 127,
+    # every macroblock inter with one vector, every one intra (the longest
+    # chain), a 176x144 mix, and a tall mix with more rows than the card
+    # holds blocks at once
     rframes = decoded_frames(CLIP, tuple(range(REBASE_FRAMES)))
     rframes = [rframes[k].display() for k in range(REBASE_FRAMES)]
-    frame4 = rebase_kernel_inputs(rframes, ivf.width, ivf.height)
-    k11 = [residue_case("720p rebased frame 4 qi%d" % REBASE_QI, frame4),
-           residue_case("720p seeded SPLITMV extreme vectors qi0",
-                        residue_synthetic(51, 1280, 720, 0,
-                                          "splitmv_extreme")),
-           residue_case("720p seeded SPLITMV extreme vectors qi127",
-                        residue_synthetic(52, 1280, 720, 127,
-                                          "splitmv_extreme")),
-           residue_case("176x144 seeded mix with intra qi48",
-                        residue_synthetic(53, 176, 144, 48, "mixed"))]
-    co, nz = rebase_cuda.inter_residues(*frame4[:5],
-                                        [p.clone() for p in frame4[5]])
-    fetch = fetch_ms(co, nz)
-    say("kernels", kernel="inter_residues", coefficient_fetch_ms=fetch,
-        fetch_bytes=co.numel() * 2 + nz.numel())
-    del frame4, co, nz
+    captured = rebase_kernel_inputs(rframes, ivf.width, ivf.height)
+    k11 = [rebase_case("720p rebased frame %d qi%d" % (REBASE_CHUNK + 1 + i,
+                                                      REBASE_QI), a, REPEATS)
+           for i, a in enumerate(captured)]
+    del captured
+    k11 += [rebase_case(label, rebase_synthetic(seed, 1280, 720, qi, kind),
+                        REPEATS)
+            for label, seed, qi, kind in (
+                ("720p seeded SPLITMV extreme vectors qi0", 51, 0,
+                 "splitmv_extreme"),
+                ("720p seeded SPLITMV extreme vectors qi127", 52, 127,
+                 "splitmv_extreme"),
+                ("720p seeded all inter, whole vectors qi48", 54, 48,
+                 "whole"),
+                ("720p seeded all intra qi48", 55, 48, "intra"))]
+    k11.append(rebase_case("176x144 seeded mix qi48",
+                           rebase_synthetic(53, 176, 144, 48, "mixed")))
+    res11 = rebase_cuda.resident(DEV)
+    rows11 = over_residency_rows(res11, 1)
+    say("kernels", kernel="rebase_frame", resident_blocks=res11,
+        over_residency_blocks=rows11)
+    k11.append(rebase_case("176x%d over-residency seeded mix qi48"
+                           % (16 * rows11),
+                           rebase_synthetic(56, 176, 16 * rows11, 48,
+                                            "mixed")))
     say("kernels", helpers=helper_plain_ms())
     if quick:
         return
@@ -3098,9 +3153,9 @@ def main():
         lambda: decode_all(payloads, ivf.width, ivf.height, digest=False)))
     simd = simd_main_path(card, payloads, ivf.width, ivf.height, want)
 
-    # every K3, K4, K5, K7, K8, K9 and K10 call of the single-frame and
-    # encode paths, and every K1 and six-tap call of the main path: one
-    # launch
+    # every K3, K4, K5, K7, K8, K9, K10 and residue-kernel call of the
+    # single-frame, encode and rebase paths, and every K1 and six-tap call
+    # of the main path: one launch
     per_call, undo = record_launches({"predict_mb_tiles": sixtap_cuda,
                                       "intra_frame": intra_cuda,
                                       "loop_filter": lf_cuda,
@@ -3109,11 +3164,12 @@ def main():
                                       "decide_inter_frame": enc_decide_cuda,
                                       "intra_fixup_frame":
                                           enc_intra_fixup_cuda,
-                                      "inter_residues": rebase_cuda})
+                                      "rebase_frame": rebase_cuda})
     try:
         single, kf, inter, fast = persistent_paths(card, payloads, want,
                                                    ivf.width, ivf.height)
-        rb = rebase_phase(card, ivf.width, ivf.height, rframes, fetch)
+        rb = rebase_phase(card, ivf.width, ivf.height, rframes,
+                          k11[0]["fetch_ms"])
         xt = xc_tools_phase(card, ivf.width, ivf.height, rframes)
         cl = cluster_phase(card, ivf.width, ivf.height, rframes)
         sal = salsify_phase(card, ivf.width, ivf.height)
@@ -3139,7 +3195,7 @@ def main():
                       for k in ("predict_mb_tiles", "intra_frame",
                                 "loop_filter", "encode_kf_frame",
                                 "encode_inter_frame", "decide_inter_frame",
-                                "intra_fixup_frame", "inter_residues")}
+                                "intra_fixup_frame", "rebase_frame")}
 
     def entry(name, source, replaces, launches, primary, all_cases):
         return {"name": name, "route": "cuda", "source": source,
@@ -3184,11 +3240,12 @@ def main():
               "alfalfa_tpu/ops/enc_intra_fixup_pallas.py:183 (with H1 "
               "enc_transforms_pallas.py inside)",
               calls_on_paths["intra_fixup_frame"], k10[0], k10),
-        entry("inter_residues", "alfalfa_tpu_torch/csrc/rebase_residues.cu",
+        entry("rebase_frame", "alfalfa_tpu_torch/csrc/rebase_residues.cu",
               "none: alfalfa_tpu/encoder/reencode_device.py:39 (_fn_core, "
               "XLA around K3 sixtap_pallas.py:347 and H1 "
-              "enc_transforms_pallas.py)",
-              calls_on_paths["inter_residues"], k11[0], k11),
+              "enc_transforms_pallas.py) and alfalfa_tpu/encoder/"
+              "reencode.py:23 (_apply_intra_mb, the host loop)",
+              calls_on_paths["rebase_frame"], k11[0], k11),
     ]}), flush=True)
     # again, so the end of the log has them
     say("throughput", **throughput)

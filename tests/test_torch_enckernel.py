@@ -2,9 +2,10 @@
 tolerance 0: ``subtract_fdct``, ``quantize`` and ``idct_add`` against their
 numpy bodies (the plain versions) and the JAX package's ``enckernel``, on
 seeded blocks with planes at 0 and 255, quantizer factors 4-157 and the
-int16 extremes; and the rebase's intra macroblock (``_apply_intra_mb``,
-B_PRED and whole-block) through the C functions and through the numpy
-bodies, coefficients and planes equal; a library that fails to build
+int16 extremes; and the host intra encoder of the fast path's host patch
+(``encode_intra_np.encode_intra_mb``, the B_PRED candidate, the whole
+modes, chroma) through the C functions and through the numpy bodies,
+coefficients, modes and planes equal; a library that fails to build
 raises (no fallback to the numpy bodies).
 """
 import subprocess
@@ -16,11 +17,11 @@ torch = pytest.importorskip("torch")
 
 from alfalfa_tpu.native import enckernel as jenckernel   # noqa: E402
 
-from alfalfa_tpu_torch.bitstream import tables as T      # noqa: E402
 from alfalfa_tpu_torch.bitstream.header import QuantIndices  # noqa: E402
 from alfalfa_tpu_torch.decoder import reconstruct_np as RNP  # noqa: E402
 from alfalfa_tpu_torch.decoder.parse import FrameArrays  # noqa: E402
-from alfalfa_tpu_torch.encoder import reencode as RB     # noqa: E402
+from alfalfa_tpu_torch.encoder import encode_intra_np    # noqa: E402
+from alfalfa_tpu_torch.encoder.costs import rd_multipliers  # noqa: E402
 from alfalfa_tpu_torch.encoder import transforms_np as FX  # noqa: E402
 from alfalfa_tpu_torch.native import enckernel           # noqa: E402
 from alfalfa_tpu_torch.state.decoder_state import Raster  # noqa: E402
@@ -101,37 +102,34 @@ def _numpy_bodies(monkeypatch):
 
 
 def _intra_mb_c_equals_numpy(qi, monkeypatch):
-    """One B_PRED and one whole-block (TM_PRED luma, DC chroma) macroblock
-    of a 48x48 frame, beside and below already reconstructed pixels,
-    re-applied by ``_apply_intra_mb`` through the C functions and through
-    the numpy bodies: coefficients and reconstruction planes equal."""
+    """Two intra macroblocks of a 48x48 frame, beside and below already
+    reconstructed pixels, encoded as interframe intra macroblocks by
+    ``encode_intra_mb`` (B_PRED tried, the whole modes, chroma) through
+    the C functions and through the numpy bodies: coefficients, modes and
+    reconstruction planes equal."""
     rng = np.random.RandomState(qi + 5)
     w, h = 48, 48
     orig = tuple(rng.randint(0, 256, s).astype(np.uint8)
                  for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2)))
     recon0 = tuple(rng.randint(0, 256, p.shape).astype(np.uint8)
                    for p in orig)
-    arrays = FrameArrays(3, 3)
-    arrays.ymode[1, 1], arrays.uvmode[1, 1] = T.B_PRED, T.V_PRED
-    arrays.bmode[1, 1] = rng.randint(0, 10, (4, 4))
-    arrays.ymode[1, 2], arrays.uvmode[1, 2] = T.TM_PRED, T.DC_PRED
     q = {k: int(v) for k, v in QuantIndices(y_ac_qi=qi).quantizer().items()}
+    rm, dm = rd_multipliers(q["y_ac"])
 
     def rebuild():
         a = FrameArrays(3, 3)
-        for f in ("ymode", "uvmode", "bmode"):
-            getattr(a, f)[:] = getattr(arrays, f)
         recon = Raster(w, h, *(p.copy() for p in recon0))
         for r, c in ((1, 1), (1, 2)):
-            RB._apply_intra_mb(orig, recon, a, r, c, q)
+            encode_intra_np.encode_intra_mb(orig, recon, a, r, c, q, rm, dm,
+                                            interframe=True)
         return a, recon
 
     a_c, r_c = rebuild()
     with monkeypatch.context() as m:
         _numpy_bodies(m)
         a_np, r_np = rebuild()
-    assert np.array_equal(a_c.coeffs, a_np.coeffs)
-    assert np.array_equal(a_c.y2_coded, a_np.y2_coded)
+    for f in ("coeffs", "ymode", "uvmode", "bmode", "y2_coded"):
+        assert np.array_equal(getattr(a_c, f), getattr(a_np, f)), f
     assert a_c.coeffs[1, 1].any() and a_c.coeffs[1, 2].any()
     for p, pn in zip((r_c.y, r_c.u, r_c.v), (r_np.y, r_np.u, r_np.v)):
         assert np.array_equal(p, pn)

@@ -10,6 +10,13 @@ versions), against the JAX package:
   untouched, over quantizers 0-127 with and without per-component
   deltas, whole-vector, SPLITMV, mixed and extreme-vector macroblocks, at
   80x48 and 176x144;
+- the residue kernel's plain version of a whole frame
+  (``ops.rebase.rebase_frame_plain``: the inter macroblocks as above, the
+  intra ones with their given modes) against the JAX package's host
+  ``update_residues`` on seeded prediction frames holding every whole
+  luma mode, B_PRED, every chroma mode, whole-vector and SPLITMV
+  macroblocks, at 80x48 and 176x144: coefficients, flags and
+  reconstruction equal; the wrapper's CPU route and argument checks;
 - the port's ``reencode`` byte-identical to the JAX host ``reencode`` at
   80x48 (a leading key frame at two key-frame weights, an extra-frame
   chunk, an interior key frame), on prediction frames holding B_PRED,
@@ -41,6 +48,11 @@ import jax.numpy as jnp                                  # noqa: E402
 from alfalfa_tpu.bitstream.header import \
     UncompressedChunk as JUncompressedChunk              # noqa: E402
 from alfalfa_tpu.cli import xc as jxc                    # noqa: E402
+from alfalfa_tpu.bitstream.header import \
+    InterFrameHeader as JInterFrameHeader                # noqa: E402
+from alfalfa_tpu.bitstream.header import \
+    QuantIndices as JQuantIndices                        # noqa: E402
+from alfalfa_tpu.decoder.parse import FrameArrays as JFrameArrays  # noqa: E402
 from alfalfa_tpu.decoder.parse import FrameParser as JFrameParser  # noqa: E402
 from alfalfa_tpu.encoder import Encoder as JEncoder      # noqa: E402
 from alfalfa_tpu.encoder import reencode as JRB          # noqa: E402
@@ -50,6 +62,9 @@ from alfalfa_tpu.parallel.cluster import \
 from alfalfa_tpu.state import serdes as jserdes          # noqa: E402
 from alfalfa_tpu.state.decoder_state import \
     DecoderState as JDecoderState                        # noqa: E402
+from alfalfa_tpu.state.decoder_state import Raster as JRaster  # noqa: E402
+from alfalfa_tpu.state.decoder_state import \
+    References as JReferences                            # noqa: E402
 from alfalfa_tpu.util.ivf import IVFWriter as JIVFWriter  # noqa: E402
 
 from alfalfa_tpu_torch.bitstream import tables as T      # noqa: E402
@@ -60,7 +75,7 @@ from alfalfa_tpu_torch.decoder.parse import luma_to_chroma  # noqa: E402
 from alfalfa_tpu_torch.encoder import Encoder            # noqa: E402
 from alfalfa_tpu_torch.encoder import reencode as RB     # noqa: E402
 from alfalfa_tpu_torch.encoder.encode_intra import QUANT_KEYS  # noqa: E402
-from alfalfa_tpu_torch.ops import rebase_cuda            # noqa: E402
+from alfalfa_tpu_torch.ops import rebase, rebase_cuda    # noqa: E402
 from alfalfa_tpu_torch.ops.sixtap import mc_planes_plain  # noqa: E402
 from alfalfa_tpu_torch.parallel.cluster import parallel_encode  # noqa: E402
 from alfalfa_tpu_torch.state import serdes               # noqa: E402
@@ -128,7 +143,7 @@ def _port_residues(refs, orig, ref_sel, splitmv, sub_mv, uv_mv, q):
     pred = mc_planes_plain(slots, t(ref_sel)[None], t(sub_mv)[None],
                            t(uv_mv)[None])
     recon = [torch.zeros(o.shape, dtype=torch.uint8) for o in orig]
-    co, nz = rebase_cuda.inter_residues(
+    co, nz = rebase.inter_residues_plain(
         [t(o) for o in orig], [p[0] for p in pred], t(ref_sel),
         t(splitmv), [q[k] for k in QUANT_KEYS], recon)
     return co.numpy(), nz.numpy(), [p.numpy() for p in recon]
@@ -186,22 +201,131 @@ def test_inter_residues_plain_equals_fn_core(qi, kind, size, deltas):
     assert nz[inter].any()
 
 
+def _frame_inputs(width, height, seed):
+    """Seeded references and originals (as _residue_inputs makes them) and
+    a prediction frame's modes and vectors, a JAX FrameArrays: about half
+    the macroblocks intra, their luma modes cycling DC, V, H, TM, B_PRED
+    (random b-modes) and their chroma modes DC, V, H, TM, so that every
+    pair comes round; the inter ones from a random slot, a third of them
+    SPLITMV (a vector a 4x4 block), the rest one vector, up to 8 pixels
+    out."""
+    R, C = height // 16, width // 16
+    refs, orig = _residue_inputs("mixed", width, height, seed)[:2]
+    rng = np.random.default_rng(seed + 1)
+    a = JFrameArrays(R, C)
+    k = 0
+    for r in range(R):
+        for c in range(C):
+            if rng.random() < 0.5:
+                a.ymode[r, c], a.uvmode[r, c] = k % 5, k % 4
+                a.bmode[r, c] = rng.integers(0, 10, (4, 4))
+                k += 1
+                continue
+            a.ref[r, c] = rng.integers(1, 4)
+            mv = rng.integers(-64, 65, (4, 4, 2))
+            if rng.random() < 1 / 3:
+                a.ymode[r, c], a.splitmv_pid[r, c] = T.SPLITMV, 3
+                a.bmode[r, c] = T.NEW4X4
+            else:
+                a.ymode[r, c] = rng.integers(T.NEARESTMV, T.SPLITMV)
+                mv[:] = mv[0, 0]
+            a.sub_mv[r, c] = mv
+            for ur in range(2):
+                for uc in range(2):
+                    a.uv_mv[r, c, ur, uc] = luma_to_chroma(*(
+                        tuple(int(v) for v in mv[ur * 2 + i, uc * 2 + j])
+                        for i in (0, 1) for j in (0, 1)))
+    return refs, orig, a
+
+
+def _words(a):
+    return torch.from_numpy(rebase.mb_words(a.ref, a.ymode, a.uvmode,
+                                            a.bmode, a.sub_mv, a.uv_mv))
+
+
+@pytest.mark.parametrize("size,qi", [((80, 48), 4), ((176, 144), 40),
+                                     ((176, 144), 127)],
+                         ids=["80x48-qi4", "176x144-qi40", "176x144-qi127"])
+def test_rebase_frame_plain_equals_jax_update_residues(size, qi):
+    """The residue kernel's plain version of a whole frame against the JAX
+    package's host update_residues (inter macroblocks through
+    _apply_inter_mb, intra ones through _apply_intra_mb in raster order):
+    every macroblock's coefficients, nonzero and Y2 flags, and the three
+    reconstruction planes, equal."""
+    width, height = size
+    refs, orig, a = _frame_inputs(width, height, qi + width)
+    intra = a.ref == T.CURRENT_FRAME
+    inter = ~intra
+    assert set(a.ymode[intra]) == {T.DC_PRED, T.V_PRED, T.H_PRED,
+                                   T.TM_PRED, T.B_PRED}
+    assert set(a.uvmode[intra]) == {T.DC_PRED, T.V_PRED, T.H_PRED,
+                                    T.TM_PRED}
+    assert (a.ymode[inter] == T.SPLITMV).any() \
+        and (a.ymode[inter] != T.SPLITMV).any()
+
+    jenc = JEncoder(width, height, device_encode=False)
+    jenc.references = JReferences(*(JRaster(width, height, *(
+        refs[p][k] for p in range(3))) for k in range(3)))
+    _, want, _, wrec = JRB.update_residues(
+        jenc, tuple(orig), JInterFrameHeader(), a,
+        JQuantIndices(y_ac_qi=qi), False)
+
+    q = QuantIndices(y_ac_qi=qi).quantizer()
+    recon = [torch.zeros(o.shape, dtype=torch.uint8) for o in orig]
+    out = rebase.rebase_frame_plain(
+        [torch.from_numpy(o) for o in orig],
+        {p: tuple(torch.from_numpy(refs[k])) for k, p in enumerate("yuv")},
+        _words(a), [int(q[k]) for k in QUANT_KEYS], recon)
+    co, nz, y2 = rebase.split_out(out.numpy())
+    np.testing.assert_array_equal(co, want.coeffs)
+    np.testing.assert_array_equal(nz, want.has_nonzero)
+    np.testing.assert_array_equal(y2, want.y2_coded)
+    for got, w in zip(recon, (wrec.y, wrec.u, wrec.v)):
+        np.testing.assert_array_equal(got.numpy(), w)
+    assert nz[intra].any() and nz[inter].any()
+    assert not y2[intra & (a.ymode == T.B_PRED)].any()
+
+
 def test_inter_residues_wrapper_takes_plain_only_on_cpu(monkeypatch):
-    """The wrapper runs the plain version for CPU tensors, without
-    counting a launch; the kernel is never built on a CPU host."""
-    refs, orig, ref_sel, splitmv, sub_mv, uv_mv = _residue_inputs(
-        "mixed", 80, 48, 5)
-    q = {k: int(v) for k, v in QuantIndices(y_ac_qi=40).quantizer().items()}
+    """The residue wrapper (rebase_frame) runs the plain version for CPU
+    tensors, without counting a launch, and the kernel is never built on
+    a CPU host; the checks it makes before a launch raise on what the
+    kernel does not take."""
+    refs, orig, a = _frame_inputs(80, 48, 5)
+    q = QuantIndices(y_ac_qi=40).quantizer()
+    quant = [int(q[k]) for k in QUANT_KEYS]
+    t = torch.from_numpy
+    args = dict(orig=[t(o) for o in orig],
+                refs={p: tuple(t(refs[k])) for k, p in enumerate("yuv")},
+                words=_words(a), quant=quant,
+                recon=[torch.zeros(o.shape, dtype=torch.uint8)
+                       for o in orig])
     calls = []
-    plain = rebase_cuda.inter_residues_plain
-    monkeypatch.setattr(rebase_cuda, "inter_residues_plain",
-                        lambda *a: calls.append(1) or plain(*a))
+    plain = rebase_cuda.rebase_frame_plain
+    monkeypatch.setattr(rebase_cuda, "rebase_frame_plain",
+                        lambda *x: calls.append(1) or plain(*x))
     monkeypatch.setattr(rebase_cuda, "_entry", lambda: pytest.fail(
         "the kernel was reached for CPU tensors"))
     before = (rebase_cuda.launches, rebase_cuda.kernel_launches)
-    _port_residues(refs, orig, ref_sel, splitmv, sub_mv, uv_mv, q)
-    assert calls == [1]
+    out = rebase_cuda.rebase_frame(**args)
+    assert calls == [1] and out.shape == (3, 5, rebase.OUT_WORDS)
     assert (rebase_cuda.launches, rebase_cuda.kernel_launches) == before
+
+    cpu = torch.device("cpu")
+    slots, got_q = rebase_cuda.check_args(dev=cpu, **args)
+    assert len(slots) == 9 and got_q == quant
+
+    def rejects(exc, **change):
+        with pytest.raises(exc):
+            rebase_cuda.check_args(dev=cpu, **dict(args, **change))
+    rejects(TypeError, words=args["words"].to(torch.int64))
+    rejects(ValueError, words=args["words"][:, :, :16])
+    rejects(ValueError, refs=dict(args["refs"], u=args["refs"]["u"][:2]))
+    rejects(ValueError, refs=dict(args["refs"], y=(args["recon"][0],) * 3))
+    rejects(ValueError, quant=quant[:5] + [3])
+    odd = torch.zeros(orig[1].size + 1, dtype=torch.uint8)[1:]
+    rejects(ValueError, orig=args["orig"][:1] + [odd.view(orig[1].shape)]
+            + args["orig"][2:])
 
 
 # ---------------------------------------------------- (b) reencode itself
@@ -272,12 +396,12 @@ def _jax_prediction(payloads):
 
 @pytest.mark.parametrize("case", ["kf_weight_0.5", "kf_weight_1.0",
                                   "extra_frame_chunk", "interior_key_frame"])
-def test_reencode_byte_identical_to_jax(case, tmp_path, monkeypatch):
+def test_reencode_byte_identical_to_jax(case, tmp_path):
     """The port's reencode against the JAX host reencode: every frame's
-    bytes and the minihash after the chunk; the intra loop runs over
-    B_PRED and whole-mode macroblocks, a SPLITMV macroblock goes through
-    the residue update, and the port's Decoder re-decodes the rebased
-    frames from the entry state to the encoder's minihash."""
+    bytes and the minihash after the chunk; the residue update meets
+    B_PRED and whole-mode intra macroblocks and a SPLITMV macroblock, and
+    the port's Decoder re-decodes the rebased frames from the entry state
+    to the encoder's minihash."""
     interior = case == "interior_key_frame"
     extra = case == "extra_frame_chunk"
     weight = 1.0 if case == "kf_weight_1.0" else 0.5
@@ -292,10 +416,9 @@ def test_reencode_byte_identical_to_jax(case, tmp_path, monkeypatch):
     pred = _with_splitmv(RB.parse_prediction(payloads,
                                              Decoder(W, H, device="cpu")))
     assert [kf for kf, _, _ in pred] == [True, False, interior, False]
-    modes = []
-    apply_intra = RB._apply_intra_mb
-    monkeypatch.setattr(RB, "_apply_intra_mb", lambda o, rc, a, r, c, q: (
-        modes.append(int(a.ymode[r, c])), apply_intra(o, rc, a, r, c, q)))
+    # the intra macroblocks the residue update meets: their modes
+    modes = [int(m) for kf, _, a in pred[1:] if not kf
+             for m in a.ymode[a.ref == T.CURRENT_FRAME]]
     enc = Encoder(W, H, device="cpu")
     enc.state, enc.references = serdes.load_decoder(state, device="cpu")
     with IVFWriter(tmp_path / "port.ivf", "VP80", W, H) as writer:

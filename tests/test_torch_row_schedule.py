@@ -1,12 +1,14 @@
-"""The persistent row walks of K1, K4, K5, K7, K8, K9 and K10 on the CPU,
-no JAX: the plain versions driven one macroblock at a time in orders that
-row walkers under the progress-flag rule of csrc/row_sched.cuh could
-produce, with the very lags the wrappers pass to the card
-(``wavefront_cuda.ROW_LAG``, ``intra_cuda.ROW_LAG``, ``lf_cuda.ROW_LAG``,
-``enc_intra_cuda.ROW_LAG``, ``enc_inter_cuda.ROW_LAG``,
-``enc_decide_cuda.ROW_LAG``, ``enc_intra_fixup_cuda.ROW_LAG``), are
-``torch.equal`` to the anti-diagonal order; one lag less gives a different
-result, so each rule is tight and the test can fail.  And the decision
+"""The persistent row walks of K1, K4, K5, K7, K8, K9, K10 and the
+rebase's residue kernel on the CPU, no JAX: the plain versions driven one
+macroblock at a time in orders that row walkers under the progress-flag
+rule of csrc/row_sched.cuh could produce, with the very lags the wrappers
+pass to the card (``wavefront_cuda.ROW_LAG``, ``intra_cuda.ROW_LAG``,
+``lf_cuda.ROW_LAG``, ``enc_intra_cuda.ROW_LAG``, ``enc_inter_cuda.ROW_LAG``,
+``enc_decide_cuda.ROW_LAG``, ``enc_intra_fixup_cuda.ROW_LAG``, and the
+residue kernel's lag by mode, ``rebase_cuda.ROW_LAG_WHOLE`` and
+``ROW_LAG_BPRED``), are ``torch.equal`` to the anti-diagonal (or raster)
+order; one lag less gives a different result, so each rule is tight and
+the test can fail.  And the decision
 chain K8 and K9 share, the loop filter K1 and K5 share, and the intra
 reconstruction step K1 and K4 share, are each defined once under csrc/.
 """
@@ -34,7 +36,8 @@ from alfalfa_tpu_torch.encoder.trellis import token_costs_pm
 from alfalfa_tpu_torch.decoder import reconstruct_torch as RT
 from alfalfa_tpu_torch.ops import enc_batch, enc_decide, enc_decide_cuda, \
     enc_inter, enc_inter_cuda, enc_intra, enc_intra_cuda, \
-    enc_intra_fixup_cuda, intra_cuda, lf_cuda, wavefront_cuda
+    enc_intra_fixup_cuda, intra_cuda, lf_cuda, rebase, rebase_cuda, \
+    transforms, wavefront_cuda
 from alfalfa_tpu_torch.ops.enc_intra_fixup import intra_fixup_frame_plain
 from alfalfa_tpu_torch.ops import wavefront
 from alfalfa_tpu_torch.ops.wavefront import (diagonals, intra_frame_plain,
@@ -137,10 +140,15 @@ def test_wrappers_pass_the_lags_of_the_reads():
     assert enc_intra_cuda.ROW_LAG == 2 and lf_cuda.ROW_LAG == 2
     assert wavefront_cuda.ROW_LAG == 2 and enc_intra_fixup_cuda.ROW_LAG == 1
     assert intra_cuda.ROW_LAG == 2
+    # the residue kernel's intra macroblocks: a whole mode reads left,
+    # above and above-left, B_PRED the above-right neighbour too
+    assert rebase_cuda.ROW_LAG_WHOLE == 1 and rebase_cuda.ROW_LAG_BPRED == 2
     for k, lag in ((2, enc_inter_cuda.ROW_LAG), (1, enc_decide_cuda.ROW_LAG),
                    (2, enc_intra_cuda.ROW_LAG), (2, lf_cuda.ROW_LAG),
                    (2, wavefront_cuda.ROW_LAG), (2, intra_cuda.ROW_LAG),
-                   (1, enc_intra_fixup_cuda.ROW_LAG)):
+                   (1, enc_intra_fixup_cuda.ROW_LAG),
+                   (1, rebase_cuda.ROW_LAG_WHOLE),
+                   (2, rebase_cuda.ROW_LAG_BPRED)):
         # every macroblock of diagonal d waits only on earlier diagonals
         for d, (rs, cs) in enumerate(diagonals(6, 9, k)):
             for r, c in zip(rs, cs):
@@ -445,6 +453,116 @@ def test_k10_lag_zero_breaks_the_chain():
     Q, R, C = args[3].shape[:3]
     assert any(not _equal(intra_fixup_frame_plain(
         *args, order=row_order(R, C, 0, seed)), want) for seed in SEEDS)
+
+
+# ------------------------- the plain residue update in row-walk orders
+
+def _rebase_args(seed, all_intra=False, width=176, height=144):
+    """rebase_frame_plain's arguments (without the reconstruction planes)
+    for a seeded frame: random references, originals near LAST.  With
+    ``all_intra`` every macroblock is B_PRED with every b-mode B_LD_PRED,
+    which reads the four pixels above-right of each sub-block; else about
+    60 % are intra, cycling DC, V, H, TM and B_PRED (b-modes random, the
+    right-most column's LD or VL, which read above-right) with the chroma
+    modes, the rest inter from a random slot, whole-vector or SPLITMV."""
+    R, C = height // 16, width // 16
+    rng = np.random.default_rng(seed)
+    dims = ((height, width), (height // 2, width // 2),
+            (height // 2, width // 2))
+    refs = [rng.integers(0, 256, (3,) + d, dtype=np.uint8) for d in dims]
+    orig = [np.clip(r[0].astype(int) + rng.integers(-40, 41, d), 0, 255)
+            .astype(np.uint8) for r, d in zip(refs, dims)]
+    ref = rng.integers(1, 4, (R, C))
+    ymode = rng.integers(T.NEARESTMV, T.SPLITMV + 1, (R, C))
+    intra = np.ones((R, C), bool) if all_intra else rng.random((R, C)) < 0.6
+    k = np.cumsum(intra).reshape(R, C)
+    ref[intra] = T.CURRENT_FRAME
+    ymode[intra] = T.B_PRED if all_intra else (k[intra] % 5)
+    uvmode = np.where(intra, k % 4, 0)
+    bmode = rng.integers(0, 10, (R, C, 4, 4))
+    bmode[..., 3] = rng.choice([T.B_LD_PRED, T.B_VL_PRED], (R, C, 4))
+    if all_intra:
+        bmode[:] = T.B_LD_PRED
+    sub_mv = rng.integers(-64, 65, (R, C, 4, 4, 2))
+    whole = ymode != T.SPLITMV
+    sub_mv[whole] = sub_mv[whole][:, :1, :1]
+    uv_mv = rng.integers(-32, 33, (R, C, 2, 2, 2))
+    t = torch.from_numpy
+    words = t(rebase.mb_words(ref, ymode, uvmode, bmode, sub_mv, uv_mv))
+    q = QuantIndices(y_ac_qi=36).quantizer()
+    return ([t(o) for o in orig],
+            {p: tuple(t(refs[i])) for i, p in enumerate("yuv")}, words,
+            [int(q[k]) for k in QUANT_KEYS])
+
+
+def _rebase_in_order(args, order):
+    """rebase_frame_plain's output words and planes, its intra
+    macroblocks walked in ``order``."""
+    recon = [torch.zeros_like(o) for o in args[0]]
+    return (rebase.rebase_frame_plain(*args, recon, order=order),) \
+        + tuple(recon)
+
+
+def _kernel_lags(words):
+    """The wait of each macroblock in the residue kernel: inter ones none,
+    intra ones by their mode."""
+    intra = (words[..., rebase.W_REF] == 0).numpy()
+    bpred = (words[..., rebase.W_YMODE] == T.B_PRED).numpy()
+    return np.where(intra, np.where(bpred, rebase_cuda.ROW_LAG_BPRED,
+                                    rebase_cuda.ROW_LAG_WHOLE), 0)
+
+
+def test_rebase_row_walk_equals_raster():
+    """The residue update of a 176x144 frame, 60 % intra: its intra
+    macroblocks in raster order, in the default diagonals d = 2r + c and in
+    three row-walk orders under the kernel's lags by mode give
+    torch.equal output words and planes; a B_PRED macroblock reads an
+    intra above-right neighbour.  And the decoder's intra step (K4's plain
+    version, the 127 / 129 and above-right rules of decoding) rebuilds the
+    same planes from the coefficients: the rebase predicts as a decoder
+    does."""
+    args = _rebase_args(7)
+    words = args[2]
+    R, C = words.shape[:2]
+    intra = words[..., rebase.W_REF] == 0
+    bpred = intra & (words[..., rebase.W_YMODE] == T.B_PRED)
+    assert bool((bpred[1:, :-1] & intra[:-1, 1:]).any())
+    want = _rebase_in_order(args, [([r], [c]) for r in range(R)
+                                   for c in range(C)])
+    assert _equal(_rebase_in_order(args, None), want)
+    lags = _kernel_lags(words)
+    for seed in SEEDS:
+        assert _equal(_rebase_in_order(args, row_order(R, C, lags, seed)),
+                      want), seed
+
+    out, y, u, v = want
+    co, nz, y2 = rebase.split_out(out)
+    qf = {k: torch.full((R, C), f, dtype=torch.int32)
+          for k, f in zip(QUANT_KEYS, args[3])}
+    res = transforms.residuals_from_coeffs(co.to(torch.int32), qf, y2)
+    as_tile = lambda b, n: b.reshape(R, C, n, n, 4, 4).permute(
+        0, 1, 2, 4, 3, 5).reshape(1, R, C, 4 * n, 4 * n).to(torch.int16)
+    bmode = torch.stack([(words[..., rebase.W_BMODE + i // 4] >> 8 * (i % 4))
+                         & 255 for i in range(16)], -1)
+    dec = intra_frame_plain(
+        tile(y[None], 16).to(torch.uint8), tile(u[None], 8).to(torch.uint8),
+        tile(v[None], 8).to(torch.uint8), as_tile(res[:, :, :16], 4),
+        as_tile(res[:, :, 16:20], 2), as_tile(res[:, :, 20:], 2),
+        words[None, ..., rebase.W_YMODE], words[None, ..., rebase.W_UVMODE],
+        bmode[None].to(torch.uint8), nz[None], intra[None])
+    for got, plane in zip(dec, (y, u, v)):
+        assert torch.equal(got[0], plane)
+
+
+def test_rebase_lag_one_breaks_b_pred():
+    """The negative control: a frame of B_PRED macroblocks whose sub-blocks
+    all read their above-right pixels; at lag 1 a macroblock may run before
+    the one above-right of it, and some order gives another result."""
+    args = _rebase_args(8, all_intra=True)
+    R, C = args[2].shape[:2]
+    want = _rebase_in_order(args, None)
+    assert any(not _equal(_rebase_in_order(args, row_order(R, C, 1, seed)),
+                          want) for seed in SEEDS)
 
 
 # -------------------------------------------- one source for the chain
