@@ -25,6 +25,9 @@ CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 KERNEL_SOURCES = ("sixtap_mc", "wavefront", "enc_intra", "enc_inter",
                   "enc_decide", "enc_intra_fixup", "rebase_residues")
+# the memory check's library (tools/poison_check.py): built beside the
+# kernels, linked into none of them
+CHECK_SOURCES = ("poison",)
 
 # -Xptxas -v: the compiler output lists registers and shared memory per kernel
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -79,10 +82,12 @@ def _finish(name, proc, tmp, so):
 
 
 def build_all():
-    """Compile every stale kernel source, all compilers started together.
-    Returns {name: compiler output} of those it compiled."""
+    """Compile every stale kernel source and the memory check's, all
+    compilers started together.  Returns {name: compiler output} of those
+    it compiled."""
     with _LOCK:
-        jobs = {n: _start(n) for n in KERNEL_SOURCES if _stale(n)}
+        jobs = {n: _start(n) for n in KERNEL_SOURCES + CHECK_SOURCES
+                if _stale(n)}
         return {n: _finish(n, *job) for n, job in jobs.items()}
 
 

@@ -16,9 +16,14 @@ import threading
 FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-pthread")
 
 # ASAN/UBSAN build mode (ALFALFA_SANITIZE=1): the native layer parses
-# untrusted bitstreams with manual index arithmetic, so a fuzz suite can
-# re-run against these builds in a subprocess with libasan preloaded.
-if os.environ.get("ALFALFA_SANITIZE") == "1":
+# untrusted bitstreams with manual index arithmetic, so a fuzz suite
+# (tools/sanitize_fuzz.py) re-runs against these builds in a process with
+# libasan preloaded.  They go to a directory of their own, so that no
+# sanitised library ever lies where the main path loads its own.
+SANITIZE = os.environ.get("ALFALFA_SANITIZE") == "1"
+SANITIZE_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "build", "sanitize")
+if SANITIZE:
     FLAGS = ("-O1", "-g", "-march=native", "-shared", "-fPIC", "-pthread",
              "-fsanitize=address,undefined", "-fno-sanitize-recover=all")
 
@@ -53,8 +58,10 @@ def load_library(src_path):
     threads from compiling the same source twice."""
     here = os.path.dirname(os.path.abspath(src_path))
     base = os.path.splitext(os.path.basename(src_path))[0]
-    so = os.path.join(here, "lib%s.%s.so" % (base, _host_tag()))
+    out = SANITIZE_DIR if SANITIZE else here
+    so = os.path.join(out, "lib%s.%s.so" % (base, _host_tag()))
     with _LOCK:
+        os.makedirs(out, exist_ok=True)
         if (not os.path.exists(so)
                 or os.path.getmtime(so) < os.path.getmtime(src_path)):
             tmp = "%s.tmp.%d" % (so, os.getpid())

@@ -88,7 +88,8 @@ import chip_smoke as cs  # noqa: E402
 from alfalfa_tpu_torch import _build  # noqa: E402
 from alfalfa_tpu_torch.ops import enc_decide_cuda, enc_inter_cuda, \
     enc_intra_cuda, enc_intra_fixup_cuda, intra_cuda, lf_cuda, rebase_cuda, \
-    sixtap_cuda, wavefront_cuda  # noqa: E402
+    sixtap_cuda, wavefront, wavefront_cuda  # noqa: E402
+from alfalfa_tpu_torch.tools import poison_check  # noqa: E402
 
 OUT = os.path.join(REPO, "build", "ablation")
 SOURCES = ("enc_inter", "enc_decide")
@@ -962,6 +963,116 @@ def run_k1_k10(card):
     return ok
 
 
+# ---- K1's B_PRED step predicting all ten b-modes, under the memory check
+
+def k1_all_modes(s):
+    """The B_PRED chain K1 and K4 share predicting all ten b-modes and
+    taking the one the bitstream gives, selected with compile-time
+    indices as K7's bpred_candidate selects its best (an earlier
+    variant, re-created), not one bpred_pixel call of the given mode."""
+    return rep(s, "    const int pred = bpred_pixel(mode, E, ly, lx);\n",
+               """    int pm[10];
+#pragma unroll
+    for (int m = 0; m < 10; ++m) pm[m] = bpred_pixel(m, E, ly, lx);
+    int pred = pm[0];
+#pragma unroll
+    for (int m = 1; m < 10; ++m)
+      if (mode == m) pred = pm[m];
+""")
+
+
+def k1_all_modes_indexed(s):
+    """k1_all_modes with the given mode's prediction read as pm[mode] (a
+    run-time index: the array in local memory), the form K7's comment
+    warns of."""
+    return rep(s, "    const int pred = bpred_pixel(mode, E, ly, lx);\n",
+               """    int pm[10];
+#pragma unroll
+    for (int m = 0; m < 10; ++m) pm[m] = bpred_pixel(m, E, ly, lx);
+    const int pred = pm[clampi(mode, 0, 9)];
+""")
+
+
+VARIANTS_ALL_MODES = {
+    "k1_all_modes": {"wavefront_device.cuh": k1_all_modes},
+    "k1_all_modes_indexed": {"wavefront_device.cuh": k1_all_modes_indexed}}
+ALL_MODES_REPEATS = 100
+# the variants' fills: the memory check's two, and two mixed bytes
+ALL_MODES_PATTERNS = poison_check.PATTERNS + (0xA5, 0x5A)
+
+
+def all_modes_cases():
+    """[(wrapper, plain, case, args)]: K1 on the GOP decoder's 720p G=16 key
+    frame and its 176x144 G=3 key frame and interframe (chip_smoke's
+    cases), K4 on the single-frame decoder's 720p key frame."""
+    ivf = cs.IVFReader(cs.CLIP)
+    payloads = [ivf.frame(i) for i in (0, 1)]
+    big = cs.real_kernel_inputs(payloads, ivf.width, ivf.height, cs.G)
+    small = cs.IVFReader(cs.SMALL_CLIP)
+    sm = cs.real_kernel_inputs([small.frame(0), small.frame(1)], small.width,
+                               small.height, 3)
+    sf = cs.single_frame_kernel_inputs(payloads, ivf.width, ivf.height)
+    k1 = (wavefront_cuda.wavefront_decode, wavefront.wavefront_decode_plain)
+    return [k1 + ("K1 720p G=16 frame0 key frame", big["wave_key"]),
+            k1 + ("K1 176x144 G=3 frame0 key frame", sm["wave_key"]),
+            k1 + ("K1 176x144 G=3 frame1 interframe", sm["wave_inter"]),
+            (intra_cuda.intra_frame, wavefront.intra_frame_plain,
+             "K4 720p frame0 key frame", sf[("intra_frame", 0)][0])]
+
+
+def run_k1_all_modes(card):
+    """K1 (and K4, which shares the chain) with each all-modes B_PRED step
+    (VARIANTS_ALL_MODES) against the plain version: ALL_MODES_REPEATS
+    plain runs, then the memory check's runs under ALL_MODES_PATTERNS
+    (poison_check.check_case: the shared memory and the allocator filled,
+    guards around every argument); the kept form the same way, first and
+    last, in the same process.  Fails only if the kept form disagrees: the
+    variants' readings are the finding."""
+    write_variants(VARIANTS_ALL_MODES)
+    logs = build([(os.path.join(OUT, n, "libwavefront.so"),
+                   os.path.join(OUT, n, "wavefront.cu"))
+                  for n in VARIANTS_ALL_MODES])
+    cs.say("ablation_build", ptxas={os.path.relpath(k, OUT): v
+                                    for k, v in logs.items()})
+    saved = wavefront_cuda._entry, intra_cuda._entry
+    entries = {"kept": saved}
+    for n in VARIANTS_ALL_MODES:
+        lib = os.path.join(OUT, n, "libwavefront.so")
+        k1 = lib_entry(lib, "wavefront_decode_launch", wavefront_cuda.ARGTYPES)
+        k4 = lib_entry(lib, "intra_frame_launch", intra_cuda.ARGTYPES)
+        entries[n] = (lambda k1=k1: k1, lambda k4=k4: k4)
+    ok = True
+    try:
+        for fn, plain, case, args in all_modes_cases():
+            want = tuple(plain(*args))
+            line = {"b_pred_mbs": int(((args[6] == wavefront.B_PRED)
+                                       & args[10]).sum().item())}
+            for name in ["kept"] + list(VARIANTS_ALL_MODES) + ["kept"]:
+                wavefront_cuda._entry, intra_cuda._entry = entries[name]
+                errs = []
+                for _ in range(ALL_MODES_REPEATS):
+                    out = fn(*args)
+                    errs.append(max(cs.max_abs_err(x, y)
+                                    for x, y in zip(out, want)))
+                runs = poison_check.check_case(fn, args, want,
+                                               ALL_MODES_PATTERNS)
+                r = line.setdefault(name, {"repeats": 0, "repeats_equal": 0,
+                                           "repeats_max_abs_err": 0,
+                                           "filled": []})
+                r["repeats"] += len(errs)
+                r["repeats_equal"] += sum(e == 0 for e in errs)
+                r["repeats_max_abs_err"] = max([r["repeats_max_abs_err"]]
+                                               + errs)
+                r["filled"] += [(x["pattern"], x["equal"], x["max_abs_err"],
+                                 x["broken_guards"]) for x in runs]
+                if name == "kept":
+                    ok &= not any(errs) and not poison_check.caught(runs)
+            cs.say("ablation_k1_all_modes", case=case, card=card, **line)
+    finally:
+        wavefront_cuda._entry, intra_cuda._entry = saved
+    return ok
+
+
 # ---- K4 and the six-tap kernel: each step of their redesign undone
 
 K4_HEAD = "intra_row_kernel(IntraRowArgs a) {"
@@ -1414,7 +1525,9 @@ def main():
                          "enc.fast_kernel and decode.reconstruct in the "
                          "parent's tree and this one's, four processes), "
                          "rebase (with --parent: the residue update and "
-                         "rebased frames/s, likewise)")
+                         "rebased frames/s, likewise), k1_all_modes (K1's "
+                         "and K4's B_PRED step predicting all ten b-modes, "
+                         "under the memory check)")
     ap.add_argument("--pairs", type=int, default=12,
                     help="readings of each side in the pairs")
     args = ap.parse_args()
@@ -1427,6 +1540,8 @@ def main():
         ok &= run_k4_mc(card, kernels & {"k4", "mc"})
     if "k1" in kernels:
         ok &= run_k1_k10(card)
+    if "k1_all_modes" in kernels:
+        ok &= run_k1_all_modes(card)
     if "k7" in kernels:
         k7_clocked(card, _build.CSRC_DIR, "here")
         if args.parent:

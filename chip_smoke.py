@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases
-    python3 chip_smoke.py --quick    # env, build, kernels only (first look
-                                     # at a changed kernel)
+    python3 chip_smoke.py --quick    # env, build, kernels and memory
+                                     # checks only (first look at a
+                                     # changed kernel)
 
 Builds the CUDA kernels and the native host parsers from the sources in
 this checkout (one nvcc per kernel source, all at once), and holds each
@@ -30,8 +31,21 @@ clip.  K1, K4, K5, K7, K8, K9, K10 and the residue kernel are persistent
 their 720p cases runs 10 (K5, K7) or REPEATS (K1, K4, K8, K9, K10, the
 residue kernel) times more, every run held to the plain output, since a
 race between rows would show only now and then, and each runs once more
-with more (row, frame or quantizer) blocks than the card holds at once.  Then it
-drives the paths over
+with more (row, frame or quantizer) blocks than the card holds at once.
+Then memory_checks, the port's memory-safety check on the card
+(alfalfa_tpu_torch/tools/poison_check.py with csrc/poison.cu;
+compute-sanitizer does not run on the machine with the card): its three
+positive controls (a kernel reading a shared word it never wrote, one
+reading an element past its input, one writing an element past its
+output) must be caught; every case above runs again once under each fill
+(0x00, then 0xFF) of every SM's shared memory and of the caching
+allocator's free blocks, its arguments copied between 256-byte guards of
+the fill, each run torch.equal to the plain version's output with every
+guard intact; tools/sanitize_fuzz.py's 64 corrupted streams (truncations
+and byte flips of inter_176x144_q32.ivf) go through a concealing Decoder
+on the card (K3, K4, K5) under both fills, each frame's SHA-1 equal to
+the CPU decode's (tools/corrupted_streams.json); within MEMORY_CHECK_S.
+Then it drives the paths over
 tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
 
 - main_path: 16 lockstep GOPs through BatchedGopDecoder.decode_stream
@@ -148,6 +162,7 @@ from alfalfa_tpu_torch.parallel.cluster import parallel_encode
 from alfalfa_tpu_torch.salsify import SalsifyReceiver, SalsifySender
 from alfalfa_tpu_torch.state import serdes
 from alfalfa_tpu_torch.state.decoder_state import Raster
+from alfalfa_tpu_torch.tools import poison_check, sanitize_fuzz
 from alfalfa_tpu_torch.util import tracing
 from alfalfa_tpu_torch.util.ivf import IVFReader
 from alfalfa_tpu_torch.util.ssim import ssim
@@ -258,13 +273,20 @@ def bound(bytes_, ops):
     return max(tb, to), "bytes" if tb >= to else "operations"
 
 
+# every case of the kernels phase, for memory_checks: (kernel, case, the
+# call, its arguments, the plain version's outputs)
+MEMORY_CASES = []
+
+
 def kernel_case(kernel, label, wrapper, plain, args, counts, bound_fn,
-                reps=10, repeats=0, **extra):
+                reps=10, repeats=0, check_call=None, **extra):
     """Launch ``wrapper(*args)`` once and hold it against ``plain(*args)``,
     run once and timed; with ``repeats``, run the wrapper that many times
     more, each output held to the plain one; then time the wrapper.
     ``counts`` reads the wrapper's kernel-launch count (as its C entry
-    reported it)."""
+    reported it).  The case is kept for memory_checks, which runs
+    ``check_call`` (by default the wrapper) on guarded copies of
+    ``args``."""
     issued = counts()
     out = wrapper(*args)
     issued = counts() - issued
@@ -276,6 +298,7 @@ def kernel_case(kernel, label, wrapper, plain, args, counts, bound_fn,
     plain_ms = a.elapsed_time(b)
     tup = lambda x: x if isinstance(x, tuple) else (x,)
     outs, refs = tup(out), tup(ref)
+    MEMORY_CASES.append((kernel, label, check_call or wrapper, args, refs))
     equal = all(torch.equal(x, y) for x, y in zip(outs, refs))
     err = max(max_abs_err(x, y) for x, y in zip(outs, refs))
     repeats_equal = 0
@@ -1689,6 +1712,14 @@ def residue_call(fn):
     return call
 
 
+def residue_in_place(orig, refs, words, quant, recon):
+    """The residue wrapper on the planes it is given, written in place (the
+    memory check's guarded copies); returns residue_call's (output words,
+    y, u, v)."""
+    return (rebase_cuda.rebase_frame(orig, refs, words, quant, recon),) \
+        + tuple(recon)
+
+
 # integer operations of the residue update: about 500 a 4x4 block (the
 # forward DCT's two passes, quantization, dequantization, the inverse
 # DCT's two passes, the add and clamp), 400 a macroblock for Y2's forward
@@ -1756,7 +1787,8 @@ def rebase_case(label, args, repeats=0):
         "rebase_frame", label, residue_call(rebase_cuda.rebase_frame),
         residue_call(rebase.rebase_frame_plain), args,
         lambda: rebase_cuda.kernel_launches, rebase_bound, repeats=repeats,
-        in_place_ms=in_place, fetch_ms=fetch_ms(call()),
+        check_call=residue_in_place, in_place_ms=in_place,
+        fetch_ms=fetch_ms(call()),
         mbs=int(intra.size), intra_mbs=int(intra.sum()),
         bpred_mbs=int((intra & (host[..., rebase.W_YMODE] == T.B_PRED))
                       .sum()),
@@ -2872,6 +2904,118 @@ def persistent_paths(card, payloads, want, width, height):
     return single, kf, inter, fast
 
 
+# the memory_checks phase's time limit on the card
+MEMORY_CHECK_S = 150.0
+
+
+def corrupted_stream_checks():
+    """sanitize_fuzz's corrupted streams (truncations and byte flips of
+    inter_176x144_q32.ivf) through a concealing Decoder on the card, once
+    under each fill of poison_check.PATTERNS (the allocator's free blocks
+    and every SM's shared memory filled before each frame): each frame's
+    raster SHA-1, or exception class, against sanitize_fuzz.CORRUPT_TABLE,
+    the port's CPU decode of the same bytes.  Returns the summary line's
+    fields."""
+    table = sanitize_fuzz.load_table()
+    path = os.path.join(REPO, "tests", "fixtures", sanitize_fuzz.CORRUPT_CLIP)
+    ivf = IVFReader(path)
+    streams = sanitize_fuzz.corrupted_streams(path)
+    # the cache shrunk to the decoder's own blocks (one clean decode), so
+    # that each frame's fill is small
+    torch.cuda.empty_cache()
+    sanitize_fuzz.decode_outcomes([ivf.frame(i) for i in range(len(ivf))],
+                                  ivf.width, ivf.height, DEV)
+    bad, frames, raised = [], 0, 0
+    for name, payloads in streams:
+        want = table.get(name)
+        if want is None or want["stream_sha1"] != \
+                sanitize_fuzz.stream_sha1(payloads):
+            bad.append({"stream": name, "why": "not the recorded bytes"})
+            continue
+        for byte in poison_check.PATTERNS:
+            def fill(byte=byte):
+                poison_check.fill_cached(byte, DEV)
+                poison_check.poison_shared(byte, DEV)
+            got = sanitize_fuzz.decode_outcomes(payloads, ivf.width,
+                                                ivf.height, DEV, fill)
+            frames += len(got)
+            raised += sum(o.startswith("raise:") for o in got)
+            diff = [(i, g, w) for i, (g, w) in enumerate(zip(got,
+                                                             want["frames"]))
+                    if g != w]
+            if diff or len(got) != len(want["frames"]):
+                bad.append({"stream": name, "pattern": byte,
+                            "frames_differing": diff[:4]})
+    return dict(streams=len(streams), fills=len(poison_check.PATTERNS),
+                frames_decoded=frames, frames_raised=raised,
+                streams_matching=len(streams) - len({b["stream"] for b in bad}),
+                mismatches=bad[:8])
+
+
+def memory_checks_phase(card):
+    """The memory-safety check of every hand-written kernel on the card
+    (tools/poison_check.py; compute-sanitizer does not run here): its three
+    positive controls, which it must catch; every case of the kernels phase
+    once under each fill, each run torch.equal to the plain version's
+    output with every guard intact; the corrupted streams through the
+    single-frame decoder (K3, K4, K5).  One line a kernel, one for the
+    controls, one for the streams and a summary; fails on a missed
+    control, a difference, a broken guard, a stream unlike the CPU's or
+    more than MEMORY_CHECK_S seconds."""
+    t0 = time.perf_counter()
+    sms, smem = poison_check.shared_geometry()
+    ctl = poison_check.controls(DEV)
+    say("memory_checks", card=card, controls=ctl, sms=sms,
+        shared_bytes_filled_per_sm=smem, patterns=poison_check.PATTERNS)
+    kernels = {}
+    for kernel, label, call, args, want in MEMORY_CASES:
+        runs = poison_check.check_case(call, args, want)
+        k = kernels.setdefault(kernel, dict(
+            cases=0, runs=0, differences=0, broken_guards=0, guards=0,
+            cache_filled_min=None, cache_left_max=0, failing=[]))
+        k["cases"] += 1
+        k["runs"] += len(runs)
+        k["differences"] += sum(not r["equal"] for r in runs)
+        k["broken_guards"] += sum(r["broken_guards"] for r in runs)
+        k["guards"] += sum(r["guards"] for r in runs)
+        filled = min(r["cache_filled"] for r in runs)
+        k["cache_filled_min"] = filled if k["cache_filled_min"] is None \
+            else min(k["cache_filled_min"], filled)
+        k["cache_left_max"] = max([k["cache_left_max"]]
+                                  + [r["cache_left"] for r in runs])
+        if poison_check.caught(runs):
+            k["failing"].append({"case": label, "runs": runs})
+    MEMORY_CASES.clear()
+    for kernel, k in kernels.items():
+        say("memory_checks", kernel=kernel, **k)
+    streams = corrupted_stream_checks()
+    say("memory_checks", corrupted_streams=streams)
+    seconds = time.perf_counter() - t0
+    summary = dict(
+        card=card, seconds=seconds,
+        controls_caught={k: v["caught"] for k, v in ctl.items()},
+        kernels={k: {f: v[f] for f in ("cases", "runs", "differences",
+                                      "broken_guards")}
+                 for k, v in kernels.items()},
+        streams_matching=streams["streams_matching"],
+        streams=streams["streams"])
+    say("memory_checks", **summary)
+    if not all(v["caught"] for v in ctl.values()):
+        raise SystemExit("the memory check missed a positive control: %s"
+                         % summary["controls_caught"])
+    if any(v["differences"] or v["broken_guards"] for v in kernels.values()):
+        raise SystemExit("a kernel's output changed with the fill, or it "
+                         "broke a guard (memory_checks lines above)")
+    if streams["mismatches"] or streams["streams_matching"] \
+            != streams["streams"]:
+        raise SystemExit("a corrupted stream decodes on the card unlike on "
+                         "the CPU")
+    if seconds > MEMORY_CHECK_S:
+        raise SystemExit("memory_checks took %.1f s, over %.0f s"
+                         % (seconds, MEMORY_CHECK_S))
+    return summary
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device")
@@ -3097,6 +3241,7 @@ def main():
                            rebase_synthetic(56, 176, 16 * rows11, 48,
                                             "mixed")))
     say("kernels", helpers=helper_plain_ms())
+    memory = memory_checks_phase(card)
     if quick:
         return
 
@@ -3261,6 +3406,7 @@ def main():
     say("cluster", **cl)
     say("salsify", **sal)
     say("mesh", **mesh)
+    say("memory_checks", **memory)
     if simd is not None:
         say("main_path_simd", **simd)
     print(card, flush=True)
