@@ -23,7 +23,8 @@ stages of decode and of key-frame encode written as CUDA kernels:
                  (intra prediction + loop filter of G frames),
                  ``intra_cuda`` (intra prediction alone), ``lf_cuda`` (loop
                  filter alone), ``enc_intra_cuda`` (the key-frame encoder's
-                 macroblock loop, with transforms and trellis)
+                 macroblock loop, with transforms and trellis); ``alloc``:
+                 where every wrapper allocates its kernel's outputs
 - ``csrc``       CUDA sources of those kernels
 - ``parallel``   BatchedGopDecoder: G GOPs decoded in lockstep; the
                  packed, pinned host-to-device upload the decoders share

@@ -22,6 +22,7 @@ import torch
 
 from alfalfa_tpu_torch._build import (c_entry, check_aligned, check_tensor,
                                      launch, resident_blocks)
+from alfalfa_tpu_torch.ops import alloc
 from alfalfa_tpu_torch.ops.enc_decide import (DECIDE_WORDS,
                                               decide_inter_frame_plain)
 from alfalfa_tpu_torch.ops.enc_inter import N_SCALARS
@@ -83,9 +84,9 @@ def decide_inter_frame(oy, ly, scalars, icost, tables):
     check_tensor("icost", icost, torch.int32, (Q, R * C), dev)
     for i, (t, shape) in enumerate(zip(tables, TABLE_SHAPES)):
         check_tensor("tables[%d]" % i, t, torch.int32, shape, dev)
-    md = torch.empty((Q, R, C, DECIDE_WORDS), dtype=torch.int32, device=dev)
+    md = alloc.empty((Q, R, C, DECIDE_WORDS), torch.int32, dev)
     # the ticket, then each row's progress (zeroed: one memset)
-    sched = torch.zeros(1 + Q * R, dtype=torch.int32, device=dev)
+    sched = alloc.zeros(1 + Q * R, torch.int32, dev)
     issued = launch(_entry(), "decide_inter_frame", dev,
                     *(t.data_ptr() for t in (oy, ly, scalars, icost, *tables,
                                              md)), Q, R, C, sched.data_ptr(),

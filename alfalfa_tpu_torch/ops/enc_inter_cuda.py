@@ -25,6 +25,7 @@ import torch
 from alfalfa_tpu_torch._build import (c_entry, check_aligned, check_tensor,
                                      launch, resident_blocks)
 from alfalfa_tpu_torch.encoder.trellis import VALUE_COST
+from alfalfa_tpu_torch.ops import alloc
 from alfalfa_tpu_torch.ops.enc_inter import (MODE_WORDS, N_SCALARS,
                                              encode_inter_frame_plain)
 
@@ -96,8 +97,7 @@ def encode_inter_frame(oy, ou, ov, ly, lu, lv, scalars, tables, realtime,
     check_tensor("scalars", scalars, torch.int32, (Q, N_SCALARS), dev)
     for i, (t, shape) in enumerate(zip(tables, TABLE_SHAPES)):
         check_tensor("tables[%d]" % i, t, torch.int32, shape, dev)
-    empty = lambda shape, dt=torch.uint8: torch.empty(shape, dtype=dt,
-                                                      device=dev)
+    empty = lambda shape, dt=torch.uint8: alloc.empty(shape, dt, dev)
     y = empty((Q, H, W))
     u, v = empty((Q, H // 2, W // 2)), empty((Q, H // 2, W // 2))
     coeffs = empty((Q, R, C, 25, 16), torch.int16)
@@ -113,7 +113,7 @@ def encode_inter_frame(oy, ou, ov, ly, lu, lv, scalars, tables, realtime,
         unz, vnz = empty((Q, 2 * R, 2 * C)), empty((Q, 2 * R, 2 * C))
         y2c = empty((Q, R, C, 4))
     # the ticket, then each row's progress (zeroed: one memset)
-    sched = torch.zeros(1 + Q * R, dtype=torch.int32, device=dev)
+    sched = alloc.zeros(1 + Q * R, torch.int32, dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     issued = launch(_entry(), "encode_inter_frame", dev,
                     *(t.data_ptr() for t in (oy, ou, ov, ly, lu, lv, y, u, v,

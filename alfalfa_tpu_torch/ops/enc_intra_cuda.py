@@ -26,6 +26,7 @@ import torch
 from alfalfa_tpu_torch._build import (c_entry, check_aligned, check_tensor,
                                      launch, resident_blocks)
 from alfalfa_tpu_torch.encoder.trellis import VALUE_COST
+from alfalfa_tpu_torch.ops import alloc
 from alfalfa_tpu_torch.ops.enc_intra import (MODE_WORDS, encode_kf_frame_plain,
                                              mode_costs)
 
@@ -94,8 +95,7 @@ def encode_kf_frame(oy, ou, ov, quant, rate_mult, dist_mult,
     check_tensor("ov", ov, torch.uint8, (H // 2, W // 2), dev)
     check_aligned(oy=(oy, 16), ou=(ou, 8), ov=(ov, 8))
     mbc, bcost, vcost = _tables(dev)
-    empty = lambda shape, dt=torch.uint8: torch.empty(shape, dtype=dt,
-                                                      device=dev)
+    empty = lambda shape, dt=torch.uint8: alloc.empty(shape, dt, dev)
     y, u, v = empty((H, W)), empty((H // 2, W // 2)), empty((H // 2, W // 2))
     coeffs = empty((R, C, 25, 16), torch.int16)
     modes = empty((R, C, MODE_WORDS))
@@ -110,7 +110,7 @@ def encode_kf_frame(oy, ou, ov, quant, rate_mult, dist_mult,
             empty((2 * R, 2 * C))
         y2c = empty((R, C, 4))
     # the ticket, then each row's progress (zeroed: one memset)
-    sched = torch.zeros(1 + R, dtype=torch.int32, device=dev)
+    sched = alloc.zeros(1 + R, torch.int32, dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     q = [int(x) for x in quant]
     issued = launch(_entry(), "encode_kf_frame", dev,

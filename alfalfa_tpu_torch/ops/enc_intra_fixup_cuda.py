@@ -20,6 +20,7 @@ import torch
 
 from alfalfa_tpu_torch._build import (c_entry, check_aligned, check_tensor,
                                      launch, resident_blocks)
+from alfalfa_tpu_torch.ops import alloc
 from alfalfa_tpu_torch.ops.enc_decide import DECIDE_WORDS
 from alfalfa_tpu_torch.ops.enc_inter import N_SCALARS
 from alfalfa_tpu_torch.ops.enc_intra_fixup import (FIXUP_WORDS,
@@ -92,12 +93,11 @@ def intra_fixup_frame(oy, ou, ov, md, y, u, v, scalars, mbc):
                   v=(v, 8))
     # written whole by the kernel: inter macroblocks copied (coefficients
     # and modes zero), intra ones encoded
-    Y, U, V = (torch.empty_like(t) for t in (y, u, v))
-    coeffs = torch.empty((Q, R, C, 25, 16), dtype=torch.int16, device=dev)
-    modes = torch.empty((Q, R, C, FIXUP_WORDS), dtype=torch.int32,
-                        device=dev)
+    Y, U, V = (alloc.empty(t.shape, torch.uint8, dev) for t in (y, u, v))
+    coeffs = alloc.empty((Q, R, C, 25, 16), torch.int16, dev)
+    modes = alloc.empty((Q, R, C, FIXUP_WORDS), torch.int32, dev)
     # the ticket, then each (quantizer, row)'s progress (zeroed: one memset)
-    sched = torch.zeros(1 + Q * R, dtype=torch.int32, device=dev)
+    sched = alloc.zeros(1 + Q * R, torch.int32, dev)
     issued = launch(_entry(), "intra_fixup_frame", dev,
                     *(t.data_ptr() for t in (oy, ou, ov, md, y, u, v, Y, U, V,
                                              coeffs, modes, scalars, mbc)),

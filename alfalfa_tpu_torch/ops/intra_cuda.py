@@ -19,6 +19,7 @@ import torch
 
 from alfalfa_tpu_torch._build import (c_entry, check_aligned, launch,
                                      resident_blocks)
+from alfalfa_tpu_torch.ops import alloc
 from alfalfa_tpu_torch.ops.wavefront import intra_frame_plain
 from alfalfa_tpu_torch.ops.wavefront_cuda import (check_wave_inputs,
                                                   empty_planes,
@@ -74,7 +75,7 @@ def intra_frame(y, u, v, res_y, res_u, res_v, ymode, uvmode, bmode,
     mbp = pack_mb_params(ymode, uvmode, has_nonzero, intra_mask)
     Y, U, V = empty_planes(G, R, C, dev)
     # the ticket, then each (frame, row)'s progress (zeroed: one memset)
-    sched = torch.zeros(1 + G * R, dtype=torch.int32, device=dev)
+    sched = alloc.zeros(1 + G * R, torch.int32, dev)
     issued = launch(_entry(), "intra_frame", dev,
                     *(t.data_ptr() for t in (Y, U, V, y, u, v, res_y, res_u,
                                              res_v, mbp, bmode)),

@@ -26,6 +26,7 @@ import torch
 
 from alfalfa_tpu_torch._build import (c_entry, check_aligned, check_map,
                                      check_tensor, launch, resident_blocks)
+from alfalfa_tpu_torch.ops import alloc
 from alfalfa_tpu_torch.ops.wavefront import loop_filter_plain
 from alfalfa_tpu_torch.ops.wavefront_cuda import empty_planes, pack_mb_params
 
@@ -89,7 +90,7 @@ def loop_filter(y, u, v, lf_params):
     mbp = pack_mb_params(lf_params=lf_params)
     Y, U, V = empty_planes(G, R, C, dev)
     # the ticket, then each (frame, row)'s progress (zeroed: one memset)
-    sched = torch.zeros(1 + G * R, dtype=torch.int32, device=dev)
+    sched = alloc.zeros(1 + G * R, torch.int32, dev)
     issued = launch(_entry(), "loop_filter", dev,
                     Y.data_ptr(), U.data_ptr(), V.data_ptr(),
                     y.data_ptr(), u.data_ptr(), v.data_ptr(),

@@ -23,6 +23,7 @@ import torch
 
 from alfalfa_tpu_torch._build import (c_entry, check_aligned, check_tensor,
                                      launch, resident_blocks)
+from alfalfa_tpu_torch.ops import alloc
 from alfalfa_tpu_torch.ops.rebase import (MB_WORDS, OUT_WORDS,
                                           rebase_frame_plain)
 
@@ -98,10 +99,10 @@ def rebase_frame(orig, refs, words, quant, recon):
     R, C = words.shape[:2]
     dev = words.device
     slots, quant = check_args(orig, refs, words, quant, recon, dev)
-    out = torch.empty((R, C, OUT_WORDS), dtype=torch.int16, device=dev)
+    out = alloc.empty((R, C, OUT_WORDS), torch.int16, dev)
     # the row and pair tickets, then each row's progress and inter count
     # (zeroed: one memset)
-    sched = torch.zeros(2 + 2 * R, dtype=torch.int32, device=dev)
+    sched = alloc.zeros(2 + 2 * R, torch.int32, dev)
     p = ([t.data_ptr() for t in orig] + [t.data_ptr() for t in recon]
          + slots + [words.data_ptr(), out.data_ptr()] + quant)
     issued = launch(_entry(), "rebase_frame", dev, _WORDS.pack(*p), R, C,

@@ -27,6 +27,7 @@ import struct
 import torch
 
 from alfalfa_tpu_torch._build import c_entry, launch
+from alfalfa_tpu_torch.ops import alloc
 from alfalfa_tpu_torch.ops.sixtap import mc_planes_plain
 
 launches = 0        # mc_tiles launches so far (not plain-version calls)
@@ -149,12 +150,12 @@ def _mc_planes(name, refs, ref_sel, sub_mv, uv_mv):
     c_ptr, c_mb, c_blk = _vectors("uv_mv", uv_mv, G, R, C, 2, dev)
     # one allocation: each macroblock's three tiles side by side (the
     # kernel's MC_TILES), a strided view a plane
-    buf = torch.empty((G, R, C, 384), dtype=torch.uint8, device=dev)
-    out = buf.data_ptr()
+    buf = alloc.empty((G, R, C, 384), torch.uint8, dev)
+    out, at = buf.data_ptr(), buf.storage_offset()
     mb = (R * C * 384, C * 384, 384)
-    y = buf.as_strided((G, R, C, 16, 16), mb + (16, 1))
-    u = buf.as_strided((G, R, C, 8, 8), mb + (8, 1), 256)
-    v = buf.as_strided((G, R, C, 8, 8), mb + (8, 1), 320)
+    y = buf.as_strided((G, R, C, 16, 16), mb + (16, 1), at)
+    u = buf.as_strided((G, R, C, 8, 8), mb + (8, 1), at + 256)
+    v = buf.as_strided((G, R, C, 8, 8), mb + (8, 1), at + 320)
     words = _WORDS.pack(*ptrs, *strides, out, out + 256, out + 320, sel,
                         y_ptr, c_ptr, y_mb, y_blk, c_mb, c_blk)
     return (y, u, v), launch(_entry(), name, dev, words, G, R, C)

@@ -18,6 +18,7 @@ import torch
 
 from alfalfa_tpu_torch._build import (c_entry, check_aligned, check_map,
                                      check_tensor, launch, resident_blocks)
+from alfalfa_tpu_torch.ops import alloc
 from alfalfa_tpu_torch.ops.wavefront import wavefront_decode_plain
 
 launches = 0        # op launches so far (not plain-version calls)
@@ -77,9 +78,9 @@ def check_wave_inputs(dev, G, R, C, y, u, v, res_y, res_u, res_v, bmode,
 
 def empty_planes(G, R, C, dev):
     """Uninitialised (G, 16R, 16C), (G, 8R, 8C), (G, 8R, 8C) uint8 planes."""
-    return (torch.empty((G, R * 16, C * 16), dtype=torch.uint8, device=dev),
-            torch.empty((G, R * 8, C * 8), dtype=torch.uint8, device=dev),
-            torch.empty((G, R * 8, C * 8), dtype=torch.uint8, device=dev))
+    return (alloc.empty((G, R * 16, C * 16), torch.uint8, dev),
+            alloc.empty((G, R * 8, C * 8), torch.uint8, dev),
+            alloc.empty((G, R * 8, C * 8), torch.uint8, dev))
 
 
 def wavefront_decode(y, u, v, res_y, res_u, res_v, ymode, uvmode, bmode,
@@ -116,11 +117,10 @@ def wavefront_decode(y, u, v, res_y, res_u, res_v, ymode, uvmode, bmode,
     Y, U, V = empty_planes(G, R, C, dev)
     # every macroblock's unfiltered bottom pixel row, written and read
     # during the launch: the row below predicts from them
-    ey = torch.empty((G, R, C * 16), dtype=torch.uint8, device=dev)
-    eu, ev = (torch.empty((G, R, C * 8), dtype=torch.uint8, device=dev)
-              for _ in range(2))
+    ey = alloc.empty((G, R, C * 16), torch.uint8, dev)
+    eu, ev = (alloc.empty((G, R, C * 8), torch.uint8, dev) for _ in range(2))
     # the ticket, then each (frame, row)'s progress (zeroed: one memset)
-    sched = torch.zeros(1 + G * R, dtype=torch.int32, device=dev)
+    sched = alloc.zeros(1 + G * R, torch.int32, dev)
     issued = launch(_entry(), "wavefront_decode", dev,
                     *(t.data_ptr() for t in (Y, U, V, ey, eu, ev, y, u, v,
                                              res_y, res_u, res_v, mbp,

@@ -12,18 +12,21 @@ small CUDA library, ``csrc/poison.cu``.  A case runs once a pattern
   kept, so the wrappers' contiguity and alignment checks still pass; a
   tensor met twice is copied once;
 - the caching allocator's free blocks are filled with the pattern
-  (``fill_cached``: allocate, fill, free, no ``empty_cache``), so what a
-  wrapper allocates with ``torch.empty`` (outputs, schedules, scratch)
-  holds it;
+  (``fill_cached``: allocate, fill, free, no ``empty_cache``);
+- what the wrapper allocates for its kernel (outputs, schedules,
+  scratch: every ``ops/alloc.py`` call) is carved out of a buffer of its
+  own between GUARD bytes of the pattern (``carve``), uninitialised
+  tensors holding the pattern, zeroed ones zero;
 - the shared memory of every SM is filled with it (``poison_shared``).
 
 After each run the outputs must be ``torch.equal`` to the plain version's,
-and every guard must still hold the pattern.  A kernel that reads shared or
+and every guard, around the arguments and around what the wrapper
+allocated, must still hold the pattern.  A kernel that reads shared or
 global memory it did not write, or reads past the end of what it was
 given, sees the pattern, so its outputs change between the fills; one
-that writes past the end breaks a guard.  ``controls`` runs the three
-faults of ``csrc/poison.cu`` through the same check, the proof that it
-sees them on the card at hand.
+that writes past the end of an argument or of an output breaks a guard.
+``controls`` runs the faults of ``csrc/poison.cu`` through the same
+check, the proof that it sees them on the card at hand.
 
     from alfalfa_tpu_torch.tools import poison_check as pc
     pc.check_case(call, args, want)    # [one dict a run]
@@ -39,6 +42,7 @@ import functools
 import torch
 
 from alfalfa_tpu_torch._build import c_entry, launch, load_kernel
+from alfalfa_tpu_torch.ops import alloc
 
 GUARD = 256
 PATTERNS = (0x00, 0xFF)
@@ -164,6 +168,23 @@ def guard(args, byte):
     return walk(args), guards
 
 
+def carve(byte, guards):
+    """An ``ops/alloc.py`` allocator that carves each tensor out of a
+    buffer of its own, between GUARD bytes of ``byte`` (the tensor 256-byte
+    aligned; uninitialised it holds ``byte``, zeroed it is 0); the buffer
+    and the tensor's byte range are appended to ``guards``."""
+    def allocate(shape, dtype, device, zero):
+        nbytes = torch.Size(shape).numel() * dtype.itemsize
+        buf = torch.full((GUARD + nbytes + GUARD,), byte, dtype=torch.uint8,
+                         device=device)
+        body = buf[GUARD:GUARD + nbytes]
+        if zero:
+            body.zero_()
+        guards.append((buf, GUARD, GUARD + nbytes))
+        return body.view(dtype).view(shape)
+    return allocate
+
+
 def broken_guards(guards, byte):
     """How many of ``guards`` no longer hold ``byte`` before or after
     their copy."""
@@ -177,11 +198,13 @@ def _tuple(x):
 
 def check_case(call, args, want, patterns=PATTERNS):
     """``call(*args)`` on the current CUDA device once a pattern, each run
-    after ``guard``, ``fill_cached`` and ``poison_shared`` with it;
-    ``want``: the plain version's outputs.  Returns one dict a run: its
-    pattern, whether its outputs are ``torch.equal`` to ``want`` and their
-    largest difference, the guards it broke, and the cache bytes filled
-    and left unfilled."""
+    after ``guard``, ``fill_cached`` and ``poison_shared`` with it, and
+    what it allocates through ``ops/alloc.py`` carved between guards
+    (``carve``); ``want``: the plain version's outputs.  Returns one dict
+    a run: its pattern, whether its outputs are ``torch.equal`` to
+    ``want`` and their largest difference, the guards around the
+    arguments and around the allocated tensors and those it broke, and
+    the cache bytes filled and left unfilled."""
     device = _device("cuda")
     want = _tuple(want)
     runs = []
@@ -189,8 +212,13 @@ def check_case(call, args, want, patterns=PATTERNS):
         gargs, guards = guard(args, byte)
         filled, left = fill_cached(byte, device)
         poison_shared(byte, device)
-        out = _tuple(call(*gargs))
-        torch.cuda.synchronize(device)
+        carved = []
+        alloc.allocate = carve(byte, carved)
+        try:
+            out = _tuple(call(*gargs))
+            torch.cuda.synchronize(device)
+        finally:
+            alloc.allocate = alloc._torch_allocate
         equal = len(out) == len(want) and all(
             x.shape == y.shape and torch.equal(x, y) for x, y in zip(out, want))
         err = max((int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
@@ -199,27 +227,32 @@ def check_case(call, args, want, patterns=PATTERNS):
         runs.append(dict(pattern=byte, equal=equal, max_abs_err=err,
                          guards=len(guards),
                          broken_guards=broken_guards(guards, byte),
+                         allocated_guards=len(carved),
+                         broken_allocated_guards=broken_guards(carved, byte),
                          cache_filled=filled, cache_left=left))
-        del gargs, guards, out
+        del gargs, guards, carved, out
     return runs
 
 
 def caught(runs):
     """Whether a check's runs show a fault: an output unequal to the plain
     version's, or a broken guard."""
-    return any(not r["equal"] or r["broken_guards"] for r in runs)
+    return any(not r["equal"] or r["broken_guards"]
+               or r["broken_allocated_guards"] for r in runs)
 
 
 def controls(device, n=1000, word=2048, smem=16384):
-    """The three positive controls of csrc/poison.cu through check_case:
-    {"shared_uninitialised", "read_past_input", "write_past_output"}, each
-    {"runs", "caught", ...}.  Caught means that every run shows the fault
-    as the fill made it: the shared control read the pattern on every
-    block, the read control the pattern past the input's end, the write
-    control broke the guard after its output.  Their plain versions: the
-    shared control reads 0 (a word written before it is read), the read
-    control writes 0 where the kernel reads past the input, the write
-    control fills its n elements only."""
+    """The four positive controls of csrc/poison.cu through check_case:
+    {"shared_uninitialised", "read_past_input", "write_past_output",
+    "write_past_allocated_output"}, each {"runs", "caught", ...}.  Caught
+    means that every run shows the fault as the fill made it: the shared
+    control read the pattern on every block, the read control the pattern
+    past the input's end, the write controls broke the guard after their
+    output (one given as an argument, one allocated through
+    ``ops/alloc.py`` as a wrapper allocates its outputs).  Their plain
+    versions: the shared control reads 0 (a word written before it is
+    read), the read control writes 0 where the kernel reads past the
+    input, the write controls fill their n elements only."""
     device = _device(device)
     e = _entries()
     sms, _ = shared_geometry()
@@ -262,4 +295,12 @@ def controls(device, n=1000, word=2048, smem=16384):
     runs = check_case(write_past, (torch.zeros_like(x),), x)
     res["write_past_output"] = dict(
         runs=runs, caught=all(r["broken_guards"] == 1 for r in runs))
+
+    def write_past_allocated():
+        return write_past(alloc.empty(n, torch.int32, device))
+
+    runs = check_case(write_past_allocated, (), x)
+    res["write_past_allocated_output"] = dict(
+        runs=runs, caught=all(r["broken_allocated_guards"] == 1
+                              and not r["broken_guards"] for r in runs))
     return res

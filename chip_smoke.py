@@ -26,7 +26,11 @@ seeded SPLITMV macroblocks with extreme vectors at qi 0 and 127, a frame
 of inter macroblocks, a frame of intra ones (the longest chain) and
 seeded mixes at 176x144, on decoded frames of the fixtures; K5 also on
 the encoders' 8-level loop-filter search call and at G=16 on the GOP
-clip.  K1, K4, K5, K7, K8, K9, K10 and the residue kernel are persistent
+clip.  Off the first two fixtures: K1 and K2 on frames 0 and 1 of a G=14
+batch of different QCIF clips, K3, K4 and K5 on frames 0 and 1 of the
+90x48 clip (3 x 6 macroblocks), and K7, K8, K9, K10, K3 and the residue
+kernel on what the encoders hand them at 360x242 (partial macroblocks at
+the right and the bottom).  K1, K4, K5, K7, K8, K9, K10 and the residue kernel are persistent
 (one launch a call, blocks walking rows behind progress flags): each of
 their 720p cases runs 10 (K5, K7) or REPEATS (K1, K4, K8, K9, K10, the
 residue kernel) times more, every run held to the plain output, since a
@@ -36,12 +40,14 @@ Then memory_checks, the port's memory-safety check on the card
 (alfalfa_tpu_torch/tools/poison_check.py with csrc/poison.cu;
 compute-sanitizer does not run on the machine with the card): its three
 positive controls (a kernel reading a shared word it never wrote, one
-reading an element past its input, one writing an element past its
-output) must be caught; every case above runs again once under each fill
+reading an element past its input, one writing an element past an output
+it is given and one past an output allocated as the wrappers allocate
+theirs) must be caught; every case above runs again once under each fill
 (0x00, then 0xFF) of every SM's shared memory and of the caching
-allocator's free blocks, its arguments copied between 256-byte guards of
-the fill, each run torch.equal to the plain version's output with every
-guard intact; tools/sanitize_fuzz.py's 64 corrupted streams (truncations
+allocator's free blocks, its arguments copied, and what its wrapper
+allocates (ops/alloc.py) carved, between 256-byte guards of the fill,
+each run torch.equal to the plain version's output with every guard
+intact; tools/sanitize_fuzz.py's 64 corrupted streams (truncations
 and byte flips of inter_176x144_q32.ivf) go through a concealing Decoder
 on the card (K3, K4, K5) under both fills, each frame's SHA-1 equal to
 the CPU decode's (tools/corrupted_streams.json); within MEMORY_CHECK_S.
@@ -57,6 +63,17 @@ tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
 - single_frame: the port's FilePlayer (Decoder.decode_frame), and a
   state file written after frame 3, loaded onto the card, decoding the rest
   (against the manifest);
+- corpus_decode: every clip of tests/fixtures/natural_manifest.json and
+  the 720p fixture, grouped by size and frame types
+  (alfalfa_tpu_torch/tools/corpus.py), each group one BatchedGopDecoder
+  batch whose GOPs are different clips (G=14, 5, 4, 4, 2 and three clips
+  off the 16-pixel grid at G=1), under the scalar token parser and, where
+  the host CPU has AVX-512, the SIMD engine on two or more threads; every
+  clip through FilePlayer; the four streams of tools/feature_streams.py
+  (SPLITMV, segmentation, golden/altref with sign bias, probability
+  updates) through FilePlayer and a G=1 GOP decoder, and together as one
+  G=4 batch, frame by frame against FEATURE_SHA1; xc decode of the
+  360x242 clip to y4m (XC_DECODE_Y4M_SHA1: the JAX CLI's bytes);
 - keyframe_encode: the port's Encoder encodes decoded frames 0 and 3 as key
   frames (KF_ENCODE_SHA1: the JAX package's encoder's frames), and the
   port's Decoder re-decodes every frame to the encoder's minihash;
@@ -74,6 +91,15 @@ tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
   launch in the stream (the pair runs K10 once a call and patches over
   it, as the JAX package's does), its patched macroblocks per frame and
   enc.fast_patch_host;
+- offgrid_encode: the 8 frames of natural/cut_360x242_q56.ivf (both
+  dimensions off the grid, chroma 180x121, a scene cut before frame 4)
+  as key frames (qi 24, qi 64, two-pass qi 32, minimum SSIM), as
+  interframes (best, rt, two-pass, minimum SSIM, the fused pair), on the
+  fast path and its host patch (the stream and the pair) and through xc
+  enc -O / enc / enc -r (chunk 0 = frames 0-3, the prediction = frames
+  4-7): every frame against OFFGRID_ENCODE_SHA1 (the JAX package's),
+  re-decoded to the encoder's minihash, the fast streams in the serial rt
+  encoder's RD band, no K10 launch in the host-patch stream;
 - rebase: ExCamera's xc-enc -I/-O and -r through the port's CLI: chunk 0
   (decoded frames 0-2) and an independent prediction chunk (frames 3-5)
   encoded at qi 48, then the prediction rebased onto chunk 0's state at
@@ -113,12 +139,13 @@ tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
   a hop.
 
 Each path runs with the launch counts set to 0 just before it and read
-just after, and every K1 and six-tap call of the GOP path and every K3,
-K4, K5, K7, K8, K9, K10 and residue-kernel call of the single-frame,
-encode, rebase, xc tools, cluster, Salsify and mesh paths is checked to
-be one kernel launch (`main_path`, `persistent_launches`); the last lines
-are the `kernels` JSON line (one entry per kernel), the card's name and
-power limit, and the result line.
+just after, and every K1 and six-tap call of the GOP and corpus paths
+and every K3, K4, K5, K7, K8, K9, K10 and residue-kernel call of the
+single-frame, corpus, encode, off-grid, rebase, xc tools, cluster,
+Salsify and mesh paths is checked to be one kernel launch (`main_path`,
+`persistent_launches`); the last lines are the `kernels` JSON line (one
+entry per kernel), the script's total seconds, the card's name and power
+limit, and the result line.
 Each phase prints JSON lines; any failure is a non-zero exit.  There is no
 CPU path: without a CUDA device main() raises before it prints anything
 (the module itself imports on a CPU host, for its constants).
@@ -131,6 +158,7 @@ import subprocess
 import sys
 import threading
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -147,7 +175,7 @@ from alfalfa_tpu_torch.encoder import reencode as RB
 from alfalfa_tpu_torch.encoder import reencode_device
 from alfalfa_tpu_torch.encoder.costs import rd_multipliers
 from alfalfa_tpu_torch.encoder.encode_intra import QUANT_KEYS
-from alfalfa_tpu_torch.encoder.encoder import LF_CHUNK
+from alfalfa_tpu_torch.encoder.encoder import LF_CHUNK, _pad_raster
 from alfalfa_tpu_torch.encoder.trellis import token_costs_pm
 from alfalfa_tpu_torch.input.frame_input import FrameInput
 from alfalfa_tpu_torch.native import bitwork, enckernel
@@ -162,7 +190,8 @@ from alfalfa_tpu_torch.parallel.cluster import parallel_encode
 from alfalfa_tpu_torch.salsify import SalsifyReceiver, SalsifySender
 from alfalfa_tpu_torch.state import serdes
 from alfalfa_tpu_torch.state.decoder_state import Raster
-from alfalfa_tpu_torch.tools import poison_check, sanitize_fuzz
+from alfalfa_tpu_torch.tools import corpus, feature_streams, poison_check, \
+    sanitize_fuzz
 from alfalfa_tpu_torch.util import tracing
 from alfalfa_tpu_torch.util.ivf import IVFReader
 from alfalfa_tpu_torch.util.ssim import ssim
@@ -544,12 +573,14 @@ def k5_tiled(args, G):
 def real_kernel_inputs(payloads, width, height, n_gops):
     """Walk frames 0 (key frame) and 1 (interframe) of a clip at n_gops
     GOPs with the decoder's own pieces and keep what it hands to each
-    kernel."""
+    kernel.  ``payloads[f]``: the clip's frame f (every GOP decodes it), or
+    a list of n_gops frames, one a GOP (distinct clips)."""
     dec = gop.BatchedGopDecoder(width, height, n_gops, device=DEV)
     kept = {}
     for f in (0, 1):
-        key_frame, batch, _flags, _show = dec.parse_frame_batch(
-            [payloads[f]] * n_gops)
+        batch = payloads[f] if isinstance(payloads[f], list) \
+            else [payloads[f]] * n_gops
+        key_frame, batch, _flags, _show = dec.parse_frame_batch(batch)
         mega, spec_r, spec_c, _off = gop._pack_merged(batch)
         d = gop._unpack_upload(dec._upload(mega), spec_r + spec_c)
         inp, fls = dec._step_inputs(key_frame, d)
@@ -1486,24 +1517,31 @@ def fast_sha1_ok(runs):
             for key, p in zip(run_labels(name), pls)}
 
 
+def redecode_ok(pls, mhs, step, width, height):
+    """A stream's frames re-decoded by the port's Decoder on the card to
+    the encoder's minihash after each; ``step`` payloads follow the first
+    at a time (a pair's quantizers: each decoded by a copy of the decoder
+    of the first quantizer's stream)."""
+    dec = Decoder(width, height, device=DEV)
+    dec.decode_frame(pls[0])
+    ok = [dec.minihash() == mhs[0]]
+    for i in range(1, len(pls), step):
+        for j in range(step):
+            d = dec.copy() if step > 1 else dec
+            d.decode_frame(pls[i + j])
+            ok.append(d.minihash() == mhs[i + j])
+        if step > 1:
+            dec.decode_frame(pls[i])
+    return ok
+
+
 def fast_decode_ok(runs, width, height):
     """Every frame of the runs re-decoded by the port's Decoder on the card
     to its encoder's minihash (the pair: each of its frames by a copy of
     the decoder of the first stream)."""
-    decode_ok = []
-    for name, pls, mhs, *_ in runs:
-        dec = Decoder(width, height, device=DEV)
-        dec.decode_frame(pls[0])
-        decode_ok.append(dec.minihash() == mhs[0])
-        step = len(FAST_PAIR_QIS) if FAST_RUNS[name][1] else 1
-        for i in range(1, len(pls), step):
-            for j in range(step):
-                d = dec.copy() if step > 1 else dec
-                d.decode_frame(pls[i + j])
-                decode_ok.append(d.minihash() == mhs[i + j])
-            if step > 1:
-                dec.decode_frame(pls[i])
-    return decode_ok
+    return [ok for name, pls, mhs, *_ in runs for ok in redecode_ok(
+        pls, mhs, len(FAST_PAIR_QIS) if FAST_RUNS[name][1] else 1, width,
+        height)]
 
 
 def rd_parity(run, s_sizes, s_quals):
@@ -1579,14 +1617,14 @@ def fast_patch_runs(frames, width, height, serial):
     return line, fails
 
 
-def serial_rt_reference(frames, width, height):
-    """The serial rt encoder (K8) on the fast stream's frames and
-    quantizer: (payload sizes, luma SSIM of LAST against the source after
-    each interframe), the RD-parity baseline."""
+def serial_rt_reference(frames, width, height, order=FAST_ORDER):
+    """The serial rt encoder (K8) on the fast stream's frames (frame 0,
+    then ``order``) and quantizer: (payload sizes, luma SSIM of LAST
+    against the source after each interframe), the RD-parity baseline."""
     e = Encoder(width, height, quality="rt", device=DEV)
     e.encode_with_quantizer(frames[0], FAST_QI, key_frame=True)
     sizes, quals = [], []
-    for k in FAST_ORDER:
+    for k in order:
         sizes.append(len(e.encode_with_quantizer(frames[k], FAST_QI)))
         quals.append(float(ssim(e.references.last.y[:height, :width],
                                 torch.from_numpy(np.ascontiguousarray(
@@ -1857,38 +1895,40 @@ class FrameSink:
             self.minihashes.append(self.encoder.minihash())
 
 
-def rebase_setup(frames, width, height):
-    """Chunk 0 (frames 0-2) and the independent prediction chunk (frames
-    3-5), each encoded at REBASE_QI by a new Encoder on the card: (chunk
-    0's exit state as .state bytes, the prediction's payloads)."""
+def rebase_setup(frames, width, height, chunk=REBASE_CHUNK, n=REBASE_FRAMES):
+    """Chunk 0 (frames 0-2, or up to ``chunk``) and the independent
+    prediction chunk (frames 3-5, or ``chunk`` to ``n``), each encoded at
+    REBASE_QI by a new Encoder on the card: (chunk 0's exit state as
+    .state bytes, the prediction's payloads)."""
     enc0 = Encoder(width, height, device=DEV)
-    for k in range(REBASE_CHUNK):
+    for k in range(chunk):
         enc0.encode_with_quantizer(frames[k], REBASE_QI)
     encp = Encoder(width, height, device=DEV)
     payloads = [encp.encode_with_quantizer(frames[k], REBASE_QI)
-                for k in range(REBASE_CHUNK, REBASE_FRAMES)]
+                for k in range(chunk, n)]
     return serdes.save_decoder(enc0.state, enc0.references), payloads
 
 
-def rebase_run(frames, width, height, state, pred, hashes=False):
-    """``reencode`` of frames 3-5 against ``state`` (.state bytes) with the
-    parsed prediction ``pred``, by a new Encoder on the card: (the
-    FrameSink, seconds of the reencode call, device drained at both
-    ends)."""
+def rebase_run(frames, width, height, state, pred, hashes=False,
+               chunk=REBASE_CHUNK, n=REBASE_FRAMES):
+    """``reencode`` of frames 3-5 (or ``chunk`` to ``n``) against
+    ``state`` (.state bytes) with the parsed prediction ``pred``, by a new
+    Encoder on the card: (the FrameSink, seconds of the reencode call,
+    device drained at both ends)."""
     enc = Encoder(width, height, device=DEV)
     enc.state, enc.references = serdes.load_decoder(state, device=DEV)
     sink = FrameSink(enc if hashes else None)
     t0 = sync_clock()
-    RB.reencode(enc, frames[REBASE_CHUNK:REBASE_FRAMES], pred,
-                REBASE_KF_WEIGHT, False, sink)
+    RB.reencode(enc, frames[chunk:n], pred, REBASE_KF_WEIGHT, False, sink)
     return sink, sync_clock() - t0
 
 
-def rebase_kernel_inputs(frames, width, height):
-    """The residue kernel's arguments for rebased frames 4 and 5 (the
-    rebase's residue updates), captured from a rebase run; the
-    reconstruction planes as the kernel received them."""
-    state, payloads = rebase_setup(frames, width, height)
+def rebase_kernel_inputs(frames, width, height, chunk=REBASE_CHUNK,
+                         n=REBASE_FRAMES):
+    """The residue kernel's arguments for rebased frames 4 and 5 (or every
+    residue update of frames ``chunk`` to ``n``), captured from a rebase
+    run; the reconstruction planes as the kernel received them."""
+    state, payloads = rebase_setup(frames, width, height, chunk, n)
     pred = RB.parse_prediction(payloads, Decoder(width, height, device=DEV))
     kept = []
     real = reencode_device.rebase_frame
@@ -1900,7 +1940,7 @@ def rebase_kernel_inputs(frames, width, height):
 
     reencode_device.rebase_frame = capture
     try:
-        rebase_run(frames, width, height, state, pred)
+        rebase_run(frames, width, height, state, pred, chunk=chunk, n=n)
     finally:
         reencode_device.rebase_frame = real
     return kept
@@ -2665,6 +2705,534 @@ def mesh_phase(card, width, height, payloads):
     return line
 
 
+# ------------------------------------------- the corpus, and off the grid
+
+# corpus_decode: FEATURE_SHA1, the SHA-1 of each frame of the four streams
+# of alfalfa_tpu_torch/tools/feature_streams.py (the bytes of
+# tests/gen_feature_streams.py) as the JAX package's FilePlayer decodes
+# them; XC_DECODE_Y4M_SHA1, the SHA-1 of the y4m file that the JAX
+# package's xc decode writes of natural/cut_360x242_q56.ivf (360x242: the
+# chroma planes have 121 rows).  Computed once on a CPU host;
+# tests/test_torch_corpus.py recomputes them (-m slow).
+FEATURE_SHA1 = {
+    "feat_splitmv.ivf": [
+        "b5a519c8a276d3cc62f1c1721372e80b5c742df2",
+        "11a000cdccc861c27acd2372c2703efb1440e728",
+        "ff0e7a72eb7f29da37b6b4273a0cdd56bbe7a1b8",
+        "55fbe6fc45ce0861f41aac85119a99181a5dabb4"],
+    "feat_segmentation.ivf": [
+        "ca2b4cb61bdf9b1c336e864a5cee3ab70af24e4a",
+        "e4d97c5740c24e3b2849615733c19f9a6a18b611",
+        "ef6a126506847e9c4fbe756890445a96e7aad04b",
+        "6fd67cf54de4b2991658ad35c2ff8866e7bfc3ed"],
+    "feat_goldalt.ivf": [
+        "08cacb6ab2f47f41a07fbf6dfb05654be7868440",
+        "fde1d4f463832c54ba6063d8a8ed8bac55c00891",
+        "ed744cc937a8adbabf7b057d6d3e1cbd5fcd0f28",
+        "554e41d2f15d8c11af30b528328e183740ee4577",
+        "bc6847585e99026fe4ece35d4f8fbde077570420",
+        "0d59b9854b4889e4abbc7a1c459555eead02c097"],
+    "feat_probs.ivf": [
+        "c9a057df3724e86c28bad23408cef88590de7d34",
+        "a380bd4b10128d534637823c3828d92c02abbcc6",
+        "f2326510f4e4487b6be90af8ef0caf313a8594d5",
+        "39bd6f0835053e8661afcf711d5cf4a67f608dcd",
+        "98748f37d223694f7be0227511a2476339b881d8"],
+}
+XC_DECODE_Y4M_SHA1 = "c74caf4f0b48c6851e111ee5b4f17cf2e595c1a8"
+# the 720p fixture beside the natural corpus's three 720p clips (one batch)
+CORPUS_EXTRA = ("inter_1280x720_q48.ivf",)
+# the four feature streams in one batch: their first frames (the shortest
+# has 4)
+FEATURE_BATCH_FRAMES = 4
+# the corpus's file with no frame, and no manifest entry
+EMPTY_CLIP = "pan_82x48_q40.ivf"
+OFFGRID_CLIP = os.path.join(REPO, "tests", "fixtures", "natural",
+                            "cut_360x242_q56.ivf")
+# the 3 x 6 macroblock clip: the single-frame kernels' cases
+TINY_CLIP = os.path.join(REPO, "tests", "fixtures", "natural",
+                         "pan_90x48_q40.ivf")
+
+
+def corpus_batches(groups, engines):
+    """Each group of tools/corpus.py as one BatchedGopDecoder batch on the
+    card, every GOP a different clip, under each token engine: one dict a
+    batch (its GOPs' SHA-1 against their clips', the parse threads, each
+    engine's calls, wall seconds)."""
+    out = []
+    for engine in engines:
+        for g in groups:
+            before = dict(bitwork.engine_calls)
+            t0 = sync_clock()
+            got = corpus.decode_batch(g, DEV, engine)
+            out.append(dict(
+                engine=engine, width=g.width, height=g.height,
+                gops=len(g.clips), frames=len(g.pattern),
+                parse_threads=bitwork.parse_threads(len(g.clips)),
+                engine_calls={k: bitwork.engine_calls[k] - before[k]
+                              for k in before},
+                seconds=sync_clock() - t0, clips=[c.name for c in g.clips],
+                sha1_ok=[a == c.yuv_sha1 for a, c in zip(got, g.clips)]))
+    return out
+
+
+def feature_decodes(work):
+    """tools/feature_streams.py's four streams (key frames encoded on the
+    card) through FilePlayer and a G=1 GOP decoder each, then the four as
+    one G=4 batch over their first FEATURE_BATCH_FRAMES frames: each
+    frame's SHA-1 against FEATURE_SHA1.  Returns ({stream: {"frames",
+    "file_player_ok", "gop_ok"}}, {stream: batch ok}, frames decoded)."""
+    paths = feature_streams.write_all(work, device=DEV)
+    res, clips, n_frames = {}, [], 0
+    for name, path in paths.items():
+        one = corpus.alone(path)
+        clips += one.clips
+        want = FEATURE_SHA1[name]
+        res[name] = dict(
+            frames=len(one.pattern),
+            file_player_ok=corpus.play(path, DEV, per_frame=True) == want,
+            gop_ok=corpus.decode_batch(one, DEV, per_frame=True)[0] == want)
+        n_frames += 2 * len(one.pattern)
+    n = FEATURE_BATCH_FRAMES
+    patterns = {corpus.frame_pattern(c.payloads[:n]) for c in clips}
+    if len(patterns) != 1:
+        raise SystemExit("the feature streams' first %d frames differ in "
+                         "type: no batch" % n)
+    batch = corpus.Group(feature_streams.W, feature_streams.H,
+                         patterns.pop(), clips)
+    got = corpus.decode_batch(batch, DEV, frames=n, per_frame=True)
+    return res, {c.name: g == FEATURE_SHA1[c.name][:n]
+                 for c, g in zip(clips, got)}, n_frames + n * len(clips)
+
+
+def corpus_decode_phase(card):
+    """The corpus_decode phase (see the module docstring); returns its
+    result line."""
+    t0 = time.perf_counter()
+    work = os.path.join(REPO, "build", "chip_smoke", "corpus")
+    os.makedirs(work, exist_ok=True)
+    engines = ["scalar"]
+    if bitwork.simd_supported():
+        engines.append("simd")
+    else:
+        print("corpus_decode: the SIMD engine's batches left out, the host "
+              "CPU has no AVX-512 (%s)" % host_cpu()["model"], flush=True)
+    print("corpus_decode: natural/%s holds no frame and has no manifest "
+          "entry, so no batch takes it" % EMPTY_CLIP, flush=True)
+    groups = corpus.groups(CORPUS_EXTRA)
+    clips = [c for g in groups for c in g.clips]
+
+    # the corpus path: counters to 0 just before, read just after
+    zero_counts()
+    batches = corpus_batches(groups, engines)
+    players = {c.name: corpus.play(c.path, DEV) == c.yuv_sha1 for c in clips}
+    features, feature_batch, feature_frames = feature_decodes(work)
+    y4m = os.path.join(work, "cut_360x242.y4m")
+    rc = run_xc(["decode", OFFGRID_CLIP, y4m])[0]
+    with open(y4m, "rb") as fh:
+        y4m_ok = rc == 0 and \
+            hashlib.sha1(fh.read()).hexdigest() == XC_DECODE_Y4M_SHA1
+    calls, kernels = read_counts()
+    frames = (sum(b["gops"] * b["frames"] for b in batches)
+              + sum(len(c.payloads) for c in clips) + feature_frames
+              + len(IVFReader(OFFGRID_CLIP)))
+    line = dict(
+        card=card, clips=len(clips), engines=engines,
+        batches=len(batches), frames_decoded=frames,
+        seconds=time.perf_counter() - t0,
+        batch_sha1_ok={"%s %dx%d G=%d" % (b["engine"], b["width"],
+                                          b["height"], b["gops"]):
+                       all(b["sha1_ok"]) for b in batches},
+        file_player_sha1_ok=all(players.values()),
+        feature_streams=features, feature_batch_sha1_ok=feature_batch,
+        xc_decode_y4m_ok=y4m_ok, launches=calls, kernel_launches=kernels,
+        batch_detail=batches)
+    say("corpus_decode", **line)
+    bad = [(b["engine"], n) for b in batches
+           for n, ok in zip(b["clips"], b["sha1_ok"]) if not ok]
+    if bad:
+        raise SystemExit("distinct GOPs in one batch differ from their "
+                         "clips' SHA-1: %s" % bad)
+    for b in batches:
+        if b["engine"] == "simd" and (
+                b["engine_calls"] != {"scalar": 0, "simd": b["frames"]}
+                or (b["gops"] > 1 and b["parse_threads"] < 2)):
+            raise SystemExit("the SIMD engine did not parse every frame "
+                             "position of the %dx%d G=%d batch on two or "
+                             "more threads" % (b["width"], b["height"],
+                                               b["gops"]))
+    if not all(players.values()):
+        raise SystemExit("FilePlayer differs from the manifest: %s"
+                         % sorted(n for n, ok in players.items() if not ok))
+    if not all(v["file_player_ok"] and v["gop_ok"]
+               for v in features.values()) or not all(feature_batch.values()):
+        raise SystemExit("a feature stream's frames differ from "
+                         "FEATURE_SHA1")
+    if not y4m_ok:
+        raise SystemExit("xc decode's y4m of %s differs from the JAX CLI's"
+                         % os.path.basename(OFFGRID_CLIP))
+    gop_kernels = ("sixtap_mc", "wavefront_decode", "predict_mb_tiles",
+                   "intra_frame", "loop_filter")
+    if any(calls[k] <= 0 or kernels[k] != calls[k] for k in gop_kernels):
+        raise SystemExit("the corpus path did not launch K1, K2, K3, K4 and "
+                         "K5, each one launch a call")
+    return line
+
+
+# offgrid_encode: SHA-1 of each frame the JAX package makes of the 8
+# frames of natural/cut_360x242_q56.ivf (both dimensions off the 16-pixel
+# grid, chroma 180x121, a scene cut before frame 4) as its FilePlayer
+# decodes them (they meet the natural manifest):
+# - "kf_*": its host encoder (Encoder(device_encode=False)), a new one per
+#   mode of KF_ENCODE_MODES, encodes frames 0 and 4 as key frames in
+#   sequence; "kf_min_ssim_0.90_frame0" is encode_with_minimum_ssim(frame
+#   0, KF_MIN_SSIM) in a new one-pass encoder;
+# - "inter_*": a new host encoder per mode of INTER_ENCODE_MODES, and
+#   "inter_min_ssim" (encode_with_minimum_ssim at INTER_MIN_SSIM), encodes
+#   frame 0 as a key frame and frames 1-4 as interframes;
+#   "inter_pair_*": a key frame at INTER_PAIR_KEY_QI in an rt encoder,
+#   then frame 1 at each of INTER_PAIR_QIS in a fork of it;
+# - "fast_*": its fast path (ALFALFA_FAST_INTER=1), a key frame at FAST_QI
+#   on the host, then frames 1-7; "fast_pair_*" a key frame at
+#   FAST_PAIR_KEY_QI, then frames 1-4 through
+#   encode_interframe_fast_multiqp at FAST_PAIR_QIS, on with the first
+#   quantizer's fork; "patch_bpred*": the same two under
+#   ALFALFA_FAST_FIXUP=0 ALFALFA_FAST_BPRED=1 (the host patch);
+# - "rebase_*": chunk 0 (frames 0-3) and the prediction chunk (frames 4-7)
+#   each by a new host encoder at REBASE_QI, then its host reencode of
+#   the prediction onto chunk 0's exit state at REBASE_KF_WEIGHT.
+# Computed once on a CPU host; tests/test_torch_corpus.py recomputes them
+# (-m slow).
+OFFGRID_KF_FRAMES = (0, 4)
+OFFGRID_INTER_FRAMES = 5        # a key frame, then interframes 1-4
+OFFGRID_FRAMES = 8              # the fast stream: a key frame, then 1-7
+OFFGRID_PAIR_FRAMES = 4         # the fast pairs: frames 1-4
+OFFGRID_CHUNK = 4               # the rebase: chunk 0 = frames 0-3
+OFFGRID_RUNS = (tuple("kf_" + m[0] for m in KF_ENCODE_MODES)
+                + ("kf_min_ssim",)
+                + tuple("inter_" + m[0] for m in INTER_ENCODE_MODES)
+                + ("inter_min_ssim", "inter_pair") + tuple(FAST_RUNS))
+OFFGRID_ENCODE_SHA1 = {
+    "kf_qi24_frame0": "9dbb5403949f877ea1b446284a1527f852518232",
+    "kf_qi24_frame4": "cced06d76adcf2a9733d6817f3a36864b0409aef",
+    "kf_qi64_frame0": "a2032c32617d9d51d67e32e0c22aeab236656fe9",
+    "kf_qi64_frame4": "2cf984878c8e04517ebff80d7a34c40e23fe6b6e",
+    "kf_qi32_two_pass_frame0": "8542670c020889fcfb81710aa7e923330cd8e9b5",
+    "kf_qi32_two_pass_frame4": "73bc64adc9dfb4c0bd5f2769f8b2257df88a57df",
+    "kf_min_ssim_0.90_frame0": "42874d5ba7f2da6c21ac3dc78cd5433687088634",
+    "inter_best_qi48_frame0": "47506fa4b8259fab1f0e4321176e253ea430f465",
+    "inter_best_qi48_frame1": "5a43f1834ae393854f1604eea366983c83f24aad",
+    "inter_best_qi48_frame2": "7cb1fe690e3d384bf7238171762ecd75d7d6861b",
+    "inter_best_qi48_frame3": "fefdc1f46300c2f640bd6b9bf00f2a850c9d52f1",
+    "inter_best_qi48_frame4": "6bd0e532bbced8b56935c8f951d7144fa625c0db",
+    "inter_rt_qi48_frame0": "47506fa4b8259fab1f0e4321176e253ea430f465",
+    "inter_rt_qi48_frame1": "6b705ae93411c44c9154c71bd28d43af157eeb21",
+    "inter_rt_qi48_frame2": "132cb83582e18d5f56eddfc936b5d5582a814cf2",
+    "inter_rt_qi48_frame3": "8447df2fa074cc5344e68b51c764ea03416a8671",
+    "inter_rt_qi48_frame4": "6d959ec423de43f393413414a26c00bc8fcc6860",
+    "inter_best_qi32_two_pass_frame0": "8542670c020889fcfb81710aa7e923330cd8e9b5",
+    "inter_best_qi32_two_pass_frame1": "027242e9621276ded1a141d9fbb0364d9feb8925",
+    "inter_best_qi32_two_pass_frame2": "37f060cb664fda3f393b6840713d4112477399b3",
+    "inter_best_qi32_two_pass_frame3": "f15223a4f7947c2042a14af45f8fdb6b6c1df097",
+    "inter_best_qi32_two_pass_frame4": "421013b90ffebd16b73725850e9671159bc71b79",
+    "inter_min_ssim_0.90_frame0": "42874d5ba7f2da6c21ac3dc78cd5433687088634",
+    "inter_min_ssim_0.90_frame1": "5fac90527b5c09c5248689e6c317a6b4631f96a6",
+    "inter_min_ssim_0.90_frame2": "8eb6f01a0bd9cbad72b10c4d28a1c9f54c036ace",
+    "inter_min_ssim_0.90_frame3": "dd570f3053274cd3b096247d8ef9c6223047bb88",
+    "inter_min_ssim_0.90_frame4": "2e3961f1c7317569dd651cea575827979aaeb8b0",
+    "inter_pair_key_qi56_frame0": "3dbd2666bb6b529b7d0c1674375f01c3e9db35c3",
+    "inter_pair_qi40_frame1": "18d46a879f28db8db65bb1dae7529e06a1b16c76",
+    "inter_pair_qi72_frame1": "be0d74bc8d7014f2a9c2bff197c2040f96239b73",
+    "fast_qi48_frame0": "47506fa4b8259fab1f0e4321176e253ea430f465",
+    "fast_qi48_frame1": "8fe032cc92e5467683b8f9f1f6be344a399279f1",
+    "fast_qi48_frame2": "b36bd48cdd28333f4bf1bc274b07689e1eaef0c7",
+    "fast_qi48_frame3": "11c747beb1f11781437ab807eb521f11ea3e42af",
+    "fast_qi48_frame4": "f0737ede6a6c6456d4dc0c08509c7cdcb87dca23",
+    "fast_qi48_frame5": "0dfbce2cec92e349eef6a4e1987cc23c8d2eb8a4",
+    "fast_qi48_frame6": "9c45c8872989f4d93f7b8b9526f294f4e9dbe267",
+    "fast_qi48_frame7": "642e29dc41f09a70dceb9f543bed2c565e112fe4",
+    "fast_pair_key_qi56_frame0": "3dbd2666bb6b529b7d0c1674375f01c3e9db35c3",
+    "fast_pair_qi40_frame1": "d84d9f4c689902f9ed5d540dee9f1710dc9e6d19",
+    "fast_pair_qi72_frame1": "8fb30d7df9d571125c9ed35e959cfa1a0e8f180e",
+    "fast_pair_qi40_frame2": "c9627974fe2183a1f857d603519ed33e003e77cc",
+    "fast_pair_qi72_frame2": "2e8c3e36d74f265af4e0633d1ed0ef18f7a9a3b9",
+    "fast_pair_qi40_frame3": "c9fcc2b80892a1e79ce0856d9a6691771fd8b3a6",
+    "fast_pair_qi72_frame3": "51edd9b519174c3e8143cc1f2dc0a76944200545",
+    "fast_pair_qi40_frame4": "27820c05c9978663ffa801d66848d24a00454e57",
+    "fast_pair_qi72_frame4": "4074ea661ebc13bfc37630ccad0d80811f2e0f63",
+    "patch_bpred_qi48_frame0": "47506fa4b8259fab1f0e4321176e253ea430f465",
+    "patch_bpred_qi48_frame1": "1134b497a9e57ab2cd90eb9c74824d7d12b3fd44",
+    "patch_bpred_qi48_frame2": "aa25d2d22139c0695c2f26732f8e28d39884baba",
+    "patch_bpred_qi48_frame3": "e0334a4420e0ec93438d2417827bd7ab41f9734f",
+    "patch_bpred_qi48_frame4": "4f6844bb7ae642580e89995becd958e9bc3e69a1",
+    "patch_bpred_qi48_frame5": "5376863914580eccbfd7de0e585e4d67635e1a8c",
+    "patch_bpred_qi48_frame6": "5318e314d5b40eab83299b7bb43e782382f23486",
+    "patch_bpred_qi48_frame7": "066fd685b8ca2c7abf5d5f8cc44b51485aea304e",
+    "patch_bpred_pair_key_qi56_frame0": "3dbd2666bb6b529b7d0c1674375f01c3e9db35c3",
+    "patch_bpred_pair_qi40_frame1": "c7a6119893686092b9977ca0b4c4b85fcb3423c4",
+    "patch_bpred_pair_qi72_frame1": "4c4e029024d261f6b72d14c5a8fcd527bb978e81",
+    "patch_bpred_pair_qi40_frame2": "e506be99947272f6c9d52d03623a3ee2348140bc",
+    "patch_bpred_pair_qi72_frame2": "02492b2ae6648c9bd7da9b3d6c025aad941a0e5d",
+    "patch_bpred_pair_qi40_frame3": "7b00a3f1827fa3aa47e424123435128cd8e6c3d9",
+    "patch_bpred_pair_qi72_frame3": "4a6d372255535a190d3c57fc33a691a018b7253a",
+    "patch_bpred_pair_qi40_frame4": "21a86e76d0c66d3d28c5972d6d4132563bf51c68",
+    "patch_bpred_pair_qi72_frame4": "a862ba23e040c195cecdbe7db9d3aec74842550a",
+    "rebase_chunk0_frame0": "47506fa4b8259fab1f0e4321176e253ea430f465",
+    "rebase_chunk0_frame1": "5a43f1834ae393854f1604eea366983c83f24aad",
+    "rebase_chunk0_frame2": "7cb1fe690e3d384bf7238171762ecd75d7d6861b",
+    "rebase_chunk0_frame3": "fefdc1f46300c2f640bd6b9bf00f2a850c9d52f1",
+    "rebase_pred_frame4": "7367f428e8d42abb900979ea3aa0a5ad5a67d2e3",
+    "rebase_pred_frame5": "b697067216c9f438c9491f77b99b946ebb27526b",
+    "rebase_pred_frame6": "67cbcb8f8673f1629ee50f2a11c57cc140680f3b",
+    "rebase_pred_frame7": "b783e22e0db6bed4932d87b9f3c3026cdd6bc243",
+    "rebase_frame4": "a6d0f7e2b6a1409b834fad32db07e95eac44b15f",
+    "rebase_frame5": "e8c24c5a1b2626654e7c6dfa07489ffd1606ae2d",
+    "rebase_frame6": "c265cd01690f377d693d580109d5b0358203a38a",
+    "rebase_frame7": "1667cdf4fa860c97f853fbc16e66352911f7bee0",
+}
+
+
+def offgrid_labels(name):
+    """The OFFGRID_ENCODE_SHA1 keys of a run of OFFGRID_RUNS (or
+    "rebase"), in payload order."""
+    if name == "rebase":
+        return (["rebase_chunk0_frame%d" % k for k in range(OFFGRID_CHUNK)]
+                + ["rebase_pred_frame%d" % k
+                   for k in range(OFFGRID_CHUNK, OFFGRID_FRAMES)]
+                + ["rebase_frame%d" % k
+                   for k in range(OFFGRID_CHUNK, OFFGRID_FRAMES)])
+    if name == "kf_min_ssim":
+        return ["kf_min_ssim_%.2f_frame0" % KF_MIN_SSIM]
+    if name.startswith("kf_"):
+        return ["%s_frame%d" % (name, k) for k in OFFGRID_KF_FRAMES]
+    if name == "inter_pair":
+        return ["inter_pair_key_qi%d_frame0" % INTER_PAIR_KEY_QI] + [
+            "inter_pair_qi%d_frame1" % q for q in INTER_PAIR_QIS]
+    if name == "inter_min_ssim":
+        return ["inter_min_ssim_%.2f_frame%d" % (INTER_MIN_SSIM, k)
+                for k in range(OFFGRID_INTER_FRAMES)]
+    if name.startswith("inter_"):
+        return ["%s_frame%d" % (name, k) for k in range(OFFGRID_INTER_FRAMES)]
+    if FAST_RUNS[name][1]:
+        return ["%s_key_qi%d_frame0" % (name, FAST_PAIR_KEY_QI)] + [
+            "%s_qi%d_frame%d" % (name, q, k)
+            for k in range(1, OFFGRID_PAIR_FRAMES + 1) for q in FAST_PAIR_QIS]
+    return ["%s_qi%d_frame%d" % (name, FAST_QI, k)
+            for k in range(OFFGRID_FRAMES)]
+
+
+def offgrid_step(name):
+    """Payloads a step after a run's first frame: a pair's quantizers."""
+    if name == "inter_pair":
+        return len(INTER_PAIR_QIS)
+    return len(FAST_PAIR_QIS) if FAST_RUNS.get(name, (0, 0))[1] else 1
+
+
+def offgrid_encode_run(name, frames, width, height):
+    """One run of OFFGRID_RUNS on the card over ``frames`` (display
+    (y, u, v) planes), as OFFGRID_ENCODE_SHA1 describes: (payloads, the
+    encoder's minihash after each, the luma SSIM of LAST against the
+    source after each (the fast runs'), the host-patched macroblocks of
+    each)."""
+    pls, mhs, quals, patched = [], [], [], []
+
+    def kept(payload, enc, k=None):
+        pls.append(payload)
+        mhs.append(enc.minihash())
+        patched.append(getattr(enc, "patched_mbs", 0) if pls[1:] else 0)
+        if k is not None:
+            src = torch.from_numpy(np.ascontiguousarray(frames[k][0]))
+            quals.append(float(ssim(enc.references.last.y[:height, :width],
+                                    src.to(DEV))))
+
+    kf = {"kf_" + n: (qi, tp) for n, qi, tp in KF_ENCODE_MODES}
+    inter = {"inter_" + n: (qi, q, tp) for n, qi, q, tp in INTER_ENCODE_MODES}
+    if name in kf:
+        qi, two_pass = kf[name]
+        e = Encoder(width, height, two_pass=two_pass, device=DEV)
+        for k in OFFGRID_KF_FRAMES:
+            kept(e.encode_with_quantizer(frames[k], qi, key_frame=True), e)
+    elif name == "kf_min_ssim":
+        e = Encoder(width, height, device=DEV)
+        kept(e.encode_with_minimum_ssim(frames[0], KF_MIN_SSIM,
+                                        key_frame=True), e)
+    elif name in inter:
+        qi, quality, two_pass = inter[name]
+        e = Encoder(width, height, quality=quality, two_pass=two_pass,
+                    device=DEV)
+        for k in range(OFFGRID_INTER_FRAMES):
+            kept(e.encode_with_quantizer(frames[k], qi, key_frame=k == 0), e)
+    elif name == "inter_min_ssim":
+        e = Encoder(width, height, device=DEV)
+        for k in range(OFFGRID_INTER_FRAMES):
+            kept(e.encode_with_minimum_ssim(frames[k], INTER_MIN_SSIM,
+                                            key_frame=k == 0), e)
+    elif name == "inter_pair":
+        e = Encoder(width, height, quality="rt", device=DEV)
+        kept(e.encode_with_quantizer(frames[0], INTER_PAIR_KEY_QI,
+                                     key_frame=True), e)
+        forks = [e.fork() for _ in INTER_PAIR_QIS]
+        for (payload, _), f in zip(encode_inter.encode_interframe_multiqp(
+                forks, frames[1],
+                [QuantIndices(y_ac_qi=q) for q in INTER_PAIR_QIS]), forks):
+            kept(payload, f)
+    else:
+        bpred, pair = FAST_RUNS[name]
+        e = Encoder(width, height, quality="rt", fast=True, fast_bpred=bpred,
+                    device=DEV)
+        kept(e.encode_with_quantizer(frames[0], FAST_PAIR_KEY_QI if pair
+                                     else FAST_QI, key_frame=True), e, 0)
+        if pair:
+            for k in range(1, OFFGRID_PAIR_FRAMES + 1):
+                forks = [e.fork() for _ in FAST_PAIR_QIS]
+                for (payload, _), f in zip(
+                        encode_inter_fast.encode_interframe_fast_multiqp(
+                            forks, frames[k], [QuantIndices(y_ac_qi=q)
+                                               for q in FAST_PAIR_QIS]),
+                        forks):
+                    kept(payload, f, k)
+                e = forks[0]        # on with the first quantizer's stream
+        else:
+            for k in range(1, OFFGRID_FRAMES):
+                kept(e.encode_with_quantizer(frames[k], FAST_QI), e, k)
+    return pls, mhs, quals, patched
+
+
+def offgrid_rebase(frames, width, height, work):
+    """xc enc -O of chunk 0 (frames 0-3) and xc enc of the prediction
+    chunk (frames 4-7) at REBASE_QI, then xc enc -r of the prediction onto
+    chunk 0's state at REBASE_KF_WEIGHT, through the port's CLI on the
+    card; the same rebase through the API for the encoder's minihash
+    after each frame.  Returns (chunk 0's, the prediction's and the
+    rebased payloads, {check: ok})."""
+    f = lambda name: os.path.join(work, name)
+    write_y4m(f("og_chunk0.y4m"), frames[:OFFGRID_CHUNK], width, height)
+    write_y4m(f("og_chunk1.y4m"), frames[OFFGRID_CHUNK:OFFGRID_FRAMES],
+              width, height)
+    qi, dev = str(REBASE_QI), ["--device", str(DEV)]
+    rcs = [xc.main(["enc", f("og_chunk0.y4m"), "-y", qi, "-o",
+                    f("og_chunk0.ivf"), "-O", f("og_chunk0.state")] + dev),
+           xc.main(["enc", f("og_chunk1.y4m"), "-y", qi, "-o",
+                    f("og_pred.ivf")] + dev),
+           xc.main(["enc", f("og_chunk1.y4m"), "-r", "-I",
+                    f("og_chunk0.state"), "-p", f("og_pred.ivf"), "-w",
+                    str(REBASE_KF_WEIGHT), "-o", f("og_rebased.ivf")] + dev)]
+    chunk0, pred_pls, rebased = (list(IVFReader(f(n))) for n in (
+        "og_chunk0.ivf", "og_pred.ivf", "og_rebased.ivf"))
+    with open(f("og_chunk0.state"), "rb") as fh:
+        state = fh.read()
+    pred = RB.parse_prediction(pred_pls, Decoder(width, height, device=DEV))
+    enc = Encoder(width, height, device=DEV)
+    enc.state, enc.references = serdes.load_decoder(state, device=DEV)
+    sink = FrameSink(enc)
+    RB.reencode(enc, frames[OFFGRID_CHUNK:OFFGRID_FRAMES], pred,
+                REBASE_KF_WEIGHT, False, sink)
+    # chunk 0 decoded from scratch writes the bytes of its state file; the
+    # rebased frames, decoded from that state, reach the encoder's minihash
+    # after each
+    dec = Decoder(width, height, device=DEV)
+    for p in chunk0:
+        dec.decode_frame(p)
+    s0, r0 = serdes.load_decoder(state, device=DEV)
+    ok = {"cli_exit_codes": all(rc in (0, None) for rc in rcs),
+          "chunk0_decoded_state_file": serdes.save_decoder(
+              dec.state, dec.references) == state,
+          "api_payloads_equal_cli": sink.payloads == rebased}
+    dec = Decoder(width, height, state=s0, references=r0, device=DEV)
+    decoded = []
+    for p, mh in zip(rebased, sink.minihashes):
+        dec.decode_frame(p)
+        decoded.append(dec.minihash() == mh)
+    ok["rebased_decode_minihash"] = bool(decoded) and all(decoded)
+    return chunk0 + pred_pls + rebased, ok
+
+
+def offgrid_encode_phase(card):
+    """The offgrid_encode phase (see the module docstring); returns its
+    result line."""
+    t0 = time.perf_counter()
+    frames = [r.display() for r in FilePlayer(OFFGRID_CLIP, device=DEV)]
+    ivf = IVFReader(OFFGRID_CLIP)
+    width, height = ivf.width, ivf.height
+    work = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    serial = serial_rt_reference(frames, width, height,
+                                 range(1, OFFGRID_FRAMES))
+
+    # the off-grid encode path: counters to 0 just before, read just after
+    zero_counts()
+    got, decode_ok, per_run, runs = {}, {}, {}, {}
+    for name in OFFGRID_RUNS:
+        before = read_counts()[0]
+        pls, mhs, quals, patched = runs[name] = offgrid_encode_run(
+            name, frames, width, height)
+        per_run[name] = {k: v - before[k] for k, v in read_counts()[0].items()
+                         if v - before[k]}
+        got.update(zip(offgrid_labels(name), pls))
+        decode_ok[name] = redecode_ok(pls, mhs, offgrid_step(name), width,
+                                      height)
+    before = read_counts()[0]
+    pls, rebase_ok = offgrid_rebase(frames, width, height, work)
+    per_run["rebase"] = {k: v - before[k] for k, v in read_counts()[0].items()
+                         if v - before[k]}
+    got.update(zip(offgrid_labels("rebase"), pls))
+    calls, kernels = read_counts()
+    sha_ok = {k: hashlib.sha1(p).hexdigest() == OFFGRID_ENCODE_SHA1.get(k)
+              for k, p in got.items()}
+    parity = {name: rd_parity((name, runs[name][0], None, None,
+                               runs[name][2]), *serial)
+              for name in ("fast", "patch_bpred")}
+    line = dict(
+        card=card, width=width, height=height, frames=len(frames),
+        payloads=len(got), seconds=time.perf_counter() - t0,
+        sha1_ok=all(sha_ok.values()) and set(got) == set(OFFGRID_ENCODE_SHA1),
+        sha1_differing=sorted(k for k, ok in sha_ok.items() if not ok),
+        decode_minihash_ok={k: all(v) for k, v in decode_ok.items()},
+        rebase=rebase_ok,
+        rd_parity={k: v[0] for k, v in parity.items()},
+        rd_parity_ok={k: v[1] for k, v in parity.items()},
+        patched_mbs_per_frame={k: runs[k][3] for k in FAST_RUNS
+                               if FAST_RUNS[k][0]},
+        sizes={k: [len(p) for p in v[0]] for k, v in runs.items()},
+        launches=calls, kernel_launches=kernels, launches_by_run=per_run)
+    say("offgrid_encode", **line)
+    if not line["sha1_ok"]:
+        raise SystemExit("off-grid encodes differ from OFFGRID_ENCODE_SHA1: "
+                         "%s" % (line["sha1_differing"]
+                                 or sorted(set(OFFGRID_ENCODE_SHA1)
+                                           ^ set(got))))
+    if not all(line["decode_minihash_ok"].values()) \
+            or not all(rebase_ok.values()):
+        raise SystemExit("an off-grid frame does not re-decode to its "
+                         "encoder's minihash: %s %s"
+                         % (line["decode_minihash_ok"], rebase_ok))
+    if not all(v[1] for v in parity.values()):
+        raise SystemExit("the off-grid fast stream left the serial rt "
+                         "encoder's RD band")
+    encode_kernels = ("predict_mb_tiles", "loop_filter", "encode_kf_frame",
+                      "encode_inter_frame", "decide_inter_frame",
+                      "intra_fixup_frame", "rebase_frame")
+    if any(calls[k] <= 0 or kernels[k] != calls[k] for k in encode_kernels):
+        raise SystemExit("the off-grid encodes did not launch K3, K5, K7, "
+                         "K8, K9, K10 and the residue kernel, each one "
+                         "launch a call")
+    if per_run["patch_bpred"].get("intra_fixup_frame") \
+            or not per_run["fast"].get("intra_fixup_frame"):
+        raise SystemExit("K10 ran in the off-grid host-patch stream, or not "
+                         "in the fast stream")
+    return line
+
+
+def padded_raster(raster):
+    """A decoded raster's display planes padded with zeros to whole
+    macroblocks on the card, as the encoder uploads them (kf_args takes
+    its y, u, v)."""
+    r = _pad_raster(*raster.display(), raster.display_width,
+                    raster.display_height)
+    return SimpleNamespace(**{p: torch.from_numpy(getattr(r, p)).to(DEV)
+                              for p in "yuv"})
+
+
 # ----------------------------------------------------------- main path
 
 def decode_all(payloads, width, height, digest, engine="auto"):
@@ -2854,8 +3422,8 @@ def state_round_trip(payloads, width, height, k=3):
 
 def persistent_paths(card, payloads, want, width, height):
     """The single-frame path (counters to 0 just before, read just after),
-    then the keyframe_encode, inter_encode and fast_encode phases; returns
-    their four result lines."""
+    then the corpus_decode, keyframe_encode, inter_encode, fast_encode and
+    offgrid_encode phases; returns their six result lines."""
     zero_counts()
     sf_ok = single_frame_decode(digest=True) == want
     sf_calls, sf_kernels = read_counts()
@@ -2897,11 +3465,13 @@ def persistent_paths(card, payloads, want, width, height):
     if sf_kernels["loop_filter"] != sf_calls["loop_filter"]:
         raise SystemExit("K5 did not launch one persistent kernel per call")
 
+    cd = corpus_decode_phase(card)
     kf = keyframe_encode_phase(card, width, height)
     inter = inter_encode_phase(card, width, height)
     fast = fast_encode_phase(card, width, height,
                              inter["speed"]["rt_qi48"]["ms_per_interframe"])
-    return single, kf, inter, fast
+    og = offgrid_encode_phase(card)
+    return single, cd, kf, inter, fast, og
 
 
 # the memory_checks phase's time limit on the card
@@ -2972,12 +3542,16 @@ def memory_checks_phase(card):
         runs = poison_check.check_case(call, args, want)
         k = kernels.setdefault(kernel, dict(
             cases=0, runs=0, differences=0, broken_guards=0, guards=0,
+            allocated_guards=0, broken_allocated_guards=0,
             cache_filled_min=None, cache_left_max=0, failing=[]))
         k["cases"] += 1
         k["runs"] += len(runs)
         k["differences"] += sum(not r["equal"] for r in runs)
         k["broken_guards"] += sum(r["broken_guards"] for r in runs)
         k["guards"] += sum(r["guards"] for r in runs)
+        k["allocated_guards"] += sum(r["allocated_guards"] for r in runs)
+        k["broken_allocated_guards"] += sum(r["broken_allocated_guards"]
+                                            for r in runs)
         filled = min(r["cache_filled"] for r in runs)
         k["cache_filled_min"] = filled if k["cache_filled_min"] is None \
             else min(k["cache_filled_min"], filled)
@@ -2995,7 +3569,8 @@ def memory_checks_phase(card):
         card=card, seconds=seconds,
         controls_caught={k: v["caught"] for k, v in ctl.items()},
         kernels={k: {f: v[f] for f in ("cases", "runs", "differences",
-                                      "broken_guards")}
+                                      "broken_guards", "allocated_guards",
+                                      "broken_allocated_guards")}
                  for k, v in kernels.items()},
         streams_matching=streams["streams_matching"],
         streams=streams["streams"])
@@ -3003,9 +3578,13 @@ def memory_checks_phase(card):
     if not all(v["caught"] for v in ctl.values()):
         raise SystemExit("the memory check missed a positive control: %s"
                          % summary["controls_caught"])
-    if any(v["differences"] or v["broken_guards"] for v in kernels.values()):
+    if any(v["differences"] or v["broken_guards"]
+           or v["broken_allocated_guards"] for v in kernels.values()):
         raise SystemExit("a kernel's output changed with the fill, or it "
                          "broke a guard (memory_checks lines above)")
+    if any(not v["allocated_guards"] for v in kernels.values()):
+        raise SystemExit("a kernel's wrapper allocated nothing through "
+                         "ops/alloc.py under the check")
     if streams["mismatches"] or streams["streams_matching"] \
             != streams["streams"]:
         raise SystemExit("a corrupted stream decodes on the card unlike on "
@@ -3020,6 +3599,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device")
     quick = "--quick" in sys.argv[1:]
+    t_start = time.perf_counter()
     card = smi()
     say("env", torch=torch.__version__, cuda=torch.version.cuda,
         python=sys.version.split()[0], card=card,
@@ -3052,6 +3632,18 @@ def main():
         k2_case("176x144 G=3 frame1", kept["mc"]),
         k1_case("176x144 frame1 interframe", kept["wave_inter"]),
         k1_case("176x144 frame0 key frame", kept["wave_key"]),
+    ]
+    # the G=14 batch of distinct QCIF clips: each GOP a different stream
+    qcif = corpus.groups()[0]
+    kept = real_kernel_inputs(
+        [[c.payloads[f] for c in qcif.clips] for f in (0, 1)], qcif.width,
+        qcif.height, len(qcif.clips))
+    distinct = [
+        k2_case("176x144 G=14 distinct clips frame1", kept["mc"]),
+        k1_case("176x144 G=14 distinct clips frame1 interframe",
+                kept["wave_inter"]),
+        k1_case("176x144 G=14 distinct clips frame0 key frame",
+                kept["wave_key"]),
     ]
 
     kept = real_kernel_inputs(payloads, ivf.width, ivf.height, G)
@@ -3108,7 +3700,16 @@ def main():
         over_residency_blocks=g5 * (ivf.height // 16))
     k5.append(k5_case("720p G=%d over-residency frame1 broadcast" % g5,
                       k5_tiled(sf[("loop_filter", 1)][0], g5)))
-    del sf, sf_small, synthetic
+    # off the grid: 90x48, 3 x 6 macroblocks with partial ones at the right
+    tiny = IVFReader(TINY_CLIP)
+    sf_tiny = single_frame_kernel_inputs([tiny.frame(0), tiny.frame(1)],
+                                         tiny.width, tiny.height)
+    k3.append(k3_case("90x48 frame1", sf_tiny[("predict_mb_tiles", 1)][0]))
+    k4 += [k4_case("90x48 frame1 interframe", sf_tiny[("intra_frame", 1)][0]),
+           k4_case("90x48 frame0 key frame", sf_tiny[("intra_frame", 0)][0])]
+    k5 += [k5_case("90x48 frame1 interframe", sf_tiny[("loop_filter", 1)][0]),
+           k5_case("90x48 frame0 key frame", sf_tiny[("loop_filter", 0)][0])]
+    del sf, sf_small, synthetic, sf_tiny
 
     # K7 on decoded frames: one-pass at two quantizers, two-pass under the
     # default token costs and under the tables after one key frame, at 720p
@@ -3240,7 +3841,39 @@ def main():
                            % (16 * rows11),
                            rebase_synthetic(56, 176, 16 * rows11, 48,
                                             "mixed")))
+    # off the grid: 360x242 (23 x 16 macroblocks, partial ones at the right
+    # and the bottom), the arguments the encoders hand over for
+    # OFFGRID_CLIP's frames (a scene cut before frame 4)
+    og = decoded_frames(OFFGRID_CLIP, tuple(range(OFFGRID_FRAMES)))
+    k7 += [k7_case("360x242 frame0 qi24", kf_args(padded_raster(og[0]), 24)),
+           k7_case("360x242 frame4 two-pass qi32 default tables",
+                   kf_args(padded_raster(og[4]), 32, tc_default))]
+    k8 += [k8_case("360x242 frame1 best qi48",
+                   k8_args(og[0], og[1], 48, [48])),
+           k8_case("360x242 frame1 rt pair qi56 -> (40, 72)",
+                   k8_args(og[0], og[1], INTER_PAIR_KEY_QI, INTER_PAIR_QIS,
+                           "rt")),
+           k8_case("360x242 scene cut: frame4 after frame0 two-pass qi32",
+                   k8_args(og[0], og[4], 32, [32], two_pass=True))]
+    og_fast = [("360x242 frame1 qi48",
+                fast_kernel_inputs(og[0], og[1], 48, [FAST_QI])),
+               ("360x242 frame1 pair qi56 -> (40, 72)", fast_kernel_inputs(
+                   og[0], og[1], FAST_PAIR_KEY_QI, FAST_PAIR_QIS)),
+               ("360x242 scene cut: frame4 after frame0 qi48",
+                fast_kernel_inputs(og[0], og[4], 48, [FAST_QI]))]
+    k9 += [k9_case(label, a9) for label, (a9, _, _) in og_fast]
+    k10 += [k10_case(label, a10) for label, (_, a10, _) in og_fast]
+    k3 += [k3_case("%s, LAST broadcast" % label, a3)
+           for label, (_, _, a3) in og_fast]
+    og_frames = [og[k].display() for k in range(OFFGRID_FRAMES)]
+    k11 += [rebase_case("360x242 rebased frame %d qi%d"
+                        % (OFFGRID_CHUNK + 1 + i, REBASE_QI), a)
+            for i, a in enumerate(rebase_kernel_inputs(
+                og_frames, og[0].display_width, og[0].display_height,
+                OFFGRID_CHUNK, OFFGRID_FRAMES))]
+    del og, og_fast, og_frames
     say("kernels", helpers=helper_plain_ms())
+    t_kernels = time.perf_counter() - t_start
     memory = memory_checks_phase(card)
     if quick:
         return
@@ -3309,10 +3942,11 @@ def main():
                                       "decide_inter_frame": enc_decide_cuda,
                                       "intra_fixup_frame":
                                           enc_intra_fixup_cuda,
-                                      "rebase_frame": rebase_cuda})
+                                      "rebase_frame": rebase_cuda,
+                                      "wavefront_decode": wavefront_cuda})
     try:
-        single, kf, inter, fast = persistent_paths(card, payloads, want,
-                                                   ivf.width, ivf.height)
+        single, cd, kf, inter, fast, og = persistent_paths(
+            card, payloads, want, ivf.width, ivf.height)
         rb = rebase_phase(card, ivf.width, ivf.height, rframes,
                           k11[0]["fetch_ms"])
         xt = xc_tools_phase(card, ivf.width, ivf.height, rframes)
@@ -3321,7 +3955,8 @@ def main():
         mesh = mesh_phase(card, ivf.width, ivf.height, payloads)
     finally:
         undo()
-    per_call.update(k1_calls)
+    for k, v in k1_calls.items():
+        per_call[k] = v + per_call.get(k, [])
     persistent = {k: {"calls": len(v), "launches_per_call": sorted(set(v))}
                   for k, v in per_call.items()}
     say("persistent_launches", **persistent)
@@ -3331,8 +3966,9 @@ def main():
                          "one kernel launch")
     # each kernel's calls on every path it runs on (the cluster's: those
     # of its rebase, in this process)
-    paths = (single["launches"], kf["launches"], inter["launches"],
-             fast["launches"], fast["host_patch"]["launches"],
+    paths = (single["launches"], cd["launches"], kf["launches"],
+             inter["launches"], fast["launches"],
+             fast["host_patch"]["launches"], og["launches"],
              rb["launches"], xt["launches"],
              cl["launches_in_this_process"], sal["launches"],
              mesh["launches"])
@@ -3355,11 +3991,12 @@ def main():
     print(json.dumps({"kernels": [
         entry("sixtap_mc", "alfalfa_tpu_torch/csrc/sixtap_mc.cu",
               "alfalfa_tpu/ops/sixtap_pallas.py:269",
-              gop_calls["sixtap_mc"], cases[0], cases[:2] + small_cases[:1]),
+              gop_calls["sixtap_mc"], cases[0],
+              cases[:2] + small_cases[:1] + distinct[:1]),
         entry("wavefront_decode", "alfalfa_tpu_torch/csrc/wavefront.cu",
               "alfalfa_tpu/ops/wavefront_pm.py:432",
               gop_calls["wavefront_decode"], cases[2],
-              cases[2:] + small_cases[1:]),
+              cases[2:] + small_cases[1:] + distinct[1:]),
         entry("predict_mb_tiles", "alfalfa_tpu_torch/csrc/sixtap_mc.cu",
               "alfalfa_tpu/ops/sixtap_pallas.py:347",
               calls_on_paths["predict_mb_tiles"], k3[0], k3),
@@ -3395,12 +4032,16 @@ def main():
     # again, so the end of the log has them
     say("throughput", **throughput)
     say("single_frame", **single)
+    say("corpus_decode", **{k: v for k, v in cd.items()
+                            if k != "batch_detail"})
     say("keyframe_encode", **{k: v for k, v in kf.items()
                               if k != "device_profile"})
     say("inter_encode", **{k: v for k, v in inter.items()
                            if k != "device_profile"})
     say("fast_encode", **{k: v for k, v in fast.items()
                           if k != "device_profile"})
+    say("offgrid_encode", **{k: v for k, v in og.items()
+                             if k not in ("sizes", "launches_by_run")})
     say("rebase", **{k: v for k, v in rb.items() if k != "device_profile"})
     say("xc_tools", **{k: v for k, v in xt.items() if k != "stage_report"})
     say("cluster", **cl)
@@ -3409,6 +4050,8 @@ def main():
     say("memory_checks", **memory)
     if simd is not None:
         say("main_path_simd", **simd)
+    say("total", card=card, seconds=time.perf_counter() - t_start,
+        to_memory_checks_s=t_kernels)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -183,13 +183,19 @@ def test_stream_tools_match_jax(tmp_path):
     alternate references with copies and sign bias, probability updates
     that persist): outputs byte-equal to the JAX CLI's.  Every frame of
     each stream parses and re-serializes through the port to its own
-    bytes."""
+    bytes.  The port's generator (``tools/feature_streams.py``, its key
+    frames on the CPU) writes each feature stream's bytes."""
     import gen_feature_streams as G
+    from alfalfa_tpu_torch.tools import feature_streams
     streams = [str(FIXTURES / (n + ".ivf")) for n in STREAM_FIXTURES]
     for name in FEATURE_STREAMS:
         path = str(tmp_path / (name + ".ivf"))
         getattr(G, "gen_" + name)(path)
         streams.append(path)
+        ported = str(tmp_path / (name + "_port.ivf"))
+        getattr(feature_streams, "gen_" + name)(ported, device="cpu")
+        with open(path, "rb") as want, open(ported, "rb") as got:
+            assert got.read() == want.read(), name
     state = str(FIXTURES / "dump_frame5.state")
     for src in streams:
         ivf = IVFReader(src)
