@@ -179,6 +179,16 @@ class Encoder:
         macroblock (same references, subsampled the same way), scale x16."""
         if key_frame is None:
             key_frame = self.frame_no == 0
+        sub, mosaic = self.trial_encoder(yuv, key_frame)
+        qi = QuantIndices(y_ac_qi=int(y_ac_qi))
+        payload, _ = sub._encode_frame(mosaic, qi, key_frame, update=False)
+        return len(payload) * self.SAMPLE_FACTOR ** 2
+
+    def trial_encoder(self, yuv, key_frame):
+        """The size estimator's trial encoder and the mosaic planes it
+        encodes: a fresh encoder of the mosaic's size on this encoder's
+        device, and for an interframe this encoder's LAST cut the same way
+        as its LAST, GOLDEN and ALTREF."""
         f = self.SAMPLE_FACTOR
         sub_rows = max(1, self.mb_rows // f)
         sub_cols = max(1, self.mb_cols // f)
@@ -200,10 +210,7 @@ class Encoder:
             sub.references.golden = sub.references.last
             sub.references.alternative = sub.references.last
             sub.frame_no = 1  # force interframe
-        qi = QuantIndices(y_ac_qi=int(y_ac_qi))
-        payload, _ = sub._encode_frame((my, mu, mv), qi, key_frame,
-                                       update=False)
-        return len(payload) * f * f
+        return sub, (my, mu, mv)
 
     def encode_with_minimum_ssim(self, yuv, minimum_ssim, key_frame=None):
         """Binary search on y_ac_qi for the target SSIM

@@ -291,6 +291,16 @@ class SalsifySender:
         self.cc_rate_ewma = int(0.8 * cc_rate + 0.2 * self.cc_rate_ewma)
         self.next_cc_update = now + self.cc_update_interval
 
+    def frame_budget(self):
+        """The bytes the next frame may take: effectively unbounded until
+        the first ACK teaches us the path capacity (must stay an int:
+        inf-x < inf is never true), then target_size's."""
+        if self.avg_delay is None:
+            return 1 << 62
+        return target_size(self.avg_delay, self.last_acked or 0,
+                           self.cumulative_fpf[-1]
+                           if self.cumulative_fpf else 0)
+
     def handle_encodes_done(self):
         self._end_r.recv(1)
         outputs, self._pending = self._pending, None
@@ -299,14 +309,7 @@ class SalsifySender:
             if not outputs:
                 return ResultType.Continue
 
-            # effectively-unbounded budget until the first ACK teaches us
-            # the path capacity (must stay an int: inf-x < inf is never true)
-            frame_size = 1 << 62
-            if self.avg_delay is not None:
-                frame_size = target_size(self.avg_delay,
-                                         self.last_acked or 0,
-                                         self.cumulative_fpf[-1]
-                                         if self.cumulative_fpf else 0)
+            frame_size = self.frame_budget()
 
             # largest output that fits (sender.cc:565-580)
             best = None

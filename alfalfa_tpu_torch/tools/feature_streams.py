@@ -6,14 +6,18 @@ semantics, several token partitions, and persistent probability updates.
 
     python -m alfalfa_tpu_torch.tools.feature_streams OUTDIR [--device cpu]
 
-Four 176x144 streams (4, 4, 6 and 5 frames, all shown): ``gen_splitmv``,
+Four streams (4, 4, 6 and 5 frames, all shown): ``gen_splitmv``,
 ``gen_segmentation``, ``gen_goldalt`` and ``gen_probs``, each from its
-seed.  Each starts with a key frame from the port's ``Encoder`` (on
-``device``); every later frame is built as parsed arrays, deriving each
-motion vector with the parser's own census, clamp and sub-vector context
-rules (``decoder/parse.py``), and serialized by ``encoder/serializer.py``,
-so parsing the bytes gives back exactly the arrays set.  The bytes are the
-JAX package's test generator's (``tests/gen_feature_streams.py``), which
+seed, at 176x144 by default or at any ``size=(width, height)`` given
+to the generators or ``write_all``; at a size off the 16-pixel grid the
+macroblock grid is rounded up, as the parser rounds it, and the partial
+macroblocks at the right and the bottom are authored like any other.  Each starts with a
+key frame from the port's ``Encoder`` (on ``device``); every later frame
+is built as parsed arrays, deriving each motion vector with the parser's
+own census, clamp and sub-vector context rules (``decoder/parse.py``),
+and serialized by ``encoder/serializer.py``, so parsing the bytes gives
+back exactly the arrays set.  At 176x144 the bytes are the JAX package's
+test generator's (``tests/gen_feature_streams.py``), which
 ``tests/test_torch_xc_tools.py`` checks.
 """
 import os
@@ -36,28 +40,41 @@ from alfalfa_tpu_torch.state.decoder_state import DecoderState
 from alfalfa_tpu_torch.util.ivf import IVFWriter
 
 W, H = 176, 144
-R, C = H // 16, W // 16
+# the off-grid size: partial macroblocks at the right and the bottom (11 x
+# 9 macroblocks, the last column 10 pixels wide, the last row 10 high)
+OFFGRID_SIZE = (170, 138)
 
 
-def _random_planes(seed=7):
+def _grid(width, height):
+    """Macroblock rows and columns, rounded up as the parser rounds them."""
+    return (height + 15) // 16, (width + 15) // 16
+
+
+def _random_planes(seed, width, height):
+    """Blocky seeded planes over the whole macroblock grid, cut to the
+    display size."""
     rng = np.random.RandomState(seed)
-    base = rng.randint(60, 196, (H // 16, W // 16, 3)).astype(np.uint8)
+    base = rng.randint(60, 196, _grid(width, height) + (3,)).astype(np.uint8)
     y = np.kron(base[:, :, 0], np.ones((16, 16), np.uint8))
     u = np.kron(base[:, :, 1], np.ones((8, 8), np.uint8))
     v = np.kron(base[:, :, 2], np.ones((8, 8), np.uint8))
     y = (y + rng.randint(-8, 8, y.shape)).clip(0, 255).astype(np.uint8)
-    return y, u, v
+    cw, ch = (width + 1) // 2, (height + 1) // 2
+    return (np.ascontiguousarray(y[:height, :width]),
+            np.ascontiguousarray(u[:ch, :cw]),
+            np.ascontiguousarray(v[:ch, :cw]))
 
 
 class InterFrameBuilder:
     """Fills FrameArrays mode-by-mode, deriving MVs exactly as the parser
     would reconstruct them, so serialize(parse(x)) == x by construction."""
 
-    def __init__(self, header, rng):
+    def __init__(self, header, rng, rows, cols):
         self.h = header
         self.rng = rng
-        self.a = FrameArrays(R, C)
-        self.flipped = np.zeros((R, C), bool)
+        self.R, self.C = rows, cols
+        self.a = FrameArrays(rows, cols)
+        self.flipped = np.zeros((rows, cols), bool)
 
     # -- helpers ---------------------------------------------------------
 
@@ -103,13 +120,13 @@ class InterFrameBuilder:
         a.ymode[r, c] = mode
         a.y2_coded[r, c] = True
         if mode == T.NEARESTMV:
-            base = clamp_mv(nearest, c, r, C, R)
+            base = clamp_mv(nearest, c, r, self.C, self.R)
         elif mode == T.NEARMV:
-            base = clamp_mv(near, c, r, C, R)
+            base = clamp_mv(near, c, r, self.C, self.R)
         elif mode == T.ZEROMV:
             base = (0, 0)
         elif mode == T.NEWMV:
-            cb = clamp_mv(best, c, r, C, R)
+            cb = clamp_mv(best, c, r, self.C, self.R)
             base = (cb[0] + delta[0], cb[1] + delta[1])
         else:
             raise ValueError(mode)
@@ -127,7 +144,7 @@ class InterFrameBuilder:
         flip = self._flip_of(ref)
         self.flipped[r, c] = flip
         best, _, _, _ = mv_census(a, self.flipped, r, c, flip)
-        cb = clamp_mv(best, c, r, C, R)
+        cb = clamp_mv(best, c, r, self.C, self.R)
         a.ymode[r, c] = T.SPLITMV
         a.y2_coded[r, c] = False
         a.splitmv_pid[r, c] = pid
@@ -175,10 +192,10 @@ class InterFrameBuilder:
                     tuple(a.sub_mv[r, c, ur * 2 + 1, uc * 2 + 1]))
 
 
-def _advance(state, payload):
+def _advance(state, payload, size):
     """Parse the authored frame against the live state (advances probs /
     segmentation) and sanity-check parse(serialize) succeeded."""
-    chunk = UncompressedChunk(payload, W, H)
+    chunk = UncompressedChunk(payload, *size)
     FrameParser(state).parse(chunk)
 
 
@@ -195,31 +212,33 @@ def _base_header(**kw):
     return h
 
 
-def _start(seed, device):
+def _start(seed, device, size):
     """Common start: keyframe via the real encoder, then a live state."""
-    enc = Encoder(W, H, device=device)
-    kf = enc.encode_with_quantizer(_random_planes(seed), 40, key_frame=True)
-    state = DecoderState.initial(W, H)
-    _advance(state, kf)
+    enc = Encoder(*size, device=device)
+    kf = enc.encode_with_quantizer(_random_planes(seed, *size), 40,
+                                   key_frame=True)
+    state = DecoderState.initial(*size)
+    _advance(state, kf, size)
     return kf, state
 
 
-def _serialize(state, header, arrays):
+def _serialize(state, header, arrays, size):
     frame_probs = state.probability_tables.copy()
     frame_probs.update(header)
-    return serialize_frame(header, arrays, frame_probs, False, W, H)
+    return serialize_frame(header, arrays, frame_probs, False, *size)
 
 
-def gen_splitmv(path, seed=11, device=None):
+def gen_splitmv(path, seed=11, device=None, size=(W, H)):
     """SPLITMV: all four partition schemes, all four sub-MV modes, mixed
     with NEW/NEAREST/NEAR/ZERO whole-MB modes and 2..8 token partitions."""
     rng = np.random.RandomState(seed)
-    kf, state = _start(seed, device)
+    kf, state = _start(seed, device, size)
+    R, C = _grid(*size)
     frames = [kf]
 
     for fno, log2parts in ((0, 1), (1, 2), (2, 3)):
         h = _base_header(log2_number_of_dct_partitions=log2parts)
-        b = InterFrameBuilder(h, rng)
+        b = InterFrameBuilder(h, rng, R, C)
         modes = [T.ZEROMV, T.NEARESTMV, T.NEARMV, T.NEWMV]
         sub = [T.LEFT4X4, T.ABOVE4X4, T.ZERO4X4, T.NEW4X4]
         for r in range(R):
@@ -238,18 +257,19 @@ def gen_splitmv(path, seed=11, device=None):
                              (rng.randint(-40, 40), rng.randint(-24, 24)))
                             for _ in range(nparts)]
                     b.set_splitmv(r, c, T.LAST_FRAME, pid, plan)
-        payload = _serialize(state, h, b.a)
-        _advance(state, payload)
+        payload = _serialize(state, h, b.a, size)
+        _advance(state, payload, size)
         frames.append(payload)
-    _write_ivf(path, frames)
+    _write_ivf(path, frames, size)
 
 
-def gen_segmentation(path, seed=13, device=None):
+def gen_segmentation(path, seed=13, device=None, size=(W, H)):
     """Segmentation: map coded on frame 1 (persisting), absolute and
     relative per-segment quantizer + loop-filter deltas, map reuse on
     frame 2, map update on frame 3."""
     rng = np.random.RandomState(seed)
-    kf, state = _start(seed, device)
+    kf, state = _start(seed, device, size)
+    R, C = _grid(*size)
     frames = [kf]
 
     for fno in range(3):
@@ -269,7 +289,7 @@ def gen_segmentation(path, seed=13, device=None):
                              ref_update=[2, -2, None, 4],
                              mode_update=[1, None, -3, None])
                          if fno == 0 else None)
-        b = InterFrameBuilder(h, rng)
+        b = InterFrameBuilder(h, rng, R, C)
         for r in range(R):
             for c in range(C):
                 if update_map:
@@ -283,17 +303,18 @@ def gen_segmentation(path, seed=13, device=None):
                                 delta=(rng.randint(-32, 32),
                                        rng.randint(-24, 24)),
                                 zero_coeffs=(k == 4))
-        payload = _serialize(state, h, b.a)
-        _advance(state, payload)
+        payload = _serialize(state, h, b.a, size)
+        _advance(state, payload, size)
         frames.append(payload)
-    _write_ivf(path, frames)
+    _write_ivf(path, frames, size)
 
 
-def gen_goldalt(path, seed=17, device=None):
+def gen_goldalt(path, seed=17, device=None, size=(W, H)):
     """Golden/alternate prediction with sign-bias flips and the full
     refresh/copy semantics (frame.cc:271-307)."""
     rng = np.random.RandomState(seed)
-    kf, state = _start(seed, device)
+    kf, state = _start(seed, device, size)
+    R, C = _grid(*size)
     frames = [kf]
 
     configs = [
@@ -306,7 +327,7 @@ def gen_goldalt(path, seed=17, device=None):
     ]
     for fno, cfg in enumerate(configs):
         h = _base_header(**cfg)
-        b = InterFrameBuilder(h, rng)
+        b = InterFrameBuilder(h, rng, R, C)
         refs = [T.LAST_FRAME, T.GOLDEN_FRAME, T.ALTREF_FRAME]
         for r in range(R):
             for c in range(C):
@@ -318,17 +339,18 @@ def gen_goldalt(path, seed=17, device=None):
                                 [T.ZEROMV, T.NEWMV][k % 2],
                                 delta=(rng.randint(-40, 40),
                                        rng.randint(-24, 24)))
-        payload = _serialize(state, h, b.a)
-        _advance(state, payload)
+        payload = _serialize(state, h, b.a, size)
+        _advance(state, payload, size)
         frames.append(payload)
-    _write_ivf(path, frames)
+    _write_ivf(path, frames, size)
 
 
-def gen_probs(path, seed=19, device=None):
+def gen_probs(path, seed=19, device=None, size=(W, H)):
     """Entropy-probability persistence: refresh_entropy_probs on/off with
     token, MV, and intra-mode probability updates."""
     rng = np.random.RandomState(seed)
-    kf, state = _start(seed, device)
+    kf, state = _start(seed, device, size)
+    R, C = _grid(*size)
     frames = [kf]
 
     for fno in range(4):
@@ -347,7 +369,7 @@ def gen_probs(path, seed=19, device=None):
             if fno == 1 else None,
             intra_chroma_prob=[int(rng.randint(1, 255)) for _ in range(3)]
             if fno == 1 else None)
-        b = InterFrameBuilder(h, rng)
+        b = InterFrameBuilder(h, rng, R, C)
         for r in range(R):
             for c in range(C):
                 k = (r + c + fno) % 4
@@ -359,14 +381,15 @@ def gen_probs(path, seed=19, device=None):
                                 [T.ZEROMV, T.NEARESTMV, T.NEWMV][k - 1],
                                 delta=(rng.randint(-16, 16),
                                        rng.randint(-16, 16)))
-        payload = _serialize(state, h, b.a)
-        _advance(state, payload)
+        payload = _serialize(state, h, b.a, size)
+        _advance(state, payload, size)
         frames.append(payload)
-    _write_ivf(path, frames)
+    _write_ivf(path, frames, size)
 
 
-def _write_ivf(path, frames):
-    w = IVFWriter(str(path), width=W, height=H, frame_rate=30, time_scale=1)
+def _write_ivf(path, frames, size):
+    w = IVFWriter(str(path), width=size[0], height=size[1], frame_rate=30,
+                  time_scale=1)
     for f in frames:
         w.append_frame(f)
     w.close()
@@ -380,13 +403,13 @@ GENERATORS = {
 }
 
 
-
-def write_all(outdir, device=None):
-    """Write the four streams into ``outdir``; returns {name: path}."""
+def write_all(outdir, device=None, size=(W, H)):
+    """Write the four streams at ``size`` into ``outdir``; returns {name:
+    path}."""
     out = {}
     for name, gen in GENERATORS.items():
         out[name] = os.path.join(outdir, name)
-        gen(out[name], device=device)
+        gen(out[name], device=device, size=size)
     return out
 
 

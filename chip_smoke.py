@@ -5,6 +5,12 @@
     python3 chip_smoke.py --quick    # env, build, kernels and memory
                                      # checks only (first look at a
                                      # changed kernel)
+    python3 chip_smoke.py --only salsify_link,target_size_encode
+                                     # env, build and the named paths
+                                     # alone (corpus_decode,
+                                     # offgrid_encode, target_size_encode,
+                                     # salsify, salsify_link): no kernel
+                                     # cases, no memory checks
 
 Builds the CUDA kernels and the native host parsers from the sources in
 this checkout (one nvcc per kernel source, all at once), and holds each
@@ -30,7 +36,12 @@ clip.  Off the first two fixtures: K1 and K2 on frames 0 and 1 of a G=14
 batch of different QCIF clips, K3, K4 and K5 on frames 0 and 1 of the
 90x48 clip (3 x 6 macroblocks), and K7, K8, K9, K10, K3 and the residue
 kernel on what the encoders hand them at 360x242 (partial macroblocks at
-the right and the bottom).  K1, K4, K5, K7, K8, K9, K10 and the residue kernel are persistent
+the right and the bottom); K1 and K2 on frames 0 and 1 of the four
+feature streams at 170x138 as one G=4 batch and K3 on frame 1 of two of
+them (SPLITMV, golden/altref: the authored features off the grid); K7,
+K8 (best, rt), K9, K10 and K3 on what the size search's trial encoder
+hands them at the 720p mosaic (11 x 20 macroblocks, 320x176).  K1, K4,
+K5, K7, K8, K9, K10 and the residue kernel are persistent
 (one launch a call, blocks walking rows behind progress flags): each of
 their 720p cases runs 10 (K5, K7) or REPEATS (K1, K4, K8, K9, K10, the
 residue kernel) times more, every run held to the plain output, since a
@@ -72,8 +83,11 @@ tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
   clip through FilePlayer; the four streams of tools/feature_streams.py
   (SPLITMV, segmentation, golden/altref with sign bias, probability
   updates) through FilePlayer and a G=1 GOP decoder, and together as one
-  G=4 batch, frame by frame against FEATURE_SHA1; xc decode of the
-  360x242 clip to y4m (XC_DECODE_Y4M_SHA1: the JAX CLI's bytes);
+  G=4 batch, frame by frame against FEATURE_SHA1; the same four streams
+  at 170x138 (off the grid) through a Decoder, FilePlayer and xc decode,
+  and as one G=4 batch under each token engine, frame by frame against
+  FEATURE_OFFGRID_SHA1; xc decode of the 360x242 clip to y4m
+  (XC_DECODE_Y4M_SHA1: the JAX CLI's bytes);
 - keyframe_encode: the port's Encoder encodes decoded frames 0 and 3 as key
   frames (KF_ENCODE_SHA1: the JAX package's encoder's frames), and the
   port's Decoder re-decodes every frame to the encoder's minihash;
@@ -100,6 +114,15 @@ tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
   4-7): every frame against OFFGRID_ENCODE_SHA1 (the JAX package's),
   re-decoded to the encoder's minihash, the fast streams in the serial rt
   encoder's RD band, no K10 launch in the host-patch stream;
+- target_size_encode: xc enc -F (one target size a frame) over decoded
+  frames 0-5 of the 720p fixture and of the 360x242 clip in best, rt and
+  rt --fast, each size search binary-searching the quantizer with trial
+  encodes of a mosaic of every 4th macroblock (320x176 and 80x64);
+  every payload against TARGET_SIZE_SHA1 (the JAX CLI's), re-decoded from
+  scratch to the encoder's minihash, within its target unless the search
+  took its floor branch (no quantizer's estimate fitting: frame 3 in each
+  run); each search's trial encodes (at least three), and the K7, K8, K9
+  and K10 calls made inside them;
 - rebase: ExCamera's xc-enc -I/-O and -r through the port's CLI: chunk 0
   (decoded frames 0-2) and an independent prediction chunk (frames 3-5)
   encoded at qi 48, then the prediction rebased onto chunk 0's state at
@@ -115,7 +138,9 @@ tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
   chunks (the merged stream's y4m; CLUSTER_MINIHASH after each frame), xc
   ssim, zero-out-residues and dissect (XC_TOOLS_*: the JAX package's CLI's
   output), xc --timings and --profile (a trace naming K3's, K4's and K5's
-  kernels); then the residue update's ms a frame (its upload, the
+  kernels), xc decode-raw of the 720p fixture and of the 360x242 clip
+  (XC_DECODE_RAW_SHA1: the JAX CLI's bytes); then the residue update's
+  ms a frame (its upload, the
   residue kernel and the coefficient fetch), four turns;
 - cluster: xc enc-parallel over frames 0-5 in chunks of 3, two worker
   processes on the card, then the serial rebase (CLUSTER_SHA1); FilePlayer
@@ -130,6 +155,21 @@ tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
   decoded by a fresh Decoder from its advertised source state, reaches its
   target minihash; encode ms p50/p95 beside Salsify's 33 ms design
   point, frame gaps, bytes, skips and the receiver's decode ms;
+- salsify_link: the same sender and receiver through net/emulation.py's
+  EmulatedLink (SALSIFY_LINK_TRACE: an LTE-like trace whose dips bind the
+  budget) at 720p, s2 and conventional mode, up to SALSIFY_LINK_FRAMES
+  frames sent each: tests/test_net_emulation.py's gates (s2 at least half
+  of SALSIFY_LINK_FRAMES received, conventional mode, which skips every
+  frame that does not fit, at least half of what it sends; the link's
+  deliveries and ACKs counted; in s2, among the sends with a delay from
+  the ACKs, smaller frames at a high delay than at a low one, correlation
+  below -0.2); in both modes every send-or-skip choice, logged with the
+  frame budget it read, follows sender.cc's rule (the largest output that
+  fits, else a skip, else after MAX_SKIPPED skips the fail-small output)
+  and at least one frame is skipped; in s2 at least one fail-small output
+  is sent after MAX_SKIPPED skips; every payload sent reaches its target
+  minihash from its advertised source state; then xc run-contest over 12
+  frames and the same trace as a mahimahi file, its printed counts;
 - mesh: parallel/gop.py's multi-device steps in this one process, on the
   visible cards and on a 4-shard mesh over cuda:0 (four ring hops):
   gop_decode_step on frames 1-4 against the single-frame Decoder's SHA-1s,
@@ -141,8 +181,9 @@ tests/fixtures/inter_1280x720_q48.ivf and checks each output's SHA-1:
 Each path runs with the launch counts set to 0 just before it and read
 just after, and every K1 and six-tap call of the GOP and corpus paths
 and every K3, K4, K5, K7, K8, K9, K10 and residue-kernel call of the
-single-frame, corpus, encode, off-grid, rebase, xc tools, cluster,
-Salsify and mesh paths is checked to be one kernel launch (`main_path`,
+single-frame, corpus, encode, off-grid, target-size, rebase, xc tools,
+cluster, Salsify, Salsify link and mesh paths is checked to be one
+kernel launch (`main_path`,
 `persistent_launches`); the last lines are the `kernels` JSON line (one
 entry per kernel), the script's total seconds, the card's name and power
 limit, and the result line.
@@ -180,6 +221,7 @@ from alfalfa_tpu_torch.encoder.trellis import token_costs_pm
 from alfalfa_tpu_torch.input.frame_input import FrameInput
 from alfalfa_tpu_torch.native import bitwork, enckernel
 from alfalfa_tpu_torch.net import Packet
+from alfalfa_tpu_torch.net.emulation import EmulatedLink, lte_like_trace
 from alfalfa_tpu_torch.ops import enc_batch, enc_decide, enc_decide_cuda, \
     enc_inter, enc_inter_cuda, enc_intra, enc_intra_cuda, enc_intra_fixup, \
     enc_intra_fixup_cuda, enc_transforms, intra_cuda, lf_cuda, rebase, \
@@ -188,6 +230,7 @@ from alfalfa_tpu_torch.ops import enc_batch, enc_decide, enc_decide_cuda, \
 from alfalfa_tpu_torch.parallel import gop
 from alfalfa_tpu_torch.parallel.cluster import parallel_encode
 from alfalfa_tpu_torch.salsify import SalsifyReceiver, SalsifySender
+from alfalfa_tpu_torch.salsify.sender import MAX_SKIPPED
 from alfalfa_tpu_torch.state import serdes
 from alfalfa_tpu_torch.state.decoder_state import Raster
 from alfalfa_tpu_torch.tools import corpus, feature_streams, poison_check, \
@@ -195,7 +238,7 @@ from alfalfa_tpu_torch.tools import corpus, feature_streams, poison_check, \
 from alfalfa_tpu_torch.util import tracing
 from alfalfa_tpu_torch.util.ivf import IVFReader
 from alfalfa_tpu_torch.util.ssim import ssim
-from alfalfa_tpu_torch.util.y4m import Y4MWriter
+from alfalfa_tpu_torch.util.y4m import Y4MReader, Y4MWriter
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CLIP = os.path.join(REPO, "tests", "fixtures", "inter_1280x720_q48.ivf")
@@ -1059,6 +1102,17 @@ def fast_kernel_inputs(key, frame, key_qi, qis):
                 fast=True, device=DEV)
     e.encode_with_quantizer(key.display(), key_qi, key_frame=True)
     return recorded_fast_frame(e, frame.display(), qis)
+
+
+def mosaic_trial(key, frame, key_qi=48, **kw):
+    """The size estimator's trial encoder and the mosaic planes it encodes
+    for the decoded ``frame``: of a fresh encoder (``kw``) on the card, or,
+    with a ``key``, of one that has encoded ``key`` as a key frame at
+    ``key_qi`` (``frame`` then an interframe)."""
+    e = Encoder(frame.display_width, frame.display_height, device=DEV, **kw)
+    if key is not None:
+        e.encode_with_quantizer(key.display(), key_qi, key_frame=True)
+    return e.trial_encoder(frame.display(), key is None)
 
 
 def recorded_fast_frame(e, planes, qis):
@@ -2097,12 +2151,15 @@ XC_TOOLS_TEXT_SHA1 = {
 PROFILE_KERNELS = ("mc_planes_kernel", "intra_row_kernel", "lf_row_kernel")
 
 
-def run_xc(argv, stdin=None):
+def run_xc(argv, stdin=None, binary=False):
     """The port's xc.main(argv) in this process, on the card: (exit code,
-    stdout, stderr, wall ms with the device drained at both ends)."""
+    stdout, stderr, wall ms with the device drained at both ends); with
+    ``binary``, stdout as the bytes written to sys.stdout.buffer."""
     import contextlib
     import io
     out, err = io.StringIO(), io.StringIO()
+    if binary:
+        out = io.TextIOWrapper(io.BytesIO(), write_through=True)
     saved = sys.stdin
     if stdin is not None:
         sys.stdin = io.StringIO(stdin)
@@ -2115,7 +2172,8 @@ def run_xc(argv, stdin=None):
                 rc = e.code
     finally:
         sys.stdin = saved
-    return rc or 0, out.getvalue(), err.getvalue(), (sync_clock() - t0) * 1e3
+    return (rc or 0, out.buffer.getvalue() if binary else out.getvalue(),
+            err.getvalue(), (sync_clock() - t0) * 1e3)
 
 
 def frame_sha1(path):
@@ -2158,8 +2216,8 @@ def xc_tools_phase(card, width, height, frames):
         for old in os.listdir(profile_dir):
             os.remove(os.path.join(profile_dir, old))
 
-    def step(name, argv, stdin=None):
-        rc, out, err, wall = run_xc(argv, stdin)
+    def step(name, argv, stdin=None, binary=False):
+        rc, out, err, wall = run_xc(argv, stdin, binary)
         ms[name] = wall
         return rc, out, err
 
@@ -2221,6 +2279,14 @@ def xc_tools_phase(card, width, height, frames):
         rc, out, _ = step(name, ["dissect"] + argv)
         dissect_ok.append(text_sha1(rc, out) == XC_TOOLS_TEXT_SHA1[name])
     gates["dissect"] = all(dissect_ok)
+    # decode-raw: the raw planes of every shown frame on stdout
+    raw_ok = {}
+    for name, path in (("720p", CLIP), ("360x242", OFFGRID_CLIP)):
+        rc, raw, _ = step("decode-raw " + name, ["decode-raw", path],
+                          binary=True)
+        raw_ok[name] = rc == 0 and \
+            hashlib.sha1(raw).hexdigest() == XC_DECODE_RAW_SHA1[name]
+    gates["decode-raw"] = all(raw_ok.values())
 
     # the flags: the stage report of a bundle decode (the decoder's
     # minihash recorded after each frame), a torch.profiler trace of a
@@ -2373,14 +2439,24 @@ def pct(values, q):
     return float(np.percentile(values, q)) if len(values) else None
 
 
-def salsify_run(frames, width, height, mode, drop=None):
+def salsify_run(frames, width, height, mode, drop=None, link=None,
+                max_frames=None):
     """The port's SalsifySender and SalsifyReceiver on loopback UDP in this
-    process, both on the card, both sockets on port 0.  Each frame sent is
-    logged with its source state (copied: prune_encoders drops old
-    encoders), payload and target minihash; the receiver's decode calls
-    are timed with the device drained.  Returns (sender, receiver,
-    received rasters, the log, decode ms, frames grabbed)."""
-    received, decode_ms, log = [], [], []
+    process, both on the card, both sockets on port 0; with ``link``
+    (EmulatedLink's keyword arguments) the sender sends to an EmulatedLink
+    in front of the receiver, which carries the ACKs back.  Each frame
+    sent is logged with its source state (copied: prune_encoders drops old
+    encoders), payload and target minihash; the sender's log lines are
+    kept, and each handle_encodes_done call with outputs is logged with
+    the frame budget it read, the outputs' sizes and jobs, the skip count
+    before it and the size it sent (None: skipped); the receiver's decode
+    calls are timed with the device drained.  The sender stops after
+    ``max_frames`` frames sent (default: all of ``frames``) or at the end
+    of ``frames``.  Returns (sender, receiver, received rasters, the log,
+    decode ms, frames grabbed, the sender's log lines, the link's counts
+    or None, the choices)."""
+    received, decode_ms, log, lines, choices = [], [], [], [], []
+    max_frames = max_frames or len(frames)
     expect = len(frames) - (drop is not None)
     receiver = SalsifyReceiver(0, width, height, host="127.0.0.1",
                                on_raster=received.append, device=DEV)
@@ -2415,10 +2491,15 @@ def salsify_run(frames, width, height, mode, drop=None):
 
     rt = threading.Thread(target=serve, daemon=True)
     rt.start()
+    port = receiver.socket.getsockname()[1]
+    relay = None
+    if link is not None:
+        relay = EmulatedLink(0, port, **link).start()
+        port = relay.listen_port
     source = RepeatedFrames(frames, width, height)
-    sender = SalsifySender("127.0.0.1", receiver.socket.getsockname()[1],
-                           1337, source, mode=mode,
+    sender = SalsifySender("127.0.0.1", port, 1337, source, mode=mode,
                            drop_frames_while_busy=False, device=DEV)
+    sender._log = lines.append
     send = sender._send_output
 
     def logged(output):
@@ -2429,12 +2510,34 @@ def salsify_run(frames, width, height, mode, drop=None):
                     output.y_ac_qi))
         return send(output)
     sender._send_output = logged
+    handle = sender.handle_encodes_done
+
+    def chosen():
+        outputs, budget = sender._pending, sender.frame_budget()
+        skipped, sent = sender.skipped_count, len(sender.sent_log)
+        result = handle()
+        if outputs:
+            choices.append(dict(
+                budget=budget, sizes=[len(o.frame) for o in outputs],
+                jobs=[o.job_name for o in outputs], skipped=skipped,
+                sent=sender.sent_log[-1][1] if len(sender.sent_log) > sent
+                else None))
+        return result
+    sender.handle_encodes_done = chosen
     try:
-        sender.run(max_frames=len(frames))
+        sender.run(max_frames=max_frames)
+        # an encode still running for the frame after the last one sent
+        # finishes before the sender closes
+        deadline = time.monotonic() + 10
+        while sender._pending == [] and time.monotonic() < deadline:
+            time.sleep(0.01)
+        time.sleep(0.05)
         # every frame sent is displayed but one that lost its fragment 0
-        # (its prefix is empty), or the receiver stops at ``expect``
+        # (its prefix is empty), or the receiver stops at ``expect``; over
+        # the link, until its queue has drained
         shown = sender.frames_sent - sum(f == 0 for _, f in dropped)
-        deadline = time.monotonic() + 30
+        deadline = time.monotonic() + (30 if relay is None else
+                                       SALSIFY_LINK_DRAIN_S)
         while rt.is_alive() and len(received) < shown \
                 and time.monotonic() < deadline:
             rt.join(0.1)
@@ -2442,7 +2545,41 @@ def salsify_run(frames, width, height, mode, drop=None):
         sender.close()
         receiver.close()
         rt.join(5)
-    return sender, receiver, received, log, decode_ms, source.i
+        if relay is not None:
+            relay.close()
+    return (sender, receiver, received, log, decode_ms, source.i, lines,
+            None if relay is None else dict(relay.stats), choices)
+
+
+def wrong_choices(choices):
+    """The logged handle_encodes_done calls whose choice breaks
+    sender.cc:565-590's rule for the budget read: the largest output that
+    fits is sent; when none fits the frame is skipped, but after
+    MAX_SKIPPED skips a fail-small output is sent all the same."""
+    wrong = []
+    for i, c in enumerate(choices):
+        fits = [n for n in c["sizes"] if n <= c["budget"]]
+        if fits:
+            want = max(fits)
+        elif c["skipped"] >= MAX_SKIPPED and c["jobs"][-1] == "fail-small":
+            want = c["sizes"][-1]
+        else:
+            want = None
+        if c["sent"] != want:
+            wrong.append(i)
+    return wrong
+
+
+def payloads_reach(log, width, height):
+    """Each logged payload, decoded from its advertised source state by a
+    fresh Decoder on the card: whether it reaches its target minihash."""
+    reaches = []
+    for _src, state, refs, payload, target, _job, _q in log:
+        d = Decoder(width, height, state=state.copy(), references=refs,
+                    device=DEV)
+        d.decode_frame(payload)
+        reaches.append(d.minihash() == target)
+    return reaches
 
 
 def salsify_phase(card, width, height):
@@ -2465,15 +2602,8 @@ def salsify_phase(card, width, height):
                 launches=calls, kernel_launches=kernels,
                 salsify_design_point_ms=SALSIFY_MS, runs={})
     ok = {}
-    for name, (snd, rcv, received, log, dec_ms, grabbed) in runs.items():
-        # each payload, decoded from the advertised source state by a
-        # fresh Decoder, reaches the advertised target minihash
-        reaches = []
-        for _src, state, refs, payload, target, _job, _q in log:
-            d = Decoder(width, height, state=state.copy(), references=refs,
-                        device=DEV)
-            d.decode_frame(payload)
-            reaches.append(d.minihash() == target)
+    for name, (snd, rcv, received, log, dec_ms, grabbed, *_) in runs.items():
+        reaches = payloads_reach(log, width, height)
         enc_ms = [e[4] for e in snd.sent_log]
         gaps = [(b[3] - a[3]) * 1e3
                 for a, b in zip(snd.sent_log, snd.sent_log[1:])]
@@ -2520,6 +2650,144 @@ def salsify_phase(card, width, height):
     if calls["encode_inter_frame"]:
         raise SystemExit("the Salsify path launched K8 (the fast path is "
                          "its default)")
+    return line
+
+
+# salsify_link: the sender and the receiver through an EmulatedLink at
+# 720p (decoded frames 0-5 repeated), on an LTE-like trace whose windows
+# alternate between SALSIFY_LINK_TRACE's high_pps and low_pps delivery
+# opportunities (one MTU each) per 100 ms; the high windows carry about
+# twice the mean s2 frame that the loopback run sends, the dips about a
+# tenth of it, so the budget binds in the dips only.  s2 and conventional
+# mode each send up to SALSIFY_LINK_FRAMES frames of twice as many (a
+# skipped frame is grabbed, not sent); then xc run-contest over
+# SALSIFY_CONTEST_FRAMES frames and the same trace as a mahimahi file.
+SALSIFY_LINK_TRACE = dict(ms_total=6000, period_ms=3000, high_pps=245,
+                          low_pps=12)
+SALSIFY_LINK_DELAY_MS, SALSIFY_LINK_QUEUE = 20, 512
+SALSIFY_LINK_FRAMES, SALSIFY_CONTEST_FRAMES = 40, 12
+SALSIFY_LINK_DRAIN_S = 3.0
+
+
+def adaptation(sent_log):
+    """tests/test_net_emulation.py's adaptation numbers over the sends
+    that had a delay from the ACKs: (count, mean bytes at a delay above
+    the median, mean bytes at or below it, the size/delay correlation)."""
+    log = [(size, delay) for _, size, delay, _, _ in sent_log
+           if delay is not None]
+    if len(log) < 3:
+        return len(log), None, None, None
+    sizes = np.array([v for v, _ in log], float)
+    delays = np.array([d for _, d in log], float)
+    hi = delays > np.median(delays)
+    if not hi.any() or hi.all():
+        return len(log), None, None, None
+    return (len(log), float(sizes[hi].mean()), float(sizes[~hi].mean()),
+            float(np.corrcoef(sizes, delays)[0, 1]))
+
+
+def salsify_link_phase(card, width, height):
+    """The salsify_link phase (see the module docstring); returns its
+    result line."""
+    rasters = decoded_frames(CLIP, tuple(range(6)))
+    n = SALSIFY_LINK_FRAMES
+    frames = [rasters[k % 6].display() for k in range(2 * n)]
+    link = dict(trace_ms=lte_like_trace(**SALSIFY_LINK_TRACE),
+                delay_ms=SALSIFY_LINK_DELAY_MS,
+                queue_limit=SALSIFY_LINK_QUEUE)
+    work = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    y4m = os.path.join(work, "contest.y4m")
+    trace = os.path.join(work, "contest.trace")
+    write_y4m(y4m, frames[:SALSIFY_CONTEST_FRAMES], width, height)
+    with open(trace, "w") as fh:
+        fh.write("".join("%d\n" % t for t in link["trace_ms"]))
+    # the link path: counters to 0 just before, read just after
+    zero_counts()
+    t0 = time.perf_counter()
+    runs = {mode: salsify_run(frames, width, height, mode, link=link,
+                              max_frames=n)
+            for mode in ("s2", "conventional")}
+    rc, out, err, contest_ms = run_xc(
+        ["run-contest", y4m, "--device", str(DEV), "--frames",
+         str(SALSIFY_CONTEST_FRAMES), "--trace", trace, "--delay",
+         str(SALSIFY_LINK_DELAY_MS), "--queue", str(SALSIFY_LINK_QUEUE),
+         "--idle", "5"])
+    wall = time.perf_counter() - t0
+    calls, kernels = read_counts()      # every thread joined
+    line = dict(card=card, width=width, height=height, frames=n,
+                trace=SALSIFY_LINK_TRACE, delay_ms=SALSIFY_LINK_DELAY_MS,
+                queue_limit=SALSIFY_LINK_QUEUE, runs_wall_s=wall,
+                launches=calls, kernel_launches=kernels, runs={})
+    ok = {}
+    for mode, (snd, rcv, received, log, dec_ms, grabbed, lines, stats,
+               choices) in runs.items():
+        reaches = payloads_reach(log, width, height)
+        count, hi_mean, lo_mean, corr = adaptation(snd.sent_log)
+        sizes = [e[1] for e in snd.sent_log]
+        enc_ms = [e[4] for e in snd.sent_log]
+        skips = sum(l.startswith("skipping frame") for l in lines)
+        forced = sum(l.startswith("too many skips") for l in lines)
+        wrong = wrong_choices(choices)
+        r = dict(frames_grabbed=grabbed, frames_sent=snd.frames_sent,
+                 frames_received=len(received), skipped=skips,
+                 fail_small_after_skips=forced, link=stats,
+                 delay_informed_sends=count,
+                 mean_bytes_high_delay=hi_mean, mean_bytes_low_delay=lo_mean,
+                 size_delay_correlation=corr,
+                 choices=len(choices), wrong_choices=wrong,
+                 budgets=[c["budget"] for c in choices],
+                 payloads_reach_target=all(reaches) and bool(reaches),
+                 jobs=[e[5] for e in log], quantizers=[e[6] for e in log],
+                 bytes=sizes,
+                 delays_us=[e[2] for e in snd.sent_log],
+                 bytes_per_frame_mean=float(np.mean(sizes)) if sizes else None,
+                 encode_ms_p50=pct(enc_ms[1:], 50),
+                 encode_ms_p95=pct(enc_ms[1:], 95),
+                 decode_ms_p50=pct(dec_ms, 50), decode_ms_p95=pct(dec_ms, 95))
+        # s2 must deliver half of the n frames, as in
+        # tests/test_net_emulation.py; conventional mode skips every frame
+        # its one output does not fit, and moves its quantizer once a
+        # second, so how many of the 2n it sends depends on the timing
+        # (14-33 of 80 on the card): half of those it sends must arrive
+        arrive = n if mode == "s2" else max(2, snd.frames_sent)
+        survives = (len(received) >= arrive // 2 and stats["delivered"] > 0
+                    and stats["acks"] > 0 and r["payloads_reach_target"])
+        adapts = (count >= 20 and hi_mean is not None and hi_mean < lo_mean
+                  and corr < -0.2)
+        # every choice follows the rule for the budget it read, one for
+        # each frame sent or skipped, and the budget bound (a skip)
+        chooses = (not wrong and len(choices) == snd.frames_sent + skips
+                   and skips >= 1)
+        r["gates"] = dict(survives=survives, chooses=chooses,
+                          adapts=adapts, fail_small=forced >= 1)
+        # conventional mode sends one output a frame, never a fail-small
+        # one, and its quantizer follows the rate, not the delay
+        ok[mode] = survives and chooses if mode == "conventional" else \
+            all(r["gates"].values())
+        line["runs"][mode] = r
+    sent = [l for l in out.splitlines() if l.startswith("sent ")]
+    contest = dict(rc=rc, wall_ms=contest_ms, output=out.splitlines()[-3:],
+                   stderr_tail=err[-300:])
+    if sent:
+        contest["sent"] = int(sent[0].split()[1])
+        contest["received"] = int(sent[0].split("received ")[1].split(",")[0])
+    ok["run_contest"] = (rc == 0 and contest.get("sent", 0) >= 1
+                         and contest.get("received", 0) >= 1
+                         and "link: {" in out)
+    line["run_contest"] = contest
+    line["gates_ok"] = ok
+    say("salsify_link", **line)
+    if not all(ok.values()):
+        raise SystemExit("a Salsify run over the emulated link failed its "
+                         "gates: %s" % {k: line["runs"].get(k, {}).get(
+                             "gates", contest) for k, v in ok.items()
+                             if not v})
+    for k in ("predict_mb_tiles", "intra_frame", "loop_filter",
+              "encode_kf_frame", "decide_inter_frame", "intra_fixup_frame"):
+        if calls[k] <= 0 or kernels[k] != calls[k]:
+            raise SystemExit("the Salsify link path did not launch %s, one "
+                             "launch a call" % k)
     return line
 
 
@@ -2740,6 +3008,45 @@ FEATURE_SHA1 = {
         "98748f37d223694f7be0227511a2476339b881d8"],
 }
 XC_DECODE_Y4M_SHA1 = "c74caf4f0b48c6851e111ee5b4f17cf2e595c1a8"
+# XC_DECODE_RAW_SHA1: the SHA-1 of what the JAX package's xc decode-raw
+# writes of the 720p fixture and of natural/cut_360x242_q56.ivf (the raw
+# planes of every shown frame; the manifests' yuv_sha1 too).  Computed
+# once on a CPU host; tests/test_torch_decoder.py recomputes them (-m
+# slow).
+XC_DECODE_RAW_SHA1 = {"720p": "857b9582bd2da63a29e27ecbef2dccdf02d17204",
+                      "360x242": "b08992cbc00034f1c7097270a5593fe30a538982"}
+# FEATURE_OFFGRID_SHA1: the same for the four streams at
+# feature_streams.OFFGRID_SIZE, 170x138 (11 x 9 macroblocks, the last
+# column and row 10 pixels: vectors clamped and counted on the rounded-up
+# grid, references read past the frame's edge), the bytes the port's
+# generator writes (its key frames from the port's encoder).  Computed
+# once on a CPU host; tests/test_torch_corpus.py recomputes them (-m
+# slow).
+FEATURE_OFFGRID_SHA1 = {
+    "feat_splitmv.ivf": [
+        "d727572c50fa224cd8c81290c2f1667cc8383a65",
+        "8a96e960e6a4fc92ed183e65ecc1cf54f9fa1984",
+        "08b14e22868b8a8785664df36d861d3e4be3ce91",
+        "813752a5dedba111f45ae9cf0a0ece0d0f69c885"],
+    "feat_segmentation.ivf": [
+        "1ddb2028adeae6f639e7f2a7a965816a6bf82cac",
+        "82c163e3addc3db4f46f4ba7258f021498592eb4",
+        "649f8a90e00b0398744aee5898f26374c6ea994d",
+        "3264f9e2138e4ec7e2d5136b7125f83cc524666a"],
+    "feat_goldalt.ivf": [
+        "6b676d1e8c8f8af25812af8364a33172d33881ce",
+        "b8604105b5c1bcea621edde62430c6889a4bad15",
+        "4261291263b01d505ac74351b10c359911add6fa",
+        "7c0ae04928db4bb64d2769a8a438d1344225c051",
+        "270affbae0f6139947ad97f1f7b60165bd2fa3d4",
+        "a461ea60a8c3b60a7c95c3fd8e1ec7cf3ccc1736"],
+    "feat_probs.ivf": [
+        "a18827c0bf8b3ee0755a878bc2434485cb879932",
+        "5eac7b3c2d8ddf40df16b2a9a4536e2d6f34b5e9",
+        "bbdd7ce88464796d81daa0fda632c009483468ea",
+        "e273bec4e4de77a08dc434c0fe3f20c7d0c2a760",
+        "dafccefde0cfc949b2e9ec7421c6197c5ef25c5a"],
+}
 # the 720p fixture beside the natural corpus's three 720p clips (one batch)
 CORPUS_EXTRA = ("inter_1280x720_q48.ivf",)
 # the four feature streams in one batch: their first frames (the shortest
@@ -2805,6 +3112,54 @@ def feature_decodes(work):
                  for c, g in zip(clips, got)}, n_frames + n * len(clips)
 
 
+def y4m_frame_sha1(path):
+    """Each frame's SHA-1 in a y4m file (its three planes, as
+    Raster.dump_bytes lays them out)."""
+    return [hashlib.sha1(b"".join(p.tobytes() for p in f)).hexdigest()
+            for f in Y4MReader(path)]
+
+
+def offgrid_feature_decodes(work, engines):
+    """tools/feature_streams.py's four streams at OFFGRID_SIZE (key frames
+    encoded on the card) through a Decoder, FilePlayer and xc decode, and,
+    over their first FEATURE_BATCH_FRAMES frames, as one G=4
+    BatchedGopDecoder batch under each token engine: each frame's SHA-1
+    against FEATURE_OFFGRID_SHA1.  Returns ({stream: {path: ok}}, {engine:
+    {stream: ok}}, frames decoded)."""
+    out = os.path.join(work, "offgrid_features")
+    os.makedirs(out, exist_ok=True)
+    size = feature_streams.OFFGRID_SIZE
+    paths = feature_streams.write_all(out, device=DEV, size=size)
+    res, clips, n_frames = {}, [], 0
+    for name, path in paths.items():
+        want = FEATURE_OFFGRID_SHA1[name]
+        one = corpus.alone(path)
+        clips += one.clips
+        dec, shown = Decoder(*size, device=DEV), []
+        for p in one.clips[0].payloads:
+            is_shown, raster = dec.decode_frame(p)
+            if is_shown:
+                shown.append(hashlib.sha1(raster.dump_bytes()).hexdigest())
+        y4m = path[:-len(".ivf")] + ".y4m"
+        rc = run_xc(["decode", path, y4m])[0]
+        res[name] = dict(
+            frames=len(one.pattern), decoder_ok=shown == want,
+            file_player_ok=corpus.play(path, DEV, per_frame=True) == want,
+            xc_decode_ok=rc == 0 and y4m_frame_sha1(y4m) == want)
+        n_frames += 3 * len(one.pattern)
+    n = FEATURE_BATCH_FRAMES
+    batch = corpus.Group(size[0], size[1],
+                         corpus.frame_pattern(clips[0].payloads[:n]), clips)
+    batches = {}
+    for engine in engines:
+        got = corpus.decode_batch(batch, DEV, engine, frames=n,
+                                  per_frame=True)
+        batches[engine] = {c.name: g == FEATURE_OFFGRID_SHA1[c.name][:n]
+                           for c, g in zip(clips, got)}
+        n_frames += n * len(clips)
+    return res, batches, n_frames
+
+
 def corpus_decode_phase(card):
     """The corpus_decode phase (see the module docstring); returns its
     result line."""
@@ -2827,6 +3182,8 @@ def corpus_decode_phase(card):
     batches = corpus_batches(groups, engines)
     players = {c.name: corpus.play(c.path, DEV) == c.yuv_sha1 for c in clips}
     features, feature_batch, feature_frames = feature_decodes(work)
+    og_features, og_batches, og_frames = offgrid_feature_decodes(work,
+                                                                engines)
     y4m = os.path.join(work, "cut_360x242.y4m")
     rc = run_xc(["decode", OFFGRID_CLIP, y4m])[0]
     with open(y4m, "rb") as fh:
@@ -2835,6 +3192,7 @@ def corpus_decode_phase(card):
     calls, kernels = read_counts()
     frames = (sum(b["gops"] * b["frames"] for b in batches)
               + sum(len(c.payloads) for c in clips) + feature_frames
+              + og_frames
               + len(IVFReader(OFFGRID_CLIP)))
     line = dict(
         card=card, clips=len(clips), engines=engines,
@@ -2845,6 +3203,8 @@ def corpus_decode_phase(card):
                        all(b["sha1_ok"]) for b in batches},
         file_player_sha1_ok=all(players.values()),
         feature_streams=features, feature_batch_sha1_ok=feature_batch,
+        offgrid_feature_streams=og_features,
+        offgrid_feature_batch_sha1_ok=og_batches,
         xc_decode_y4m_ok=y4m_ok, launches=calls, kernel_launches=kernels,
         batch_detail=batches)
     say("corpus_decode", **line)
@@ -2868,6 +3228,12 @@ def corpus_decode_phase(card):
                for v in features.values()) or not all(feature_batch.values()):
         raise SystemExit("a feature stream's frames differ from "
                          "FEATURE_SHA1")
+    if not all(all(v.values()) for v in og_batches.values()) or not all(
+            ok for v in og_features.values() for k, ok in v.items()
+            if k != "frames"):
+        raise SystemExit("a feature stream off the grid differs from "
+                         "FEATURE_OFFGRID_SHA1: %s %s"
+                         % (og_features, og_batches))
     if not y4m_ok:
         raise SystemExit("xc decode's y4m of %s differs from the JAX CLI's"
                          % os.path.basename(OFFGRID_CLIP))
@@ -3220,6 +3586,225 @@ def offgrid_encode_phase(card):
             or not per_run["fast"].get("intra_fixup_frame"):
         raise SystemExit("K10 ran in the off-grid host-patch stream, or not "
                          "in the fast stream")
+    return line
+
+
+# target_size_encode: xc enc -F (Encoder.encode_with_target_size: a binary
+# search on the quantizer whose size estimator encodes a mosaic of every
+# 4th macroblock through a trial encoder) over decoded frames 0-5 of the
+# 720p fixture (an 11 x 20 macroblock mosaic, 320x176) and of
+# natural/cut_360x242_q56.ivf (off the grid, a 4 x 5 mosaic, a scene cut
+# at frame 4), in best, rt and rt --fast.  TARGET_SIZES gives each frame
+# its target in bytes; frame 3's is below what even the search window's
+# largest quantizer makes of it, so the search takes its floor branch
+# there.  TARGET_SIZE_SHA1: SHA-1 of each frame the JAX package's xc enc
+# -F makes of the same y4m input (best and rt: its CLI, the host encoder;
+# --fast: its encoder as its CLI's --fast sets it up, the key frame on the
+# host, whose frames equal its key-frame kernel's, the interframes and
+# their trial encodes on its fast path).  Computed once on a CPU host;
+# tests/test_torch_inter_encoder.py recomputes them (-m slow).
+TARGET_SIZE_FRAMES = 6
+TARGET_SIZE_CLIPS = (("720p", CLIP), ("360x242", OFFGRID_CLIP))
+TARGET_SIZES = {"720p": (60000, 55000, 50000, 500, 34000, 40000),
+                "360x242": (2400, 1200, 1000, 40, 2000, 1200)}
+TARGET_SIZE_MODES = (("best", ("-q", "best")), ("rt", ("-q", "rt")),
+                     ("rt_fast", ("-q", "rt", "--fast")))
+TARGET_SIZE_SHA1 = {
+    "720p_best_frame0": "9d5e798d0632ee753d11ea60c1974a916a9b3b0c",
+    "720p_best_frame1": "353e591533c72ef929db605da32de67a24db107e",
+    "720p_best_frame2": "7ad05e038da7debc5900881e665b836afbc89e5b",
+    "720p_best_frame3": "a795c9ecf98802f0520ca5fc696ad2c2553966be",
+    "720p_best_frame4": "bbd708089de9d37635965b36c48446e7e6719eae",
+    "720p_best_frame5": "0be5443476625bdbb45b85aeea671edc1142f013",
+    "720p_rt_fast_frame0": "9d5e798d0632ee753d11ea60c1974a916a9b3b0c",
+    "720p_rt_fast_frame1": "387c09fe0ce06f5e1d05835cf0dedceae8847a3a",
+    "720p_rt_fast_frame2": "cc467235aee949dd7b27f2d403d2548932df7bb0",
+    "720p_rt_fast_frame3": "58c094a30882363334902c45360844f5600a0043",
+    "720p_rt_fast_frame4": "4da9da4ba0c218af25030aca40c4490c92f1a14b",
+    "720p_rt_fast_frame5": "9d97f338ba1416578918dd8c171fcd6fe8ccd50b",
+    "720p_rt_frame0": "9d5e798d0632ee753d11ea60c1974a916a9b3b0c",
+    "720p_rt_frame1": "dd8fa67c668904c3f69198eac5098ad5f4d46055",
+    "720p_rt_frame2": "34c8459bf8bf2dcd05e533826acb64dd9648bfc5",
+    "720p_rt_frame3": "8272460208beb2d2022189379c857e7f6f87411e",
+    "720p_rt_frame4": "7bdeae3a588973f5ba454b929e2d49861f68d49a",
+    "720p_rt_frame5": "23e74fa15acd5536e94d3d20a261d62f4b307972",
+    "360x242_best_frame0": "28cc8e0727559b619c500ed0a3c0a1110e647224",
+    "360x242_best_frame1": "4252f16cfe8da359b404f90d129456f8cdc50262",
+    "360x242_best_frame2": "cf56cfcdce4c80e02b24825286e9977652dbfaae",
+    "360x242_best_frame3": "bb95a7d6fb3ad58d90c6538ae2dda49e23094286",
+    "360x242_best_frame4": "559933a6ab6608a991028b2715cca8909341c069",
+    "360x242_best_frame5": "c5be4a23164cac58349c1435730e5b4a82216266",
+    "360x242_rt_fast_frame0": "28cc8e0727559b619c500ed0a3c0a1110e647224",
+    "360x242_rt_fast_frame1": "dfc3b300159da063d23217758781be77aa9116a9",
+    "360x242_rt_fast_frame2": "865377cda1e31285d9f3c4e995e746509c05755f",
+    "360x242_rt_fast_frame3": "132d721b22f53f5d09307011ac3851cf95e3ba67",
+    "360x242_rt_fast_frame4": "588e360121532b99a9c2bb892d58c2ee863b19c2",
+    "360x242_rt_fast_frame5": "e299f93e5570709c2bfa6f5a334e8e060412f975",
+    "360x242_rt_frame0": "28cc8e0727559b619c500ed0a3c0a1110e647224",
+    "360x242_rt_frame1": "d44936d08ef7f3955cdff91997b3a675b8402aa4",
+    "360x242_rt_frame2": "bba7e6c7db1267dcbf7773a89f09eb3b10e734ff",
+    "360x242_rt_frame3": "785d19ea04392f041d9598fa533e5963da467e4a",
+    "360x242_rt_frame4": "96f710f74ba6147c3a978c31d3b68d38eba40fe7",
+    "360x242_rt_frame5": "193ff03c3be5f8bcc1a4ce88376eb0a1143d3490",
+}
+
+
+def target_size_labels(clip, mode):
+    """The TARGET_SIZE_SHA1 keys of one clip and mode, in frame order."""
+    return ["%s_%s_frame%d" % (clip, mode, k)
+            for k in range(TARGET_SIZE_FRAMES)]
+
+
+def target_size_inputs(work, name, path):
+    """Decoded frames 0-5 of ``path`` on the card written as a y4m file,
+    and the targets as xc enc -F's file: (y4m path, sizes path, frames,
+    width, height)."""
+    frames = decoded_frames(path, tuple(range(TARGET_SIZE_FRAMES)))
+    frames = [frames[k].display() for k in range(TARGET_SIZE_FRAMES)]
+    width, height = IVFReader(path).width, IVFReader(path).height
+    y4m = os.path.join(work, "ts_%s.y4m" % name)
+    sizes = os.path.join(work, "ts_%s.sizes" % name)
+    write_y4m(y4m, frames, width, height)
+    with open(sizes, "w") as fh:
+        fh.write("".join("%d\n" % n for n in TARGET_SIZES[name]))
+    return y4m, sizes, frames, width, height
+
+
+def recorded_searches(run):
+    """Run ``run()`` with the port's Encoder's size search recorded: per
+    encode_with_target_size call its target, each trial encode's (quantizer,
+    estimate), the chosen quantizer, the payload's size and the encoder's
+    minihash after it, and the mosaic's size as the trial encoder has it;
+    and the wrapper calls made inside trial encodes (at the mosaic's
+    shape).  Returns (run's result, searches, calls)."""
+    searches, trial_calls = [], dict.fromkeys(COUNTS, 0)
+    search, estimate, trial = Encoder.encode_with_target_size, \
+        Encoder.estimate_frame_size, Encoder.trial_encoder
+
+    def searched(self, yuv, target_size, key_frame=None):
+        searches.append(dict(target=int(target_size), trials=[]))
+        payload = search(self, yuv, target_size, key_frame)
+        searches[-1].update(qi=self.last_y_ac_qi, bytes=len(payload),
+                            minihash=self.minihash())
+        return payload
+
+    def estimated(self, yuv, y_ac_qi, key_frame=None):
+        before = read_counts()[0]
+        n = estimate(self, yuv, y_ac_qi, key_frame)
+        for k, v in read_counts()[0].items():
+            trial_calls[k] += v - before[k]
+        searches[-1]["trials"].append((int(y_ac_qi), n))
+        return n
+
+    def trial_encoder(self, yuv, key_frame):
+        sub, planes = trial(self, yuv, key_frame)
+        searches[-1]["mosaic"] = "%dx%d" % (sub.width, sub.height)
+        return sub, planes
+
+    Encoder.encode_with_target_size = searched
+    Encoder.estimate_frame_size = estimated
+    Encoder.trial_encoder = trial_encoder
+    try:
+        out = run()
+    finally:
+        Encoder.encode_with_target_size = search
+        Encoder.estimate_frame_size = estimate
+        Encoder.trial_encoder = trial
+    return out, searches, trial_calls
+
+
+def target_size_encode_phase(card):
+    """The target_size_encode phase (see the module docstring); returns its
+    result line."""
+    t0 = time.perf_counter()
+    work = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    inputs = {name: target_size_inputs(work, name, path)
+              for name, path in TARGET_SIZE_CLIPS}
+    # the size-search path: counters to 0 just before, read just after
+    zero_counts()
+    got, runs, mosaic_calls = {}, {}, dict.fromkeys(COUNTS, 0)
+    for name, _ in TARGET_SIZE_CLIPS:
+        y4m, sizes, _, width, height = inputs[name]
+        for mode, flags in TARGET_SIZE_MODES:
+            out = os.path.join(work, "ts_%s_%s.ivf" % (name, mode))
+            (rc, _, err, ms), searches, calls = recorded_searches(
+                lambda: run_xc(["enc", y4m, "-o", out, "-F", sizes,
+                                "--device", str(DEV)] + list(flags)))
+            pls = list(IVFReader(out)) if rc == 0 else []
+            got.update(zip(target_size_labels(name, mode), pls))
+            for k, v in calls.items():
+                mosaic_calls[k] += v
+            runs[name, mode] = dict(rc=rc, wall_ms=ms, payloads=pls,
+                                    searches=searches, width=width,
+                                    height=height, stderr_tail=err[-300:])
+    calls, kernels = read_counts()
+    sha_ok = {k: hashlib.sha1(p).hexdigest() == TARGET_SIZE_SHA1.get(k)
+              for k, p in got.items()}
+    detail, decode_ok, fits = {}, {}, {}
+    floor_taken = []
+    for (name, mode), r in runs.items():
+        key = "%s_%s" % (name, mode)
+        pls, searches = r["payloads"], r["searches"]
+        # every payload re-decodes from scratch to the encoder's minihash
+        dec = Decoder(r["width"], r["height"], device=DEV)
+        decode_ok[key] = len(pls) == len(searches) == TARGET_SIZE_FRAMES
+        fits[key] = []
+        for p, s in zip(pls, searches):
+            dec.decode_frame(p)
+            decode_ok[key] &= dec.minihash() == s["minihash"]
+            floor = all(est > s["target"] for _, est in s["trials"])
+            floor_taken += [floor]
+            s.update(floor=floor, estimate=dict(s["trials"]).get(s["qi"]))
+            fits[key].append(floor or len(p) <= s["target"])
+        detail[key] = dict(
+            rc=r["rc"], wall_ms=r["wall_ms"],
+            trials_per_frame=[len(s["trials"]) for s in searches],
+            qi=[s["qi"] for s in searches],
+            bytes=[s["bytes"] for s in searches],
+            targets=[s["target"] for s in searches],
+            estimates=[s["estimate"] for s in searches],
+            floor=[s["floor"] for s in searches],
+            trials=[s["trials"] for s in searches])
+    mosaic = {name: sorted({s["mosaic"] for (n, _), r in runs.items()
+                            if n == name for s in r["searches"]})
+              for name in inputs}
+    line = dict(
+        card=card, frames=TARGET_SIZE_FRAMES, mosaic=mosaic,
+        payloads=len(got), seconds=time.perf_counter() - t0,
+        sha1_ok=all(sha_ok.values()) and set(got) == set(TARGET_SIZE_SHA1),
+        sha1_differing=sorted(k for k, ok in sha_ok.items() if not ok),
+        decode_minihash_ok=decode_ok, fits_target_or_floor=fits,
+        floor_frames=sum(floor_taken), runs=detail,
+        launches=calls, kernel_launches=kernels,
+        launches_in_trial_encodes=mosaic_calls)
+    say("target_size_encode", **line)
+    if any(r["rc"] for r in runs.values()):
+        raise SystemExit("xc enc -F failed: %s" % {
+            k: (r["rc"], r["stderr_tail"]) for k, r in runs.items()
+            if r["rc"]})
+    if not line["sha1_ok"]:
+        raise SystemExit("target-size encodes differ from TARGET_SIZE_SHA1: "
+                         "%s" % (line["sha1_differing"]
+                                 or sorted(set(TARGET_SIZE_SHA1)
+                                           ^ set(got))))
+    if not all(decode_ok.values()):
+        raise SystemExit("a target-size frame does not re-decode to its "
+                         "encoder's minihash: %s" % decode_ok)
+    if not all(all(v) for v in fits.values()) or not any(floor_taken):
+        raise SystemExit("a target-size frame exceeds its target without "
+                         "the floor branch, or no search took the floor "
+                         "branch: %s" % fits)
+    if min(len(s["trials"]) for r in runs.values()
+           for s in r["searches"]) < 3:
+        raise SystemExit("a frame's size search took fewer than three "
+                         "trial encodes")
+    trial_kernels = ("encode_kf_frame", "encode_inter_frame",
+                     "decide_inter_frame", "intra_fixup_frame")
+    if any(mosaic_calls[k] <= 0 for k in trial_kernels) \
+            or any(kernels[k] != calls[k] for k in trial_kernels):
+        raise SystemExit("the trial encodes did not launch K7, K8, K9 and "
+                         "K10 at the mosaic's shape, each one launch a call")
     return line
 
 
@@ -3595,10 +4180,47 @@ def memory_checks_phase(card):
     return summary
 
 
+# the kernels whose every call on the paths is checked to be one launch
+PER_CALL = {"predict_mb_tiles": sixtap_cuda, "intra_frame": intra_cuda,
+            "loop_filter": lf_cuda, "encode_kf_frame": enc_intra_cuda,
+            "encode_inter_frame": enc_inter_cuda,
+            "decide_inter_frame": enc_decide_cuda,
+            "intra_fixup_frame": enc_intra_fixup_cuda,
+            "rebase_frame": rebase_cuda, "wavefront_decode": wavefront_cuda}
+
+# the paths --only runs alone (each needs nothing of another)
+ALONE = {"corpus_decode": lambda card, w, h: corpus_decode_phase(card),
+         "offgrid_encode": lambda card, w, h: offgrid_encode_phase(card),
+         "target_size_encode":
+             lambda card, w, h: target_size_encode_phase(card),
+         "salsify": salsify_phase, "salsify_link": salsify_link_phase}
+
+
+def one_launch_a_call(per_call, required):
+    """Print each kernel's calls and launches a call on the paths; fail if
+    a call issued other than one launch, or a ``required`` kernel was never
+    called."""
+    persistent = {k: {"calls": len(v), "launches_per_call": sorted(set(v))}
+                  for k, v in per_call.items()}
+    say("persistent_launches", **persistent)
+    if any(set(v) - {1} or (k in required and not v)
+           for k, v in per_call.items()):
+        raise SystemExit("a K1, K3, K4, K5, K7, K8, K9, K10, six-tap or "
+                         "residue-kernel call of its paths issued other than "
+                         "one kernel launch")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device")
     quick = "--quick" in sys.argv[1:]
+    only = []
+    if "--only" in sys.argv[1:]:
+        only = sys.argv[sys.argv.index("--only") + 1].split(",")
+        unknown = sorted(set(only) - set(ALONE))
+        if unknown:
+            raise SystemExit("--only takes %s, not %s"
+                             % (",".join(ALONE), ",".join(unknown)))
     t_start = time.perf_counter()
     card = smi()
     say("env", torch=torch.__version__, cuda=torch.version.cuda,
@@ -3623,6 +4245,19 @@ def main():
     payloads = [ivf.frame(i) for i in range(len(ivf))]
     with open(MANIFEST) as fh:
         want = json.load(fh)[os.path.basename(CLIP)]["yuv_sha1"]
+    if only:
+        # the named paths alone: no kernel phase, no memory checks
+        per_call, undo = record_launches(PER_CALL)
+        try:
+            for name in only:
+                ALONE[name](card, ivf.width, ivf.height)
+        finally:
+            undo()
+        one_launch_a_call(per_call, ())
+        say("total", card=card, seconds=time.perf_counter() - t_start,
+            only=only)
+        print(card, flush=True)
+        return
 
     # a small geometry with odd macroblock counts (9 x 11) and G=3 first
     small = IVFReader(SMALL_CLIP)
@@ -3872,6 +4507,50 @@ def main():
                 og_frames, og[0].display_width, og[0].display_height,
                 OFFGRID_CHUNK, OFFGRID_FRAMES))]
     del og, og_fast, og_frames
+    # the authored features off the grid: K1 and K2 on frames 0 and 1 of
+    # the four streams at 170x138 as one G=4 batch, K3 on frame 1 of the
+    # SPLITMV stream and of the golden/altref one (a Decoder each)
+    work = os.path.join(REPO, "build", "chip_smoke", "kernel_features")
+    os.makedirs(work, exist_ok=True)
+    fw, fh = feature_streams.OFFGRID_SIZE
+    feats = {name: list(IVFReader(path)) for name, path in
+             feature_streams.write_all(work, device=DEV,
+                                       size=(fw, fh)).items()}
+    kept = real_kernel_inputs([[pl[f] for pl in feats.values()]
+                               for f in (0, 1)], fw, fh, len(feats))
+    feature_cases = [
+        k2_case("170x138 G=4 feature streams frame1", kept["mc"]),
+        k1_case("170x138 G=4 feature streams frame1 interframe",
+                kept["wave_inter"]),
+        k1_case("170x138 G=4 feature streams frame0 key frame",
+                kept["wave_key"])]
+    for name in ("feat_splitmv.ivf", "feat_goldalt.ivf"):
+        sf = single_frame_kernel_inputs(feats[name], fw, fh)
+        k3.append(k3_case("170x138 %s frame1" % name[5:-4],
+                          sf[("predict_mb_tiles", 1)][0]))
+    del kept, feats, sf
+    # the size search's trial encodes at the 720p mosaic (11 x 20
+    # macroblocks, 320x176), on the arguments estimate_frame_size hands
+    # over: K7 on frame 0's mosaic; K8 (best, rt) and K9, K10 and K3 (fast)
+    # on frame 1's against the mosaic of the LAST of an encoder that has
+    # encoded frame 0 (LAST, GOLDEN and ALTREF one tensor)
+    ts = decoded_frames(CLIP, (0, 1))
+    sub, planes = mosaic_trial(None, ts[0])     # padded host planes
+    my, mu, mv = (torch.from_numpy(p).to(DEV) for p in planes)
+    k7.append(k7_case("720p mosaic 320x176 frame0 qi64",
+                      kf_args(SimpleNamespace(y=my, u=mu, v=mv), 64)))
+    for quality in ("best", "rt"):
+        sub, planes = mosaic_trial(ts[0], ts[1], quality=quality)
+        k8.append(k8_case("720p mosaic 320x176 frame1 %s qi48" % quality,
+                          encode_inter.kernel_inputs(
+                              sub, planes, [QuantIndices(y_ac_qi=48)])))
+    sub, planes = mosaic_trial(ts[0], ts[1], quality="rt", fast=True)
+    a9, a10, a3 = recorded_fast_frame(sub, planes, [FAST_QI])
+    k9.append(k9_case("720p mosaic 320x176 frame1 qi48", a9))
+    k10.append(k10_case("720p mosaic 320x176 frame1 qi48", a10))
+    k3.append(k3_case("720p mosaic 320x176 frame1 qi48, LAST broadcast",
+                      a3))
+    del ts, sub, planes, my, mu, mv, a9, a10, a3
     say("kernels", helpers=helper_plain_ms())
     t_kernels = time.perf_counter() - t_start
     memory = memory_checks_phase(card)
@@ -3934,44 +4613,31 @@ def main():
     # every K3, K4, K5, K7, K8, K9, K10 and residue-kernel call of the
     # single-frame, encode and rebase paths, and every K1 and six-tap call
     # of the main path: one launch
-    per_call, undo = record_launches({"predict_mb_tiles": sixtap_cuda,
-                                      "intra_frame": intra_cuda,
-                                      "loop_filter": lf_cuda,
-                                      "encode_kf_frame": enc_intra_cuda,
-                                      "encode_inter_frame": enc_inter_cuda,
-                                      "decide_inter_frame": enc_decide_cuda,
-                                      "intra_fixup_frame":
-                                          enc_intra_fixup_cuda,
-                                      "rebase_frame": rebase_cuda,
-                                      "wavefront_decode": wavefront_cuda})
+    per_call, undo = record_launches(PER_CALL)
     try:
         single, cd, kf, inter, fast, og = persistent_paths(
             card, payloads, want, ivf.width, ivf.height)
+        ts = target_size_encode_phase(card)
         rb = rebase_phase(card, ivf.width, ivf.height, rframes,
                           k11[0]["fetch_ms"])
         xt = xc_tools_phase(card, ivf.width, ivf.height, rframes)
         cl = cluster_phase(card, ivf.width, ivf.height, rframes)
         sal = salsify_phase(card, ivf.width, ivf.height)
+        link = salsify_link_phase(card, ivf.width, ivf.height)
         mesh = mesh_phase(card, ivf.width, ivf.height, payloads)
     finally:
         undo()
     for k, v in k1_calls.items():
         per_call[k] = v + per_call.get(k, [])
-    persistent = {k: {"calls": len(v), "launches_per_call": sorted(set(v))}
-                  for k, v in per_call.items()}
-    say("persistent_launches", **persistent)
-    if any(not v or set(v) != {1} for v in per_call.values()):
-        raise SystemExit("a K1, K3, K4, K5, K7, K8, K9, K10, six-tap or "
-                         "residue-kernel call of its paths issued other than "
-                         "one kernel launch")
+    one_launch_a_call(per_call, set(per_call))
     # each kernel's calls on every path it runs on (the cluster's: those
     # of its rebase, in this process)
     paths = (single["launches"], cd["launches"], kf["launches"],
              inter["launches"], fast["launches"],
-             fast["host_patch"]["launches"], og["launches"],
+             fast["host_patch"]["launches"], og["launches"], ts["launches"],
              rb["launches"], xt["launches"],
              cl["launches_in_this_process"], sal["launches"],
-             mesh["launches"])
+             link["launches"], mesh["launches"])
     calls_on_paths = {k: sum(line[k] for line in paths)
                       for k in ("predict_mb_tiles", "intra_frame",
                                 "loop_filter", "encode_kf_frame",
@@ -3992,11 +4658,13 @@ def main():
         entry("sixtap_mc", "alfalfa_tpu_torch/csrc/sixtap_mc.cu",
               "alfalfa_tpu/ops/sixtap_pallas.py:269",
               gop_calls["sixtap_mc"], cases[0],
-              cases[:2] + small_cases[:1] + distinct[:1]),
+              cases[:2] + small_cases[:1] + distinct[:1]
+              + feature_cases[:1]),
         entry("wavefront_decode", "alfalfa_tpu_torch/csrc/wavefront.cu",
               "alfalfa_tpu/ops/wavefront_pm.py:432",
               gop_calls["wavefront_decode"], cases[2],
-              cases[2:] + small_cases[1:] + distinct[1:]),
+              cases[2:] + small_cases[1:] + distinct[1:]
+              + feature_cases[1:]),
         entry("predict_mb_tiles", "alfalfa_tpu_torch/csrc/sixtap_mc.cu",
               "alfalfa_tpu/ops/sixtap_pallas.py:347",
               calls_on_paths["predict_mb_tiles"], k3[0], k3),
@@ -4042,10 +4710,13 @@ def main():
                           if k != "device_profile"})
     say("offgrid_encode", **{k: v for k, v in og.items()
                              if k not in ("sizes", "launches_by_run")})
+    say("target_size_encode", **{k: v for k, v in ts.items()
+                                 if k != "runs"})
     say("rebase", **{k: v for k, v in rb.items() if k != "device_profile"})
     say("xc_tools", **{k: v for k, v in xt.items() if k != "stage_report"})
     say("cluster", **cl)
     say("salsify", **sal)
+    say("salsify_link", **{k: v for k, v in link.items() if k != "runs"})
     say("mesh", **mesh)
     say("memory_checks", **memory)
     if simd is not None:

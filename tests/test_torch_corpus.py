@@ -1,12 +1,13 @@
 """The corpus through the port's decoders, distinct streams side by side,
 and the JAX package's digests that chip_smoke.py holds the card to.
 
-Tier 1 has one item, the port alone: the 14 QCIF clips of 12 frames of
+Tier 1 has one item: the 14 QCIF clips of 12 frames of
 ``tests/fixtures/natural_manifest.json`` decoded as one
 ``BatchedGopDecoder(G=14, device="cpu")`` batch, each GOP a different
 clip, and the three clips off the 16-pixel grid (90x48, 140x96, 360x242)
 through a G=1 batch and ``FilePlayer(device="cpu")``, each against its
-manifest SHA-1.
+manifest SHA-1; and the four feature streams at 170x138 through the
+port's ``FilePlayer`` against the JAX package's, frame by frame.
 
 Under ``-m slow``:
 - the whole corpus as chip_smoke.py's corpus_decode phase groups it
@@ -17,6 +18,9 @@ Under ``-m slow``:
   through both port decoders, alone and as one G=4 batch, against the JAX
   package's ``FilePlayer`` frame by frame, and ``chip_smoke.FEATURE_SHA1``
   and ``XC_DECODE_Y4M_SHA1`` recomputed from the JAX package;
+- the feature streams at 170x138 through a G=1 GOP decoder, one G=4
+  batch under each token engine and ``xc decode``, against
+  ``chip_smoke.FEATURE_OFFGRID_SHA1``;
 - ``chip_smoke.OFFGRID_ENCODE_SHA1`` recomputed from the JAX package (its
   host encoder, its fast path with the Pallas kernels in interpret mode
   under one ``jax.jit`` each, its host ``reencode``);
@@ -66,10 +70,20 @@ def _sha(payload):
     return hashlib.sha1(payload).hexdigest()
 
 
-def test_distinct_gops_and_offgrid_clips_match_manifest():
+def _jax_frames(path):
+    """Each shown frame's SHA-1 as the JAX package's FilePlayer decodes
+    the file."""
+    return [_sha(r.dump_bytes()) for r in JFilePlayer(str(path))]
+
+
+def test_distinct_gops_and_offgrid_clips_match_manifest(tmp_path):
     """G=14 distinct QCIF clips in one batch, and the three clips off the
     grid through a G=1 batch and FilePlayer: every clip's manifest SHA-1
-    (the port alone, on the CPU)."""
+    (the port alone, on the CPU).  The four feature streams at 170x138
+    (partial macroblocks at the right and the bottom: vectors counted and
+    clamped on the rounded-up grid, references read past the edge) through
+    the port's FilePlayer, frame by frame equal to the JAX package's
+    FilePlayer on the same bytes and to chip_smoke.FEATURE_OFFGRID_SHA1."""
     groups = corpus.groups()
     qcif = groups[0]
     assert (qcif.width, qcif.height, len(qcif.clips),
@@ -82,6 +96,12 @@ def test_distinct_gops_and_offgrid_clips_match_manifest():
         assert len(g.clips) == 1 and (g.width % 16 or g.height % 16), name
         assert corpus.decode_batch(g, "cpu") == [clip.yuv_sha1], name
         assert corpus.play(clip.path, "cpu") == clip.yuv_sha1, name
+    paths = feature_streams.write_all(str(tmp_path), device="cpu",
+                                      size=feature_streams.OFFGRID_SIZE)
+    for name, path in paths.items():
+        got = corpus.play(path, "cpu", per_frame=True)
+        assert got == _jax_frames(path), name
+        assert got == chip_smoke.FEATURE_OFFGRID_SHA1[name], name
 
 
 # ------------------------------------------------------------------ slow
@@ -103,12 +123,6 @@ def test_whole_corpus_through_both_decoders():
                 [c.yuv_sha1 for c in g.clips], (engine, g.width, g.height)
     for c in clips:
         assert corpus.play(c.path, "cpu") == c.yuv_sha1, c.name
-
-
-def _jax_frames(path):
-    """Each shown frame's SHA-1 as the JAX package's FilePlayer decodes
-    the file."""
-    return [_sha(r.dump_bytes()) for r in JFilePlayer(str(path))]
 
 
 @pytest.mark.slow
@@ -139,6 +153,34 @@ def test_feature_streams_match_jax(tmp_path):
              "cpu"])
     for out in (jax_y4m, port_y4m):
         assert _sha(out.read_bytes()) == chip_smoke.XC_DECODE_Y4M_SHA1
+
+
+@pytest.mark.slow
+def test_offgrid_feature_streams_through_both_decoders(tmp_path):
+    """The streams at 170x138 through a G=1 GOP decoder each, one G=4
+    batch over their first frames under each token engine, and xc decode,
+    frame by frame against chip_smoke.FEATURE_OFFGRID_SHA1 (the JAX
+    package's FilePlayer's: the tier-1 item above)."""
+    size = feature_streams.OFFGRID_SIZE
+    paths = feature_streams.write_all(str(tmp_path), device="cpu", size=size)
+    want = chip_smoke.FEATURE_OFFGRID_SHA1
+    clips = []
+    for name, path in paths.items():
+        one = corpus.alone(path)
+        clips += one.clips
+        assert corpus.decode_batch(one, "cpu", per_frame=True) == \
+            [want[name]], name
+        y4m = tmp_path / (name + ".y4m")
+        xc.main(["decode", path, str(y4m), "--device", "cpu"])
+        assert chip_smoke.y4m_frame_sha1(str(y4m)) == want[name], name
+    n = chip_smoke.FEATURE_BATCH_FRAMES
+    batch = corpus.Group(size[0], size[1],
+                         corpus.frame_pattern(clips[0].payloads[:n]), clips)
+    engines = ["scalar"] + (["simd"] if bitwork.simd_supported() else [])
+    for engine in engines:
+        assert corpus.decode_batch(batch, "cpu", engine, frames=n,
+                                   per_frame=True) == \
+            [want[c.name][:n] for c in clips], engine
 
 
 def jax_offgrid_digests():

@@ -12,6 +12,7 @@ CUDA kernels against them.
 """
 import hashlib
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -266,3 +267,19 @@ def test_xc_decode_raw_and_state(tmp_path, capsysbinary):
     capsysbinary.readouterr()
     xc.main(["decode-raw", "--state", str(state), "--device", "cpu", clip])
     assert hashlib.sha1(capsysbinary.readouterr().out).hexdigest() == want
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", ["360x242", "720p"])
+def test_chip_smoke_decode_raw_digests_from_jax(name):
+    """chip_smoke.XC_DECODE_RAW_SHA1: the JAX package's ``xc decode-raw``
+    in a subprocess on the CPU (the 720p fixture about two minutes)."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    clip = {"720p": chip_smoke.CLIP, "360x242": chip_smoke.OFFGRID_CLIP}[name]
+    raw = subprocess.run(
+        [sys.executable, "-m", "alfalfa_tpu.cli.xc", "decode-raw", clip],
+        capture_output=True, check=True, cwd=str(REPO),
+        env=dict(os.environ, JAX_PLATFORMS="cpu")).stdout
+    assert hashlib.sha1(raw).hexdigest() == \
+        chip_smoke.XC_DECODE_RAW_SHA1[name]

@@ -257,29 +257,34 @@ def _jitted(name, R, C, make):
 
 
 @contextlib.contextmanager
-def jax_fast_path(R, C):
+def jax_fast_path(R, C, *more):
     """The JAX package's fast path as the port's comparisons need it on a
-    CPU host, for R x C macroblocks: ALFALFA_FAST_INTER=1, and _fast_raw,
-    its quantizer pair (vmapped) and the device loop-filter passes (steady
-    frames, the reference cache) each under one jax.jit: on a CPU the JAX
-    package runs them eagerly in interpret mode, minutes a frame.  Its
-    encoders encode the key frame on the host (device_encode=False) and
-    take the fast path once device_encode is turned on."""
+    CPU host, for R x C macroblocks (and each (R, C) of ``more``: the size
+    search's mosaic): ALFALFA_FAST_INTER=1, and _fast_raw, its quantizer
+    pair (vmapped) and the device loop-filter passes (steady frames, the
+    reference cache) each under one jax.jit: on a CPU the JAX package runs
+    them eagerly in interpret mode, minutes a frame.  Its encoders encode
+    the key frame on the host (device_encode=False) and take the fast path
+    once device_encode is turned on."""
     from alfalfa_tpu.encoder import encode_inter_device as JEID
-    fast = _jitted("fast", R, C,
-                   lambda: JEIF._fast_raw(R, C, True, False, True))
-    caches = (
-        (JEIF._FN_CACHE, (R, C, True, 2, False, "multiqp"),
-         _jitted("pair", R, C, lambda: jax.vmap(
-             JEIF._fast_raw(R, C, True, False),
+    shapes = [(R, C)] + [tuple(s) for s in more]
+    fast = {(r, c): _jitted("fast", r, c,
+                            lambda r=r, c=c: JEIF._fast_raw(r, c, True, False,
+                                                            True))
+            for r, c in shapes}
+    caches = [entry for r, c in shapes for entry in (
+        (JEIF._FN_CACHE, (r, c, True, 2, False, "multiqp"),
+         _jitted("pair", r, c, lambda r=r, c=c: jax.vmap(
+             JEIF._fast_raw(r, c, True, False),
              in_axes=(None,) * 6 + (0,) + (None,) * 6))),
-        (JEIF._LF_CACHE, (R, C, True), _jitted(
-            "lf", R, C, lambda: JEIF._lf_filter_and_pack_fn(R, C, True))),
-        (JEID._LFPACK_CACHE, (R, C, True), _jitted(
-            "lfpack", R, C, lambda: JEID._lf_pack_fn(R, C, True))))
+        (JEIF._LF_CACHE, (r, c, True), _jitted(
+            "lf", r, c, lambda r=r, c=c: JEIF._lf_filter_and_pack_fn(
+                r, c, True))),
+        (JEID._LFPACK_CACHE, (r, c, True), _jitted(
+            "lfpack", r, c, lambda r=r, c=c: JEID._lf_pack_fn(r, c, True))))]
     saved = (JEIF._fast_fn, os.environ.get("ALFALFA_FAST_INTER"),
              [cache.get(key) for cache, key, _ in caches])
-    JEIF._fast_fn = lambda *a: fast
+    JEIF._fast_fn = lambda r, c, *a: fast[r, c]
     os.environ["ALFALFA_FAST_INTER"] = "1"
     for cache, key, fn in caches:
         cache[key] = fn

@@ -41,6 +41,7 @@ from alfalfa_tpu_torch.encoder import Encoder
 from alfalfa_tpu_torch.encoder import encode_inter as EI
 from alfalfa_tpu_torch.ops import enc_inter, enc_inter_cuda
 from alfalfa_tpu_torch.state.decoder_state import Raster
+from alfalfa_tpu_torch.util.ivf import IVFReader
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FIXTURES = REPO / "tests" / "fixtures"
@@ -299,6 +300,34 @@ def test_xc_enc_matches_jax(mode, tmp_path):
             (tmp_path / "jax2.ivf").read_bytes()
 
 
+@pytest.mark.slow
+def test_xc_enc_target_size_offgrid_matches_jax(tmp_path):
+    """``xc enc -F --device cpu`` at 360x242 against the JAX package's ``xc
+    enc -F``: a key frame and two interframes of natural/cut_360x242_q56.ivf
+    (a 4 x 5 macroblock mosaic cut from a frame of partial macroblocks),
+    the IVF byte for byte, at the first three of chip_smoke.py's targets
+    for it.  About a minute (the port's trial encodes on the CPU)."""
+    import itertools
+    from alfalfa_tpu.decoder.decoder import FilePlayer as JFilePlayer
+    frames = [tuple(np.array(p) for p in r.display()) for r in
+              itertools.islice(JFilePlayer(chip_smoke.OFFGRID_CLIP), 3)]
+    h, w = frames[0][0].shape
+    y4m, sizes = tmp_path / "in.y4m", tmp_path / "sizes"
+    chip_smoke.write_y4m(str(y4m), frames, w, h)
+    sizes.write_text("".join("%d\n" % n for n in
+                             chip_smoke.TARGET_SIZES["360x242"][:3]))
+    for name, main, extra in (("jax", jxc.main, []),
+                              ("port", xc.main, ["--device", "cpu"])):
+        assert main(["enc", str(y4m), "-o", str(tmp_path / (name + ".ivf")),
+                     "-F", str(sizes)] + extra) is None
+    got = (tmp_path / "port.ivf").read_bytes()
+    assert got == (tmp_path / "jax.ivf").read_bytes()
+    assert [hashlib.sha1(p).hexdigest() for p in
+            IVFReader(str(tmp_path / "port.ivf"))] == [
+        chip_smoke.TARGET_SIZE_SHA1["360x242_best_frame%d" % k]
+        for k in range(3)]
+
+
 # ------------------------------------------------------------------ slow
 
 @pytest.mark.slow
@@ -335,3 +364,72 @@ def test_chip_smoke_inter_digests_from_jax():
     for label, f, q in zip(labels[1:], forks, chip_smoke.INTER_PAIR_QIS):
         got[label] = sha(f.encode_with_quantizer(frames[1], q))
     assert got == chip_smoke.INTER_ENCODE_SHA1
+
+
+def jax_target_size_digests(work, clips=None, trials=None):
+    """chip_smoke.TARGET_SIZE_SHA1 from the JAX package, as the comment
+    above it describes: its FilePlayer decodes frames 0-5 of each clip
+    into a y4m file in ``work``; its ``xc enc -F`` encodes them in best
+    and rt; for --fast its encoder is set up as its CLI's --fast sets it
+    up, the key frame on the host (whose frames equal its key-frame
+    kernel's: tests/test_device_encode.py) and the interframes with their
+    trial encodes on its fast path (test_torch_fast_inter.jax_fast_path,
+    for the frame's and the mosaic's shapes).  ``trials``, a list, gets
+    (clip, mode, quantizer, estimate) for every trial encode."""
+    import itertools
+    from alfalfa_tpu.decoder.decoder import FilePlayer as JFilePlayer
+    from alfalfa_tpu.util.ivf import IVFReader as JIVFReader
+    from test_torch_fast_inter import jax_fast_path
+    cs = chip_smoke
+    estimate = JEncoder.estimate_frame_size
+    where = [None, None]
+
+    def logged(self, yuv, y_ac_qi, key_frame=None):
+        n = estimate(self, yuv, y_ac_qi, key_frame)
+        if trials is not None:
+            trials.append((*where, int(y_ac_qi), n))
+        return n
+
+    JEncoder.estimate_frame_size = logged
+    got = {}
+    try:
+        for name, path in cs.TARGET_SIZE_CLIPS:
+            if clips is not None and name not in clips:
+                continue
+            frames = [tuple(np.array(p) for p in r.display()) for r in
+                      itertools.islice(JFilePlayer(str(path)),
+                                       cs.TARGET_SIZE_FRAMES)]
+            h, w = frames[0][0].shape
+            y4m, sizes = work / (name + ".y4m"), work / (name + ".sizes")
+            cs.write_y4m(str(y4m), frames, w, h)
+            sizes.write_text("".join("%d\n" % n
+                                     for n in cs.TARGET_SIZES[name]))
+            for mode, flags in cs.TARGET_SIZE_MODES:
+                where[:] = name, mode
+                if "--fast" in flags:
+                    e = JEncoder(w, h, quality="rt", device_encode=False)
+                    R, C = e.mb_rows, e.mb_cols
+                    with jax_fast_path(R, C, (max(1, R // 4),
+                                              max(1, C // 4))):
+                        pls = []
+                        for k, f in enumerate(frames):
+                            pls.append(e.encode_with_target_size(
+                                f, cs.TARGET_SIZES[name][k]))
+                            e.device_encode = True
+                else:
+                    out = work / ("%s_%s.ivf" % (name, mode))
+                    assert jxc.main(["enc", str(y4m), "-o", str(out), "-F",
+                                     str(sizes)] + list(flags)) is None
+                    pls = list(JIVFReader(str(out)))
+                got.update(zip(cs.target_size_labels(name, mode),
+                               (hashlib.sha1(p).hexdigest() for p in pls)))
+    finally:
+        JEncoder.estimate_frame_size = estimate
+    return got
+
+
+@pytest.mark.slow
+def test_chip_smoke_target_size_digests_from_jax(tmp_path):
+    """chip_smoke.TARGET_SIZE_SHA1, recomputed with the JAX package (about
+    ten minutes of CPU, most of it the 720p frames)."""
+    assert jax_target_size_digests(tmp_path) == chip_smoke.TARGET_SIZE_SHA1

@@ -327,19 +327,145 @@ def _control_can_fuse():
     assert not psender.can_fuse_jobs(pair(base))
 
 
+class _Pipe:
+    """A self-pipe end of the sender's: recv and send are no-ops."""
+
+    def recv(self, n):
+        return b"1"
+
+    def send(self, data):
+        return len(data)
+
+
+def _choice_stub(mod, log):
+    """A sender of ``mod`` with what handle_encodes_done and _send_output
+    read and write, its log lines going to ``log``."""
+    cls = mod.SalsifySender
+    s = types.SimpleNamespace(
+        _end_r=_Pipe(), _start_w=_Pipe(), _pending=None,
+        avg_encoding_time=mod.AverageEncodingTime(), avg_delay=None,
+        last_acked=None, cumulative_fpf=[], skipped_count=0, frame_no=0,
+        frames_sent=0, last_quantizer=64, sent_log=[], pacer=mod.Pacer(),
+        connection_id=1337, last_sent=time.monotonic(), encoders={},
+        encoder_states=[], receiver_assumed_state=None,
+        log_mem_usage=False, _log=log.append)
+    for name in ("handle_encodes_done", "_send_output", "frame_budget"):
+        if hasattr(cls, name):
+            setattr(s, name, types.MethodType(getattr(cls, name), s))
+    return s
+
+
+def _control_output_choice():
+    """handle_encodes_done's choice on seeded, scripted outputs and
+    budgets, the real _send_output behind it: one output fits, both fit,
+    none fits under MAX_SKIPPED (a skip), none fits at MAX_SKIPPED (the
+    fail-small output sent all the same), a conventional frame that does
+    not fit (skipped whatever the count), before and after the first ACK.
+    The chosen job, quantizer, skip count, frame number and log lines
+    equal the JAX package's after every step."""
+    rng = np.random.default_rng(16)
+    logs = ([], [])
+    stubs = [_choice_stub(mod, log) for mod, log in zip((psender, jsender),
+                                                        logs)]
+    seen = set()
+    for step in range(400):
+        mode = "conventional" if rng.random() < 0.1 else "s2"
+        delay = None if step < 3 else int(rng.integers(4000, 60_000))
+        acked = int(rng.integers(0, 40))
+        fpf = [acked + int(rng.integers(0, 6))] if step % 7 else []
+        case = rng.choice(["one", "both", "none"], p=[0.3, 0.2, 0.5])
+        budget = 5000       # before the first ACK every output fits
+        if delay is not None:
+            budget = psender.target_size(delay, acked,
+                                         fpf[-1] if fpf else 0)
+        else:
+            case = "both"
+        if case == "none" or budget == 0:
+            case = "none"
+            sizes = budget + 1 + rng.integers(0, 5000, 2)
+        elif case == "both":
+            sizes = rng.integers(1, budget + 1, 2)
+        else:
+            sizes = [int(rng.integers(1, budget + 1)),
+                     budget + 1 + int(rng.integers(0, 5000))]
+            rng.shuffle(sizes)
+        names = ["frame"] if mode == "conventional" else \
+            ["improve", "fail-small"]
+        qis = [int(rng.integers(3, 128)) for _ in names]
+        picked = []
+        for s, mod in zip(stubs, (psender, jsender)):
+            s.avg_delay, s.last_acked = delay, acked
+            s.cumulative_fpf = list(fpf)
+            s._pending = [mod.EncodeOutput(
+                types.SimpleNamespace(minihash=lambda h=1000 + 2 * step + j: h,
+                                      last_ssim=0.5 + j / 4),
+                bytes(int(n)), 999, 7 + j, name, q)
+                for j, (name, n, q) in enumerate(zip(names, sizes, qis))]
+            sent = s.frames_sent
+            assert s.handle_encodes_done() == mod.ResultType.Continue
+            picked.append((s.frames_sent - sent, s.sent_log[-1][1:3]
+                           if s.frames_sent > sent else None,
+                           s.last_quantizer, s.skipped_count, s.frame_no,
+                           s.receiver_assumed_state))
+        assert picked[0] == picked[1], step
+        assert logs[0] == logs[1], step
+        seen.add("sent" if picked[0][0] else "skipped")
+        if picked[0][0] and case == "none":
+            seen.add("fail-small after %d skips" % psender.MAX_SKIPPED)
+    assert {"sent", "skipped", "fail-small after %d skips"
+            % psender.MAX_SKIPPED} <= seen
+    assert any(l.startswith("too many skips") for l in logs[0])
+    assert jsender.MAX_SKIPPED == psender.MAX_SKIPPED
+
+
+def _control_traces(tmp_path):
+    """lte_like_trace at three parameter sets (the default, the link of
+    tests/test_net_emulation.py, chip_smoke.py's salsify_link) and
+    load_mahimahi_trace on a trace file with blank lines equal the JAX
+    package's."""
+    from alfalfa_tpu.net import emulation as jemulation
+    from alfalfa_tpu_torch.net import emulation
+    import chip_smoke
+    for kw in ({}, dict(ms_total=12000, period_ms=3000, high_pps=40,
+                        low_pps=1), chip_smoke.SALSIFY_LINK_TRACE):
+        got = emulation.lte_like_trace(**kw)
+        assert got == jemulation.lte_like_trace(**kw) and got, kw
+    rng = np.random.default_rng(17)
+    path = tmp_path / "trace.txt"
+    ms = np.cumsum(rng.integers(0, 5, 500)).tolist()
+    path.write_text("".join("%d\n%s" % (t, "\n" if k % 50 == 0 else "")
+                            for k, t in enumerate(ms)))
+    got = emulation.load_mahimahi_trace(str(path))
+    assert got == jemulation.load_mahimahi_trace(str(path)) == ms
+
+
 CONTROL = {"quantizer_and_target_size": _control_quantizer_and_target,
            "averages": _control_averages, "update_cc": _control_update_cc,
            "state_selection": _control_state_selection,
-           "can_fuse_jobs": _control_can_fuse}
+           "can_fuse_jobs": _control_can_fuse,
+           "output_choice": _control_output_choice,
+           "traces": _control_traces}
 
 
-@pytest.mark.parametrize("case", list(CONTROL))
-def test_sender_control_matches_jax(case):
+# the cases added after the tier-1 clock filled up run under -m slow (a
+# few seconds together): one more tier-1 item changes xdist's first
+# chunks from 22 to 23 items, which replays 15 % slower
+SLOW_CONTROL = ("output_choice", "traces")
+
+
+@pytest.mark.parametrize("case", [
+    pytest.param(c, marks=pytest.mark.slow) if c in SLOW_CONTROL else c
+    for c in CONTROL])
+def test_sender_control_matches_jax(case, tmp_path):
     """clamp_quantizer, target_size, the two EWMAs, the conventional
-    mode's controller and the source-state bookkeeping equal the JAX
-    package's on the same seeded sequences; can_fuse_jobs on the port's
-    attributes."""
-    CONTROL[case]()
+    mode's controller, the source-state bookkeeping, the choice of the
+    output to send (or to skip) and the emulated link's traces equal the
+    JAX package's on the same seeded sequences; can_fuse_jobs on the
+    port's attributes."""
+    if case == "traces":
+        CONTROL[case](tmp_path)
+    else:
+        CONTROL[case]()
 
 
 # -------------------------------------------------- (c) the receiver
@@ -555,6 +681,79 @@ def test_loopback(case):
     """tests/test_salsify.py's four cases through the port's sender and
     receiver on loopback UDP, with the same assertions."""
     LOOPBACK[case]()
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("delay_ms", [20, 200])
+def test_salsify_over_emulated_link(delay_ms):
+    """tests/test_net_emulation.py through the port on the CPU, at its size,
+    trace, queue and gates (the stream survives the capacity dips; frames
+    sent while the ACK-measured delay is high are smaller), on ephemeral
+    ports: at its 20 ms one-way delay, and at 200 ms, where the budget
+    also has to bind: at least one frame is skipped.  At 200 ms a frame
+    stays in flight longer than a 64x48 encode takes on a busy host, so in
+    a dip (one packet a 100 ms) the budget is spent whatever the host's
+    speed; at 20 ms a slow host sees every frame acknowledged before its
+    next encode ends and may skip none."""
+    from alfalfa_tpu_torch.net.emulation import EmulatedLink, lte_like_trace
+    n = 80
+    clip = list(gen_clip(W, H, 12, seed=9)) * (n // 12 + 1)
+    received = []
+    receiver = preceiver.SalsifyReceiver(0, W, H, host="127.0.0.1",
+                                         on_raster=received.append,
+                                         device="cpu")
+    trace = lte_like_trace(ms_total=12000, period_ms=3000, high_pps=40,
+                           low_pps=1)
+    link = EmulatedLink(0, receiver.socket.getsockname()[1], trace,
+                        delay_ms=delay_ms, queue_limit=32).start()
+
+    def serve():
+        try:
+            receiver.run(max_frames=n, timeout_ms=60000)
+        except (OSError, ValueError):
+            pass                # its socket closed under it (below)
+
+    rt = threading.Thread(target=serve, daemon=True)
+    rt.start()
+    sender = psender.SalsifySender("127.0.0.1", link.listen_port, 1337,
+                                   ClipInput(clip, W, H), mode="s2",
+                                   drop_frames_while_busy=False,
+                                   device="cpu")
+    lines = []
+    sender._log = lines.append
+    try:
+        sender.run(max_frames=n)
+        # an encode still running for the next frame ends before the
+        # sender closes
+        deadline = time.monotonic() + 30
+        while sender._pending == [] and time.monotonic() < deadline:
+            time.sleep(0.01)
+        time.sleep(0.05)
+        deadline = time.monotonic() + 20
+        while rt.is_alive() and time.monotonic() < deadline and \
+                len(received) < n // 2:
+            rt.join(0.1)
+    finally:
+        sender.close()
+        receiver.close()
+        link.close()
+
+    assert len(received) >= n // 2, f"only {len(received)} frames arrived"
+    assert link.stats["delivered"] > 0 and link.stats["acks"] > 0
+    if delay_ms == 200:
+        assert any(l.startswith("skipping frame") for l in lines)
+    log = [(size, delay) for _, size, delay, _, _ in sender.sent_log
+           if delay is not None]
+    assert len(log) >= 20, "too few delay-informed sends to judge adaptation"
+    sizes = np.array([v for v, _ in log], float)
+    delays = np.array([d for _, d in log], float)
+    hi = delays > np.median(delays)
+    assert hi.any() and (~hi).any()
+    assert sizes[hi].mean() < sizes[~hi].mean(), (
+        f"no adaptation: mean size at high delay {sizes[hi].mean():.0f} >= "
+        f"{sizes[~hi].mean():.0f} at low delay")
+    corr = float(np.corrcoef(sizes, delays)[0, 1])
+    assert corr < -0.2, f"size/delay correlation too weak: {corr:.2f}"
 
 
 # --------------------------------------------- (e) payloads by replay
