@@ -32,8 +32,13 @@ programs and ExCamera's toolchain):
 Frames are reconstructed and encoded on ``--device`` (default ``cuda``;
 ``cpu`` runs the kernels' plain versions); the commands that only read
 IVF or state files run on the host and take no device.  ``--timings``
-prints the stage timings on stderr, ``--profile DIR`` writes a
-torch.profiler Chrome trace into DIR.  Run from the repository root:
+prints the stage timings on stderr: each span's total and self time (the
+total less what its child spans took), count and mean, then the counters
+(``d2h.*``: bytes copied to the host at each site; loop-filter levels
+filtered and climbed).  ``--profile DIR`` writes a torch.profiler Chrome
+trace into DIR, in which every stage of the codec is a named range on the
+profiler's clock beside the kernels it launched.  Run from the repository
+root:
 
     python -m alfalfa_tpu_torch.cli.xc decode-raw in.ivf > out.yuv
     python -m alfalfa_tpu_torch.cli.xc enc -o out.ivf --y-ac-qi 48 in.y4m
@@ -730,7 +735,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(prog="xc", description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--timings", action="store_true",
-                        help="print per-stage timings to stderr")
+                        help="print per-stage total and self times and the "
+                             "counters to stderr")
     parser.add_argument("--profile", metavar="DIR", default=None,
                         help="write a torch.profiler Chrome trace to DIR")
     sub = parser.add_subparsers(dest="command", required=True)

@@ -22,15 +22,17 @@ class Decoder:
     def __init__(self, width, height, state=None, references=None,
                  device=None, error_concealment=False):
         self.device = torch.device("cuda" if device is None else device)
-        self.state = state if state is not None else DecoderState.initial(width, height)
-        refs = (references if references is not None
-                else References.create(width, height))
-        self.references = refs.on_device(self.device)
-        if self.device.type == "cuda":
-            # the native parsers must load: the Python parsers they would
-            # fall back to are minutes per 720p frame
-            bitwork._load()
-            bitwork._load_mb()
+        with tracing.stage("decode.new"):
+            self.state = (state if state is not None
+                          else DecoderState.initial(width, height))
+            refs = (references if references is not None
+                    else References.create(width, height))
+            self.references = refs.on_device(self.device)
+            if self.device.type == "cuda":
+                # the native parsers must load: the Python parsers they
+                # would fall back to are minutes per 720p frame
+                bitwork._load()
+                bitwork._load_mb()
         self.error_concealment = error_concealment
         # the pinned buffers each frame's upload goes through, shared with
         # this decoder's copies
@@ -50,17 +52,19 @@ class Decoder:
         the decoder state and references.  The raster's planes are tensors
         on the decoder's device (inference tensors: read them, clone them,
         but do not write them in place)."""
-        chunk = UncompressedChunk(payload, self.width, self.height,
-                                  accept_partial=self.error_concealment)
-        # experimental (version 4/6) interframes decode like normal
-        # interframes: the version bits are advisory
-        with tracing.stage("decode.parse"):
-            header, arrays, _frame_probs = FrameParser(self.state).parse(chunk)
-        with tracing.stage("decode.reconstruct", sync=True):
-            raster = reconstruct_torch.reconstruct(
-                header, arrays, self.state, self.references, chunk.key_frame,
-                device=self.device, staging=self._staging)
-        self._update_references(chunk.key_frame, header, raster)
+        with tracing.stage("decode.frame"):
+            chunk = UncompressedChunk(payload, self.width, self.height,
+                                      accept_partial=self.error_concealment)
+            # experimental (version 4/6) interframes decode like normal
+            # interframes: the version bits are advisory
+            with tracing.stage("decode.parse"):
+                header, arrays, _ = FrameParser(self.state).parse(chunk)
+            with tracing.stage("decode.reconstruct", sync=True):
+                raster = reconstruct_torch.reconstruct(
+                    header, arrays, self.state, self.references,
+                    chunk.key_frame, device=self.device,
+                    staging=self._staging)
+            self._update_references(chunk.key_frame, header, raster)
         return chunk.show_frame, raster
 
     def _update_references(self, key_frame, header, raster):

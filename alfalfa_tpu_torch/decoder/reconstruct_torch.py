@@ -30,6 +30,7 @@ from alfalfa_tpu_torch.ops.wavefront_cuda import wavefront_decode
 from alfalfa_tpu_torch.parallel.upload import (PinnedStaging, pack_upload,
                                                unpack_upload)
 from alfalfa_tpu_torch.state.decoder_state import Raster
+from alfalfa_tpu_torch.util import tracing
 
 
 def _assemble(blocks, n):
@@ -158,31 +159,34 @@ def reconstruct(header, arrays, state, references, key_frame, device=None,
     dev = torch.device("cuda" if device is None else device)
     R, C = arrays.mb_rows, arrays.mb_cols
     i32 = lambda a: np.asarray(a, np.int32)
-    host = {"coeffs": np.asarray(arrays.densify_coeffs(), np.int16),
-            "y2_coded": np.asarray(arrays.y2_coded, bool),
-            "has_nonzero": np.asarray(arrays.has_nonzero, bool),
-            "ymode": i32(arrays.ymode), "uvmode": i32(arrays.uvmode),
-            "bmode": np.asarray(arrays.bmode, np.uint8).reshape(R, C, 16),
-            "ref_sel": i32(arrays.ref), "sub_mv": i32(arrays.sub_mv),
-            "uv_mv": i32(arrays.uv_mv)}
-    host.update(("qf." + k, i32(q)) for k, q in
-                _frame_quant_factors(header, state, arrays.segment).items())
-    lf = frame_lf_params(header, arrays, state, key_frame)
-    host.update(("lf%d" % i, i32(x)) for i, x in enumerate(lf[:5]))
-    host["lf5"] = np.asarray(lf[5], bool)
-    mega, spec = pack_upload(host)
-    if staging is None:
-        staging = PinnedStaging(dev)
-    d = unpack_upload(staging.upload(mega), spec)
-    refs = None
-    if not key_frame:
-        rasters = [r.on_device(dev) for r in (
-            references.last, references.golden, references.alternative)]
-        refs = {p: tuple(getattr(r, p) for r in rasters) for p in "yuv"}
-    y, u, v = reconstruct_core(
-        key_frame, d["coeffs"], {k[3:]: q for k, q in d.items()
-                                 if k.startswith("qf.")},
-        d["y2_coded"], d["has_nonzero"], d["ymode"], d["uvmode"], d["bmode"],
-        d["ref_sel"], d["sub_mv"], d["uv_mv"], refs,
-        tuple(d["lf%d" % i] for i in range(6)))
+    with tracing.stage("decode.prep"):
+        host = {"coeffs": np.asarray(arrays.densify_coeffs(), np.int16),
+                "y2_coded": np.asarray(arrays.y2_coded, bool),
+                "has_nonzero": np.asarray(arrays.has_nonzero, bool),
+                "ymode": i32(arrays.ymode), "uvmode": i32(arrays.uvmode),
+                "bmode": np.asarray(arrays.bmode, np.uint8).reshape(R, C, 16),
+                "ref_sel": i32(arrays.ref), "sub_mv": i32(arrays.sub_mv),
+                "uv_mv": i32(arrays.uv_mv)}
+        host.update(("qf." + k, i32(q)) for k, q in
+                    _frame_quant_factors(header, state, arrays.segment).items())
+        lf = frame_lf_params(header, arrays, state, key_frame)
+        host.update(("lf%d" % i, i32(x)) for i, x in enumerate(lf[:5]))
+        host["lf5"] = np.asarray(lf[5], bool)
+        mega, spec = pack_upload(host)
+    with tracing.stage("decode.upload"):
+        if staging is None:
+            staging = PinnedStaging(dev)
+        d = unpack_upload(staging.upload(mega), spec)
+    with tracing.stage("decode.device"):
+        refs = None
+        if not key_frame:
+            rasters = [r.on_device(dev) for r in (
+                references.last, references.golden, references.alternative)]
+            refs = {p: tuple(getattr(r, p) for r in rasters) for p in "yuv"}
+        y, u, v = reconstruct_core(
+            key_frame, d["coeffs"], {k[3:]: q for k, q in d.items()
+                                     if k.startswith("qf.")},
+            d["y2_coded"], d["has_nonzero"], d["ymode"], d["uvmode"],
+            d["bmode"], d["ref_sel"], d["sub_mv"], d["uv_mv"], refs,
+            tuple(d["lf%d" % i] for i in range(6)))
     return Raster(state.width, state.height, y, u, v)

@@ -257,6 +257,7 @@ def _encode(encoders, yuv, quant_list, update, rebase_kf_header=None):
         # one copy: the coefficients' bytes, then the mode words'
         packed = torch.cat([coeffs.reshape(-1).view(torch.uint8),
                             modes.reshape(-1).view(torch.uint8)]).cpu().numpy()
+    tracing.count("d2h.inter_fetch", packed.nbytes)
     n = coeffs.numel() * 2
     co_h = packed[:n].view(np.int16).reshape(-1, R, C, 25, 16)
     md_h = packed[n:].view(np.int32).reshape(-1, R, C, MODE_WORDS)

@@ -320,6 +320,7 @@ def _encode(encoders, yuv, quant_list, update):
         parts = [coeffs, modes] + (recon if patch else [])
         packed = torch.cat([t.reshape(-1).view(torch.uint8)
                             for t in parts]).cpu().numpy()
+    tracing.count("d2h.fast_fetch", packed.nbytes)
     host, off = [], 0
     for t, dt in zip(parts, (np.int16, np.int32) + (np.uint8,) * 3):
         n = t.numel() * t.element_size()

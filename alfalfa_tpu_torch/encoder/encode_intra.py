@@ -45,6 +45,7 @@ def encode_keyframe(oplanes, width, height, q, rate_mult, dist_mult,
         # one copy: the coefficients' bytes, then the modes
         packed = torch.cat([coeffs.reshape(-1).view(torch.uint8),
                             modes.reshape(-1)]).cpu().numpy()
+    tracing.count("d2h.enc_fetch", packed.nbytes)
     n = R * C * 25 * 16 * 2
     md = packed[n:].reshape(R, C, MODE_WORDS)
     arrays = FrameArrays(R, C)

@@ -95,9 +95,10 @@ class Encoder:
         self.width, self.height = width, height
         self.mb_cols = (width + 15) // 16
         self.mb_rows = (height + 15) // 16
-        self.state = DecoderState.initial(width, height)
-        self.references = References.create(width, height).on_device(
-            self.device)
+        with tracing.stage("enc.new"):
+            self.state = DecoderState.initial(width, height)
+            self.references = References.create(width, height).on_device(
+                self.device)
         self.frame_no = 0
         self.quality = quality
         self.two_pass = two_pass
@@ -120,7 +121,9 @@ class Encoder:
         if key_frame is None:
             key_frame = self.frame_no == 0
         qi = QuantIndices(y_ac_qi=int(y_ac_qi))
-        payload, quality = self._encode_frame(yuv, qi, key_frame, update=True)
+        with tracing.stage("enc.frame"):
+            payload, quality = self._encode_frame(yuv, qi, key_frame,
+                                                  update=True)
         self.frame_no += 1
         self.last_y_ac_qi = int(y_ac_qi)
         self.last_ssim = quality
@@ -350,17 +353,20 @@ class Encoder:
         0: the planes unfiltered), the frame broadcast over them, not
         copied.  Returns (G, H, W), (G, H/2, W/2), (G, H/2, W/2) uint8
         planes."""
-        per_level = []
-        for level in levels:
-            h = _copy.copy(header)
-            h.loop_filter_level = level
-            per_level.append(frame_lf_params(h, arrays, state, key_frame))
-        lf = [torch.from_numpy(np.stack(x)).to(self.device)
-              for x in zip(*per_level)]
+        tracing.count("enc.lf_levels_filtered", len(levels))
+        with tracing.stage("enc.lf_params"):
+            per_level = []
+            for level in levels:
+                h = _copy.copy(header)
+                h.loop_filter_level = level
+                per_level.append(frame_lf_params(h, arrays, state, key_frame))
+            lf = [torch.from_numpy(np.stack(x)).to(self.device)
+                  for x in zip(*per_level)]
         G = len(levels)
-        planes = [p.expand((G,) + p.shape)
-                  for p in (recon.y, recon.u, recon.v)]
-        return loop_filter(*planes, tuple(lf))
+        with tracing.stage("enc.lf_filter"):
+            planes = [p.expand((G,) + p.shape)
+                      for p in (recon.y, recon.u, recon.v)]
+            return loop_filter(*planes, tuple(lf))
 
     def _search_loopfilter(self, header, arrays, state, recon, oy,
                            key_frame):
@@ -384,15 +390,18 @@ class Encoder:
         dh, dw = self.height, self.width
         levels = list(range(min_lf, max_lf + 1))
         best = (-1.0, 0, None)
+        climbed = 0     # levels compared, the first that did not improve too
         for base in range(0, len(levels), LF_CHUNK):
             chunk = levels[base:base + LF_CHUNK]
             Y, U, V = self._filter_levels(header, arrays, state, recon, chunk,
                                           key_frame)
-            scores = ssim(Y[:, :dh, :dw], oy[:dh, :dw]).tolist()
+            with tracing.stage("enc.lf_score"):
+                scores = ssim(Y[:, :dh, :dw], oy[:dh, :dw]).tolist()
             stop = False
             # the reference's break-on-first-SSIM-drop, in level order: the
             # picked level is the serial climb's (encoder.cc:488)
             for g, (level, s) in enumerate(zip(chunk, scores)):
+                climbed += 1
                 if s > best[0]:
                     best = (s, level, (Y[g], U[g], V[g]))
                 else:
@@ -400,6 +409,7 @@ class Encoder:
                     break
             if stop:
                 break
+        tracing.count("enc.lf_levels_climbed", climbed)
         s, level, planes = best
         filtered = Raster(self.width, self.height,
                           *(p.clone() for p in planes))

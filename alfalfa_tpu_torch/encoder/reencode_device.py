@@ -46,5 +46,6 @@ def apply_residues_device(orig, recon, arrays, q, references):
                            (recon.y, recon.u, recon.v))
     with tracing.stage("rebase.fetch"):
         out = out.cpu().numpy()     # one copy: coefficients and flags
+    tracing.count("d2h.rebase_fetch", out.nbytes)
     arrays.coeffs[:], arrays.has_nonzero[:], arrays.y2_coded[:] = \
         split_out(out)

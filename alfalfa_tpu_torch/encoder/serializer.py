@@ -11,6 +11,7 @@ from alfalfa_tpu_torch.bitstream.boolcoder import BoolEncoder, tree_path
 from alfalfa_tpu_torch.bitstream.header import UncompressedChunk
 from alfalfa_tpu_torch.decoder.parse import FrameParser, flipped_map_for
 from alfalfa_tpu_torch.native import bitwork
+from alfalfa_tpu_torch.util import tracing
 
 # precomputed tree paths: leaf -> [(bit, node_index), ...]
 _PATH_CACHE = {}
@@ -149,17 +150,19 @@ def refresh_all_references(payload, state, width, height, show=None):
     refreshes them all already and comes back as it is.  ``state``: the
     DecoderState the frame parses against (the parse advances it).
     ``show``: the frame tag's show bit (None: the payload's own)."""
-    chunk = UncompressedChunk(payload, width, height)
-    header, arrays, frame_probs = FrameParser(state).parse(chunk)
-    if chunk.key_frame:
-        return payload
-    header.refresh_last = True
-    header.refresh_golden_frame = True
-    header.refresh_alternate_frame = True
-    header.copy_buffer_to_golden = None
-    header.copy_buffer_to_alternate = None
-    return serialize_frame(header, arrays, frame_probs, False, width, height,
-                           chunk.show_frame if show is None else show)
+    with tracing.stage("enc.terminate"):
+        chunk = UncompressedChunk(payload, width, height)
+        header, arrays, frame_probs = FrameParser(state).parse(chunk)
+        if chunk.key_frame:
+            return payload
+        header.refresh_last = True
+        header.refresh_golden_frame = True
+        header.refresh_alternate_frame = True
+        header.copy_buffer_to_golden = None
+        header.copy_buffer_to_alternate = None
+        return serialize_frame(header, arrays, frame_probs, False, width,
+                               height,
+                               chunk.show_frame if show is None else show)
 
 
 def count_token_branches(arrays, counts=None):

@@ -14,6 +14,7 @@ import struct
 import numpy as np
 import torch
 
+from alfalfa_tpu_torch.util import tracing
 from .decoder_state import (DecoderState, ProbabilityTables, Segmentation,
                             FilterAdjustments, References, Raster)
 
@@ -193,6 +194,11 @@ def write_references(w, refs):
     w.u32(0)
     start = len(w.buf)
     last = refs.last
+    if tracing.enabled() and isinstance(last.y, torch.Tensor) \
+            and last._host is None:
+        # the planes' one copy to the host, which the raster then keeps
+        tracing.count("d2h.state_save", sum(
+            p.numel() * p.element_size() for p in (last.y, last.u, last.v)))
     y, u, v = last.to_host()
     w.u16(last.display_width)
     w.u16(last.display_height)
@@ -223,15 +229,16 @@ def read_references(r, width, height):
 
 def save_decoder(state, references, path=None):
     """Serializes (DecoderState, References) to `.state` bytes."""
-    w = Writer()
-    w.tag(DECODER)
-    ph = len(w.buf)
-    w.u32(0)
-    start = len(w.buf)
-    write_decoder_state(w, state)
-    write_references(w, references)
-    w.u32_at(ph, len(w.buf) - start)
-    data = bytes(w.buf)
+    with tracing.stage("state.save"):
+        w = Writer()
+        w.tag(DECODER)
+        ph = len(w.buf)
+        w.u32(0)
+        start = len(w.buf)
+        write_decoder_state(w, state)
+        write_references(w, references)
+        w.u32_at(ph, len(w.buf) - start)
+        data = bytes(w.buf)
     if path is not None:
         with open(path, "wb") as f:
             f.write(data)

@@ -13,6 +13,8 @@ the loop-filter climb and the SSIM-target search compare these values.
 import numpy as np
 import torch
 
+from alfalfa_tpu_torch.util import tracing
+
 C1 = 416      # .01^2 * 255^2 * 64
 C2 = 235963   # .03^2 * 255^2 * 64 * 63
 
@@ -49,8 +51,10 @@ def ssim(img1, img2):
     f = lambda x: x.to(torch.float64)
     vals = ((2.0 * f(t1) * f(t2) + C1) * (2.0 * f(covar) + C2)
             / (f(t1 * t1 + t2 * t2 + C1) * f(vars_ + C2)))
-    return serial_mean(vals.expand(lead + vals.shape[-2:]).flatten(-2)
-                       .cpu().numpy())
+    host = vals.expand(lead + vals.shape[-2:]).flatten(-2).cpu().numpy()
+    tracing.count("d2h.ssim", host.nbytes)
+    with tracing.stage("ssim.serial_mean"):
+        return serial_mean(host)
 
 
 def serial_mean(vals):

@@ -231,23 +231,29 @@ def _subprocess_failure(module, argv, dev):
 
 
 def test_cli_flags_and_display_match_jax(tmp_path):
-    """``--timings`` prints the JAX CLI's stage report on stderr;
-    ``--profile DIR`` writes a Chrome trace there and names it; ``play``,
+    """``--timings`` prints the JAX CLI's stage report on stderr, the
+    port's with each span's self time beside its total; ``--profile DIR``
+    writes a Chrome trace there and names it; ``play``,
     ``display-jpeg`` and ``webcam`` are registered and, on a host without
     a display (or without OpenCV), fail as the JAX CLI's do: the same exit
     code and the same last line of stderr."""
     src = str(FIXTURES / "kf_64x48_q40.ivf")
-    line = re.compile(r"^  (\S+) +total +[0-9.]+ ms   n +[0-9]+   mean +"
-                      r"[0-9.]+ ms$")
+    jax_line = re.compile(r"^  (\S+) +total +[0-9.]+ ms   n +[0-9]+   "
+                          r"mean +[0-9.]+ ms$")
+    port_line = re.compile(r"^  (\S+) +total +[0-9.]+ ms   self +[0-9.]+ ms"
+                           r"   n +[0-9]+   mean +[0-9.]+ ms$")
     reports = []
-    for main, dev in ((jxc.main, []), (xc.main, CPU)):
+    for main, dev, line in ((jxc.main, [], jax_line),
+                            (xc.main, CPU, port_line)):
         err = io.StringIO()
         with contextlib.redirect_stderr(err):
             assert run_xc(main, ["--timings", "decode", src,
                                  str(tmp_path / "t.y4m")] + dev)[0] == 0
         text = err.getvalue().splitlines()
         start = text.index("-- stage timings --")
-        stages = [line.match(l) for l in text[start + 1:]]
+        end = (text.index("-- counters --") if "-- counters --" in text
+               else len(text))
+        stages = [line.match(l) for l in text[start + 1:end]]
         assert stages and all(stages), text
         reports.append({m.group(1) for m in stages})
     assert "decode.parse" in reports[0] & reports[1]
